@@ -1,0 +1,19 @@
+"""wgpu_n_body_tpu_torch — the PyTorch/CUDA port of ``wgpu_n_body_tpu``.
+
+The same layout and public names as the JAX package, which stays the
+reference the port is held against:
+
+- ``params``      value types and the numpy state bridge
+- ``inits``       initial-condition generators (torch.Generator)
+- ``models``      simulation backends: naive O(N^2)
+- ``ops``         forces (plain torch + the hand-written CUDA all-pairs
+                  kernel in ``csrc/naive_forces.cu``), leapfrog, energy
+- ``runners``     headless step loop, trajectory IO
+- ``utils``       profiling, checkpointing (format shared with JAX)
+"""
+
+from wgpu_n_body_tpu_torch.params import NaiveParams, ParticleState, SimParams
+
+__all__ = ["SimParams", "NaiveParams", "ParticleState"]
+
+__version__ = "0.1.0"

@@ -1,0 +1,155 @@
+"""Command-line entry points — counterpart of ``wgpu_n_body_tpu/cli.py``
+(reference src/bin/ + benches/benchmark.rs).
+
+    python -m wgpu_n_body_tpu_torch.cli headless --sim naive --n 262144
+    python -m wgpu_n_body_tpu_torch.cli bench
+
+Flags and defaults are the JAX package's, plus ``--device`` (default
+``cuda``; there is no silent fallback to the CPU). Only the naive backend
+on one device is ported: ``--sim tree|tree-host`` and ``--devices > 1``
+exit with code 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from wgpu_n_body_tpu_torch.inits import INITS, uniform_init
+from wgpu_n_body_tpu_torch.models import NaiveSim
+from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
+from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
+from wgpu_n_body_tpu_torch.utils.profiling import sync
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available")
+    return device
+
+
+def _build_sim(args) -> NaiveSim:
+    if args.sim != "naive" or args.devices > 1:
+        print(
+            f"--sim {args.sim} --devices {args.devices}: not yet ported "
+            "(ROADMAP A6-A13); the port runs --sim naive on one device",
+            file=sys.stderr,
+        )
+        raise SystemExit(2)
+    params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
+    return NaiveSim(params, NaiveParams(use_pallas=not args.no_pallas))
+
+
+def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
+    if sim_list:  # bench: comma-separated list of backends
+        p.add_argument("--sim", default=sim)
+    else:
+        p.add_argument("--sim", choices=["naive", "tree", "tree-host"], default=sim)
+    p.add_argument("--n", type=int, default=n)
+    p.add_argument("--g", type=float, default=g)
+    p.add_argument("--e", type=float, default=e)
+    p.add_argument("--dt", type=float, default=dt)
+    p.add_argument("--init", choices=["uniform", "disc", "spherical"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-pallas", action="store_true",
+                   help="plain torch force instead of the hand-written kernel")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard over K devices (not ported yet: 0/1 only)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the state (default cuda)")
+
+
+def cmd_headless(args) -> int:
+    """bin/headless.rs analog: per-step microseconds printed
+    (headless.rs:12-34)."""
+    sim = _build_sim(args)
+    runner = OfflineHeadless(
+        sim, INITS[args.init or "uniform"], seed=args.seed, device=_device(args.device)
+    )
+    traj = (
+        TrajectoryWriter(args.trajectory, meta={"n": args.n, "dt": args.dt})
+        if args.trajectory
+        else None
+    )
+    runner.run(
+        steps=args.steps,
+        chunk=args.chunk,
+        log_every=args.chunk if args.chunk > 1 else 1,
+        trajectory=traj,
+        trajectory_every=args.trajectory_every,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every or args.steps,
+        energy_every=args.energy_every,
+    )
+    mean = runner.timer.mean_s()
+    print(f"mean: {mean * 1e6:.1f} us/step over {args.steps} steps")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """benches/benchmark.rs analog: sweep N in 8192*{1,2,4,8,16}, report
+    bodies/sec and pairs/sec, one JSON line per point. Each point times
+    ``reps`` steps queued back to back, closed by a device synchronise."""
+    device = _device(args.device)
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    sizes = args.sizes or [8192 * k for k in (1, 2, 4, 8, 16)]
+    for sim_name in args.sim.split(","):
+        for n in sizes:
+            a = argparse.Namespace(**vars(args))
+            a.sim, a.n = sim_name, n
+            sim = _build_sim(a)
+            state = sim.init_state(
+                torch.Generator().manual_seed(args.seed), uniform_init, device
+            )
+            step = sim.make_step()
+            state = step(state)  # warm-up (builds the kernel on first use)
+            sync(state.pos)
+            t0 = time.perf_counter()
+            for _ in range(args.reps):
+                state = step(state)
+            sync(state.pos)
+            dt = (time.perf_counter() - t0) / args.reps
+            print(json.dumps({
+                "sim": sim_name,
+                "n": n,
+                "device": kind,
+                "s_per_step": dt,
+                "bodies_per_sec": n / dt,
+                "pairs_per_sec": n * n / dt,
+            }))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="wgpu_n_body_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("headless", help="timed compute-only run")
+    _add_sim_flags(p, n=4_000_000, g=1e-6, e=1e-4, dt=0.016, sim="tree")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--chunk", type=int, default=1)
+    p.add_argument("--trajectory", type=str, default=None)
+    p.add_argument("--trajectory-every", type=int, default=0)
+    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--energy-every", type=int, default=0)
+    p.set_defaults(fn=cmd_headless)
+
+    p = sub.add_parser("bench", help="criterion-style sweep")
+    _add_sim_flags(p, n=8192, g=1e-6, e=1e-4, dt=0.016, sim="naive", sim_list=True)
+    p.add_argument("--sizes", type=int, nargs="*", default=None)
+    p.add_argument("--reps", type=int, default=10)
+    p.set_defaults(fn=cmd_bench)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,6 @@
+"""Simulation backends (the reference's `sims` module)."""
+
+from wgpu_n_body_tpu_torch.models.base import Simulator
+from wgpu_n_body_tpu_torch.models.naive import NaiveSim
+
+__all__ = ["Simulator", "NaiveSim"]

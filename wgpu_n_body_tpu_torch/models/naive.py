@@ -1,0 +1,52 @@
+"""Naive O(N^2) backend — counterpart of ``wgpu_n_body_tpu/models/naive.py``
+(reference src/sims/naive.rs + naive.wgsl).
+
+State stays on its device; particle order is preserved across steps. The
+force is picked by the tensors' device: with ``use_pallas=True`` a CUDA
+state goes through the hand-written kernel (``ops/naive_cuda.py``) and a
+CPU state through the plain torch version; ``use_pallas=False`` takes the
+plain version on every device.
+"""
+
+from __future__ import annotations
+
+from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
+from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
+from wgpu_n_body_tpu_torch.ops.naive_cuda import naive_forces_cuda
+from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+from wgpu_n_body_tpu_torch.params import NaiveParams, ParticleState, SimParams
+from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
+
+
+class NaiveSim(Simulator):
+    """All-pairs softened gravity, one step per call."""
+
+    def __init__(self, sim_params: SimParams, add_params: NaiveParams | None = None):
+        super().__init__(sim_params)
+        self.add_params = add_params or NaiveParams()
+        if self.add_params.mxu:
+            raise NotImplementedError(
+                "NaiveParams.mxu=True (the factored-accumulation kernel) is not "
+                "ported yet: ROADMAP B2"
+            )
+
+    def step_fn(self) -> StepFn:
+        params, ap = self.sim_params, self.add_params
+
+        if ap.use_pallas:
+
+            def force(pos_new, pos_old, mass):
+                return naive_forces_cuda(
+                    pos_new, pos_old, mass, params, tile_i=ap.tile_i, tile_j=ap.tile_j
+                )
+
+        else:
+
+            def force(pos_new, pos_old, mass):
+                return naive_forces_ref(pos_new, pos_old, mass, params)
+
+        def step(state: ParticleState) -> ParticleState:
+            with trace_scope("naive_step"):
+                return leapfrog_step(state, params, force)
+
+        return step
