@@ -5,19 +5,34 @@
 
 Phases (any failure exits non-zero):
  1. a CUDA device is present; print the card's name and power limit;
- 2. build the all-pairs kernel from ``wgpu_n_body_tpu_torch/csrc``;
- 3. hold the kernel against its plain torch version on the card: small
-    ragged inputs, receiver shards (``row_offset``), coincident-pair NaN,
-    and at N=262144 both against a float64 evaluation;
- 4. time kernel and plain version at N=262144 with CUDA events;
+ 2. build every kernel from ``wgpu_n_body_tpu_torch/csrc`` (one nvcc per
+    source, all started together) and report the all-pairs kernel (B1);
+ 3. hold B1 against its plain torch version on the card: small ragged
+    inputs, receiver shards (``row_offset``), coincident-pair NaN, and at
+    N=262144 both against a float64 evaluation;
+ 4. time B1 and its plain version at N=262144 with CUDA events;
  5. run ``cli headless --sim naive --n 262144 --steps 10`` in-process and
-    check that each step launched the kernel once and the state is sane;
- 6. three NaiveSim steps at N=16384, kernel vs plain version.
-The last two lines are a JSON record of the kernel and ``{"ok": true, ...}``.
+    check that each step launched B1 once and the state is sane;
+ 6. three NaiveSim steps at N=16384, kernel vs plain version;
+ 7. report the factored all-pairs kernel (B2) and the tree walk (B3):
+    registers and spills;
+ 8. B2 against its plain factored version: small ragged inputs and
+    shards, N=262144 against float64, timed beside the plain version, and
+    ``NaiveSim(mxu=True)`` through ``OfflineHeadless`` at N=262144;
+ 9. the Morton sort and octree build on the card against the same build
+    on the CPU at N=262144 (keys, permutation and arena integers equal);
+10. B3 against the plain walk on 4096 sampled receivers of the N=4M tree,
+    both against float64 all-pairs, theta=0 against B1, the overfull-cell
+    and overflow cases, and the full N=4M walk timed;
+11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
+    10`` in-process at the default N=4,000,000 and check that each step
+    launched B3 once, the state is sane and the checkpoint reloads.
+The last two lines are a JSON record of the kernels and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -32,7 +47,9 @@ import numpy as np
 import torch
 
 N_MAIN = 262144
+N_TREE = 4_000_000  # cli headless default (reference bin/headless.rs)
 STEPS = 10
+STEPS_MXU = 5
 
 
 def fail(msg: str) -> None:
@@ -46,7 +63,380 @@ def row_rel_err(got, want):
     return ((got - want).norm(dim=1) / want.norm(dim=1)).cpu().numpy()
 
 
+def mean_rel_err(got, want):
+    """tests/test_tree.py's force error: mean |got - want| over the mean
+    row norm of ``want``."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().mean() / want.norm(dim=1).mean())
+
+
+def time_ms(fn, reps):
+    """Mean ms of ``fn`` over ``reps`` calls after one warm call, by CUDA
+    events; returns (ms, warm call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def print_ptxas(log: str) -> None:
+    if log == "cached":
+        print("  ptxas: (library already built in this checkout: no compiler output)")
+    for line in log.splitlines():
+        if re.search(r"registers|spill|smem|bytes stack", line):
+            print(f"  ptxas: {line.strip()}")
+
+
+def run_cli(cli, argv):
+    """cli.main(argv) in-process; echoes its output and returns it."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    print("\n".join("  | " + line for line in out.splitlines()))
+    if rc != 0:
+        fail(f"cli {' '.join(argv)} returned {rc}")
+    return out
+
+
+def cuda_state(n, seed, dev):
+    """(pos_new, pos_old, mass) of a ragged small scene (tests/test_naive.py)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    vel = rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    pos_new = (pos + np.float32(0.01) * vel).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (pos_new, pos, mass))
+
+
+def main_state(params, dev):
+    """(pos_new, pos_old, mass) of the N=262144 uniform scene, one drift."""
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(-1, 1, (N_MAIN, 3)).astype(np.float32)
+    vel = (rng.uniform(-1, 1, (N_MAIN, 3)) * 0.001).astype(np.float32)
+    pos_new = (pos + vel * np.float32(params.dt)).astype(np.float32)
+    return (torch.from_numpy(pos_new).to(dev), torch.from_numpy(pos).to(dev),
+            torch.ones(N_MAIN, device=dev))
+
+
+def zero_launch_counts():
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+
+    naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
+
+
+def launch_counts():
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+
+    return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
+            "B3": tree_walk_cuda.LAUNCHES}
+
+
+def phase_b2(dev, smi):
+    """8. The factored all-pairs kernel (B2) against its plain version."""
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.models import NaiveSim
+    from wgpu_n_body_tpu_torch.ops import naive_cuda
+    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_mxu_ref, naive_forces_ref
+    from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    tol = dict(rtol=5e-2, atol=2e-8)  # tests/test_naive.py:94-110
+
+    def kernel(pn, po, m, params, row_offset, tile_i, tile_j):
+        out = naive_cuda.naive_forces_cuda(
+            pn, po, m, params, row_offset, tile_i, tile_j, mxu=True)
+        torch.cuda.synchronize()
+        return out
+
+    # -- 8a. small ragged inputs, shards, coincident pair --------------------
+    small = SimParams(particle_num=1000, g=1e-4, e=1e-4, dt=0.016)
+    pn, po, m = cuda_state(1000, 3, dev)
+    want = naive_forces_mxu_ref(pn, po, m, small)
+    for ti, tj in ((64, 128), (512, 2048)):
+        torch.testing.assert_close(kernel(pn, po, m, small, 0, ti, tj), want, **tol)
+        for a, b in ((0, 64), (64, 192), (100, 300), (936, 1000)):
+            got = kernel(pn[a:b], po, m, small, a, ti, tj)
+            ref = naive_forces_mxu_ref(pn[a:b], po, m, small, row_offset=a)
+            torch.testing.assert_close(got, ref, **tol)
+            torch.testing.assert_close(got, want[a:b], **tol)
+    pn_c, po_c, m_c = (t[:64].clone() for t in (pn, po, m))
+    po_c[9] = pn_c[5]
+    got = kernel(pn_c, po_c, m_c, small, 0, 64, 128)
+    ref = naive_forces_mxu_ref(pn_c, po_c, m_c, small)
+    if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not torch.isnan(got[5]).all():
+        fail("B2 coincident-pair NaN rows differ from the plain version")
+    print("8a B2 n=1000, 2 tilings, shards (0,64) (64,192) (100,300) (936,1000), "
+          "coincident NaN: ok (rtol 5e-2, atol 2e-8)")
+
+    # -- 8b. N=262144 against float64 ----------------------------------------
+    params = SimParams(particle_num=N_MAIN)
+    pn, po, m = main_state(params, dev)
+    po64, pn64, m64 = po.double(), pn.double(), m.double()
+    errs_k, errs_p = [], []
+    for a in (0, 65536 + 100, 131072 + 1000, N_MAIN - 512):
+        b = a + 512
+        k = kernel(pn[a:b], po, m, params, a, 512, 2048)
+        p = naive_forces_mxu_ref(pn[a:b], po, m, params, row_offset=a)
+        t = naive_forces_ref(pn64[a:b], po64, m64, params, row_offset=a)
+        errs_k.append(row_rel_err(k, t))
+        errs_p.append(row_rel_err(p, t))
+    errs_k, errs_p = np.concatenate(errs_k), np.concatenate(errs_p)
+    p99_k, p99_p = float(np.percentile(errs_k, 99)), float(np.percentile(errs_p, 99))
+    print(f"8b B2 N={N_MAIN} vs float64 over {errs_k.size} rows: kernel p99 {p99_k:.3e} "
+          f"max {errs_k.max():.3e}; plain factored p99 {p99_p:.3e} max {errs_p.max():.3e}")
+    gate = max(1e-3, 2 * p99_p)
+    if not np.isfinite(errs_k).all() or p99_k > gate:
+        fail(f"B2 p99 {p99_k:.3e} above the gate {gate:.3e}")
+    del po64, pn64, m64
+
+    # -- 8c. time kernel and plain version at N=262144 -----------------------
+    ms_k, k_full = time_ms(
+        lambda: naive_cuda.naive_forces_cuda(pn, po, m, params, 0, 512, 2048, mxu=True), 5)
+    ms_p, p_full = time_ms(lambda: naive_forces_mxu_ref(pn, po, m, params), 2)
+    pairs = float(N_MAIN) * N_MAIN
+    diff = row_rel_err(k_full, p_full)
+    max_abs = (k_full - p_full).abs().max().item()
+    print(f"8c B2 N={N_MAIN}: kernel {ms_k:.3f} ms ({pairs / ms_k * 1e3:.4e} pairs/s); "
+          f"plain {ms_p:.3f} ms ({pairs / ms_p * 1e3:.4e} pairs/s); kernel vs plain per-row "
+          f"p99 {np.percentile(diff, 99):.3e} max {diff.max():.3e}, max|k-p| {max_abs:.3e}; [{smi}]")
+    if not np.isfinite(diff).all() or np.percentile(diff, 99) > 2 * gate:
+        fail("B2 and its plain version disagree at the main path's shape")
+    del pn, po, m, k_full, p_full
+    torch.cuda.empty_cache()
+
+    # -- 8d. NaiveSim(mxu=True) through the runner -----------------------------
+    sim = NaiveSim(params, NaiveParams(mxu=True))
+    runner = OfflineHeadless(sim, uniform_init, seed=0, device=dev)
+    zero_launch_counts()
+    runner.run(steps=STEPS_MXU, log_fn=lambda line: None)
+    counts = launch_counts()
+    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0}:
+        fail(f"NaiveSim(mxu=True) {STEPS_MXU} steps launched {counts}")
+    if not all(torch.isfinite(t).all() for t in runner.state[:3]):
+        fail("non-finite state after the NaiveSim(mxu=True) run")
+    us = runner.timer.mean_s() * 1e6
+    print(f"8d NaiveSim(mxu=True) N={N_MAIN} via OfflineHeadless: {counts['B2']} launches in "
+          f"{STEPS_MXU} steps, {us:.1f} us/step; [{smi}]")
+    del sim, runner
+    torch.cuda.empty_cache()
+    return {
+        "name": "naive_forces_mxu",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/naive_forces_mxu.cu",
+        "replaces": "wgpu_n_body_tpu/ops/naive_pallas.py:130",
+        "launches": counts["B2"],
+        "max_abs_err": max_abs,
+        "ms": ms_k,
+        "plain_ms": ms_p,
+    }
+
+
+def phase_build(dev):
+    """9. Morton sort and octree build on the card against the CPU."""
+    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_order, morton_sort
+    from wgpu_n_body_tpu_torch.params import TreeParams, state_from_numpy
+
+    rng = np.random.default_rng(21)
+    n = N_MAIN
+    pos = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    pos[n // 2 : n // 2 + n // 100] = pos[: n // 100]  # exact duplicates: sort ties
+    zeros = np.zeros((n, 3), np.float32)
+    mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    tp = TreeParams(walk="per_particle")
+    res = []
+    for where in ("cpu", dev):
+        st = state_from_numpy(pos, zeros, zeros, mass, where)
+        perm, bound, keys = morton_order(st.pos, tp.max_depth)
+        ss, _, _ = morton_sort(st, tp.max_depth)
+        res.append((perm, bound, keys, build_tree(ss, keys, bound, tp)))
+    (c_perm, c_bound, c_keys, c_tree), (g_perm, g_bound, g_keys, g_tree) = res
+    for name, a, b in (("bound", c_bound, g_bound), ("hi", c_keys[0], g_keys[0]),
+                       ("lo", c_keys[1], g_keys[1]), ("perm", c_perm, g_perm),
+                       ("skip", c_tree.skip, g_tree.skip), ("first", c_tree.first, g_tree.first),
+                       ("count", c_tree.count, g_tree.count),
+                       ("num_nodes", c_tree.num_nodes, g_tree.num_nodes),
+                       ("overflowed", c_tree.overflowed, g_tree.overflowed)):
+        if not torch.equal(a, b.cpu()):
+            fail(f"tree build on the card differs from the CPU in {name}")
+    torch.testing.assert_close(g_tree.nodes_f32.cpu(), c_tree.nodes_f32, rtol=1e-6, atol=0)
+    st = state_from_numpy(pos, zeros, zeros, mass, dev)
+    ms_sort, (ss, bound, keys) = time_ms(lambda: morton_sort(st, tp.max_depth), 3)
+    ms_build, _ = time_ms(lambda: build_tree(ss, keys, bound, tp), 3)
+    print(f"9 tree build N={n} (1% duplicate positions): card == CPU for keys, permutation, "
+          f"skip/first/count, num_nodes {int(g_tree.num_nodes)} of cap "
+          f"{g_tree.nodes_f32.shape[0] - 1}; nodes_f32 within rtol 1e-6; "
+          f"card sort {ms_sort:.3f} ms, build {ms_build:.3f} ms")
+
+
+def phase_b3(dev, smi):
+    """10. The tree walk kernel (B3) against the plain walk and float64."""
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense, naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
+
+    walk = tree_walk_cuda.tree_forces_cuda
+
+    def sort_build(state, params, tp):
+        ss, bound, keys = morton_sort(state, tp.max_depth)
+        tree = build_tree(ss, keys, bound, tp)
+        pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
+        return ss, tree, pos_new
+
+    # -- the N=4M headless scene, one sort and build ---------------------------
+    params = SimParams(particle_num=N_TREE)  # cli headless defaults
+    tp = TreeParams(walk="per_particle")  # theta 0.75, leaf_bucket 16, max_depth 16
+    state = uniform_init(torch.Generator().manual_seed(0), params, dev)
+    ss, tree, pos_new = sort_build(state, params, tp)
+    if bool(tree.overflowed):
+        fail("the N=4M uniform tree overflowed its arena")
+    print(f"10 N={N_TREE} tree: {int(tree.num_nodes)} nodes of cap {tree.nodes_f32.shape[0] - 1}")
+
+    # -- 10a. 4096 sampled receivers, kernel vs plain walk ---------------------
+    gen = torch.Generator().manual_seed(1)
+    idx = torch.randperm(N_TREE, generator=gen)[:4096].sort().values.to(dev)
+    idx32 = idx.to(torch.int32)
+    recv = pos_new[idx]
+    ms_sub, k_sub = time_ms(lambda: walk(recv, ss.pos, ss.mass, tree, params, tp, self_idx=idx32), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_sub = tree_forces(recv, ss.pos, ss.mass, tree, params, tp, self_idx=idx32)
+    torch.cuda.synchronize()
+    ms_plain = (time.perf_counter() - t0) * 1e3
+    rel = row_rel_err(k_sub, p_sub)
+    max_abs = (k_sub - p_sub).abs().max().item()
+    exact = int((k_sub == p_sub).all(dim=1).sum())
+    print(f"10a B3 vs plain walk on {idx.numel()} receivers: per-row p99 {np.percentile(rel, 99):.3e} "
+          f"max {rel.max():.3e}, max|k-p| {max_abs:.3e}, {exact} rows bit-equal; kernel "
+          f"{ms_sub:.3f} ms, plain {ms_plain:.3f} ms ({ms_plain / idx.numel() * 1e3:.3f} us per "
+          f"receiver); [{smi}]")
+    if not np.isfinite(rel).all() or np.percentile(rel, 99) > 1e-4:
+        fail("B3 and the plain walk disagree")
+
+    # -- 10b. both against float64 all-pairs on 2048 of those receivers --------
+    sel = slice(0, None, 2)
+    truth = naive_forces_ref(recv[sel].double(), ss.pos.double(), ss.mass.double(), params,
+                             block=16, row_offset=idx[sel])
+    mre_k, mre_p = mean_rel_err(k_sub[sel], truth), mean_rel_err(p_sub[sel], truth)
+    print(f"10b theta=0.75 vs float64 all-pairs on {truth.shape[0]} receivers: mean relative "
+          f"error kernel {mre_k:.4e}, plain {mre_p:.4e} (gate 0.03)")
+    if not (mre_k <= 0.03 and mre_p <= 0.03):
+        fail("the tree force is further than 0.03 from the all-pairs sum")
+    del truth
+
+    # -- 10c. the full N=4M walk -------------------------------------------------
+    ms_full, k_full = time_ms(lambda: walk(pos_new, ss.pos, ss.mass, tree, params, tp), 2)
+    if not torch.isfinite(k_full).all():
+        fail("non-finite force from the full walk")
+    if not torch.equal(k_full[idx], k_sub):
+        fail("the full walk and the subset walk give different rows")
+    print(f"10c B3 full walk N={N_TREE}: {ms_full:.3f} ms ({ms_full / N_TREE * 1e6:.3f} ns per "
+          f"receiver); rows equal to the subset run; [{smi}]")
+    del state, ss, tree, pos_new, k_full
+    torch.cuda.empty_cache()
+
+    # -- 10d. theta=0 against the all-pairs kernel B1 at N=16384 ---------------
+    p16 = SimParams(particle_num=16384, g=1e-5)
+    tp0 = TreeParams(theta=0.0, walk="per_particle")
+    ss16, tree16, pn16 = sort_build(uniform_init(torch.Generator().manual_seed(5), p16, dev), p16, tp0)
+    kt = walk(pn16, ss16.pos, ss16.mass, tree16, p16, tp0)
+    kn = naive_cuda.naive_forces_cuda(pn16, ss16.pos, ss16.mass, p16)
+    torch.cuda.synchronize()
+    rel = row_rel_err(kt, kn)
+    print(f"10d theta=0 walk vs B1 at N=16384: per-row p99 {np.percentile(rel, 99):.3e} "
+          f"max {rel.max():.3e} (gate p99 2e-4)")
+    if not np.isfinite(rel).all() or np.percentile(rel, 99) > 2e-4:
+        fail("the theta=0 walk differs from the all-pairs kernel")
+
+    # -- 10e. an overfull max-depth cell (tests/test_tree.py:276-299) ----------
+    rng = np.random.default_rng(10)
+    pos = np.concatenate([0.6 + rng.uniform(0, 1, (20, 3)) * 1e-4,
+                          rng.uniform(-1.0, 0.4, (44, 3))]).astype(np.float32)
+    zeros = np.zeros((64, 3), np.float32)
+    p64 = SimParams(particle_num=64, g=1e-3)
+    tpo = TreeParams(theta=0.0, max_depth=3, leaf_bucket=4, walk="per_particle")
+    sso, treeo, _ = sort_build(state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev),
+                               p64, tpo)
+    if not (treeo.nodes_f32[: int(treeo.num_nodes), NO_CHILD] == 2.0).any():
+        fail("the cluster scene has no overfull cell")
+    k = walk(sso.pos, sso.pos, sso.mass, treeo, p64, tpo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k, naive_forces_dense(sso.pos, sso.pos, sso.mass, p64),
+                               rtol=2e-3, atol=1e-8)
+    torch.testing.assert_close(k, tree_forces(sso.pos, sso.pos, sso.mass, treeo, p64, tpo),
+                               rtol=1e-4, atol=1e-9)
+
+    # -- 10f. arena overflow: flagged, and the walk returns --------------------
+    base = rng.uniform(-1.0, 1.0, (32, 3)).astype(np.float32)
+    pos = np.concatenate([base, base + np.float32(1e-6)])
+    tpf = TreeParams(theta=0.5, leaf_bucket=1, node_capacity_factor=1, walk="per_particle")
+    ssf, treef, _ = sort_build(state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev),
+                               p64, tpf)
+    kf = walk(ssf.pos, ssf.pos, ssf.mass, treef, p64, tpf)
+    torch.cuda.synchronize()
+    if not bool(treef.overflowed) or int(treef.num_nodes) != treef.nodes_f32.shape[0] - 1:
+        fail("the tight-pair scene did not flag its arena overflow")
+    print(f"10e overfull cell: kernel == all-pairs (rtol 2e-3) and == plain walk; "
+          f"10f overflow flagged, walk returned {tuple(kf.shape)}")
+    return {
+        "name": "tree_walk",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/tree_walk.cu",
+        "replaces": "wgpu_n_body_tpu/ops/tree_walk.py:60",
+        "launches": 0,  # set from the main path's run (phase 11)
+        "max_abs_err": max_abs,
+        "ms": ms_full,
+        "plain_ms": ms_plain,
+        "ms_receivers": N_TREE,
+        "plain_ms_receivers": int(idx.numel()),
+        "ms_same_receivers": ms_sub,
+    }
+
+
+def phase_tree_cli(dev, smi):
+    """11. The tree headless path through the CLI at the default N."""
+    from wgpu_n_body_tpu_torch import cli
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams
+    from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "tree.npz")
+        argv = ["headless", "--sim", "tree", "--tree-kw", 'walk="per_particle"',
+                "--steps", str(STEPS), "--diag-every", str(STEPS), "--checkpoint", ckpt]
+        zero_launch_counts()
+        out = run_cli(cli, argv)
+        counts = launch_counts()
+        if counts != {"B1": 0, "B2": 0, "B3": STEPS}:
+            fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
+        if "'overflowed': False" not in out:
+            fail("the tree diagnostics do not report a healthy arena")
+        us = float(re.search(r"mean: (\S+) us/step", out).group(1))
+        ck = load_checkpoint(ckpt, dev)
+        if not isinstance(ck.make_sim(), TreeSim) or ck.step != STEPS:
+            fail("the tree checkpoint does not reload as a TreeSim at the last step")
+        st = ck.state
+        if st.n != N_TREE or not all(torch.isfinite(t).all() for t in st[:3]):
+            fail("non-finite or mis-sized state after the tree run")
+        init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
+        if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
+            fail("the tree run changed the mass multiset")
+    print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} launches in "
+          f"{STEPS} steps, {us:.1f} us/step; [{smi}]")
+    return counts["B3"]
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -54,14 +444,14 @@ def main() -> None:
         from wgpu_n_body_tpu_torch import cli
         from wgpu_n_body_tpu_torch.inits import uniform_init
         from wgpu_n_body_tpu_torch.models import NaiveSim
-        from wgpu_n_body_tpu_torch.ops import naive_cuda
+        from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
         from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
         from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
         from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
     except ImportError as exc:
         fail(f"run from a checkout of the repo ({exc})")
-    if "jax" in sys.modules:
-        fail("the port imported jax")
+    if "jax" in sys.modules or "wgpu_n_body_tpu" in sys.modules:
+        fail("the port imported jax or the JAX package")
 
     # -- 1. the card -------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -73,13 +463,20 @@ def main() -> None:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # -- 2. build ----------------------------------------------------------
+    # -- 2. build every kernel, one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    lib_path, log = naive_cuda.build()
-    print(f"build: {time.perf_counter() - t0:.3f} s -> {lib_path.name}")
-    for line in log.splitlines():
-        if re.search(r"registers|spill|smem|bytes stack", line):
-            print(f"  ptxas: {line.strip()}")
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    builds = {
+        "B1": pool.submit(naive_cuda.build),
+        "B2": pool.submit(naive_cuda.build, True),
+        "B3": pool.submit(tree_walk_cuda.build),
+    }
+    pool.shutdown(wait=True)
+    t_build = time.perf_counter() - t0
+    built = {k: f.result() for k, f in builds.items()}  # raises a build's error
+    lib_path, log = built["B1"]
+    print(f"build (3 sources in parallel): {t_build:.3f} s -> {lib_path.name}")
+    print_ptxas(log)
 
     def kernel(pn, po, m, params, row_offset, tile_i, tile_j):
         """Launch the kernel and surface any fault of its run here."""
@@ -87,17 +484,9 @@ def main() -> None:
         torch.cuda.synchronize()
         return out
 
-    def cuda_state(n, seed):
-        rng = np.random.default_rng(seed)
-        pos = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-        vel = rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32)
-        mass = rng.uniform(0.5, 2.0, n).astype(np.float32)
-        pos_new = (pos + np.float32(0.01) * vel).astype(np.float32)
-        return tuple(torch.from_numpy(a).to(dev) for a in (pos_new, pos, mass))
-
     # -- 3a. small ragged inputs: rtol 3e-5, atol 1e-9 (tests/test_naive.py) --
     small = SimParams(particle_num=1000, g=1e-4, e=1e-4, dt=0.016)
-    pn, po, m = cuda_state(1000, 3)
+    pn, po, m = cuda_state(1000, 3, dev)
     want = naive_forces_ref(pn, po, m, small)
     for ti, tj in ((64, 128), (512, 2048)):
         got = kernel(pn, po, m, small, 0, ti, tj)
@@ -127,13 +516,7 @@ def main() -> None:
 
     # -- 3d. N=262144 uniform scene against float64 --------------------------
     params = SimParams(particle_num=N_MAIN)  # g 1e-6, e 1e-4, dt 0.016
-    rng = np.random.default_rng(0)
-    pos = rng.uniform(-1, 1, (N_MAIN, 3)).astype(np.float32)
-    vel = (rng.uniform(-1, 1, (N_MAIN, 3)) * 0.001).astype(np.float32)
-    pos_new = (pos + vel * np.float32(params.dt)).astype(np.float32)
-    po = torch.from_numpy(pos).to(dev)
-    pn = torch.from_numpy(pos_new).to(dev)
-    m = torch.ones(N_MAIN, device=dev)
+    pn, po, m = main_state(params, dev)
     po64, pn64, m64 = po.double(), pn.double(), m.double()
     errs_k, errs_p = [], []
     for a in (0, 65536 + 100, 131072 + 1000, N_MAIN - 512):
@@ -152,17 +535,6 @@ def main() -> None:
         fail(f"kernel p99 {p99_k:.3e} above the gate {gate:.3e}")
 
     # -- 4. time kernel and plain version at the main path's shape ---------
-    def time_ms(fn, reps):
-        out = fn()  # warm
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps, out
-
     ms_k, k_full = time_ms(
         lambda: naive_cuda.naive_forces_cuda(pn, po, m, params, 0, 512, 2048), 5
     )
@@ -185,17 +557,12 @@ def main() -> None:
         ckpt = os.path.join(tmp, "state.npz")
         argv = ["headless", "--sim", "naive", "--n", str(N_MAIN), "--steps", str(STEPS),
                 "--energy-every", "5", "--checkpoint", ckpt]
-        buf = io.StringIO()
-        naive_cuda.LAUNCHES = 0
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        launches = naive_cuda.LAUNCHES
-        out = buf.getvalue()
-        print("\n".join("  | " + line for line in out.splitlines()))
-        if rc != 0:
-            fail(f"cli headless returned {rc}")
-        if launches != STEPS:
-            fail(f"kernel launched {launches} times in {STEPS} headless steps")
+        zero_launch_counts()
+        out = run_cli(cli, argv)
+        counts = launch_counts()
+        launches = counts["B1"]
+        if counts != {"B1": STEPS, "B2": 0, "B3": 0}:
+            fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
             fail(f"energies {energies}")
@@ -221,8 +588,7 @@ def main() -> None:
     torch.testing.assert_close(s_k.pos, s_p.pos, rtol=1e-5, atol=1e-8)
     torch.testing.assert_close(s_k.vel, s_p.vel, rtol=1e-4, atol=1e-8)
     print("6 NaiveSim N=16384 3 steps kernel vs plain: ok")
-
-    print(json.dumps({"kernels": [{
+    b1 = {
         "name": "naive_forces",
         "route": "cuda",
         "source": "wgpu_n_body_tpu_torch/csrc/naive_forces.cu",
@@ -231,7 +597,23 @@ def main() -> None:
         "max_abs_err": max_abs,
         "ms": ms_k,
         "plain_ms": ms_p,
-    }]}))
+    }
+    del pn, po, m, po64, pn64, m64
+    torch.cuda.empty_cache()
+
+    # -- 7. the other kernels' builds (made in phase 2) ---------------------
+    for key in ("B2", "B3"):
+        lib, blog = built[key]
+        print(f"7 {key} built -> {lib.name}")
+        print_ptxas(blog)
+
+    b2 = phase_b2(dev, smi)
+    phase_build(dev)
+    b3 = phase_b3(dev, smi)
+    b3["launches"] = phase_tree_cli(dev, smi)
+
+    print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
+    print(json.dumps({"kernels": [b1, b2, b3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

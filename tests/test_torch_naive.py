@@ -19,9 +19,13 @@ from wgpu_n_body_tpu.ops.integrate import leapfrog_step as jax_leapfrog_step
 from wgpu_n_body_tpu.ops.naive_pallas import naive_forces_pallas
 from wgpu_n_body_tpu.ops.naive_ref import naive_forces_dense as jax_forces_dense
 from wgpu_n_body_tpu_torch.models import NaiveSim
-from wgpu_n_body_tpu_torch.ops import naive_cuda
+from wgpu_n_body_tpu_torch.ops import cuda_build, naive_cuda, tree_walk_cuda
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
-from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense, naive_forces_ref
+from wgpu_n_body_tpu_torch.ops.naive_ref import (
+    naive_forces_dense,
+    naive_forces_mxu_ref,
+    naive_forces_ref,
+)
 from wgpu_n_body_tpu_torch.params import (
     NaiveParams,
     SimParams,
@@ -33,6 +37,8 @@ from wgpu_n_body_tpu_torch.params import (
 FORCE_TOL = dict(rtol=3e-5, atol=1e-9)
 POS_TOL = dict(rtol=1e-5, atol=1e-8)
 VEL_TOL = dict(rtol=1e-4, atol=1e-8)
+# tests/test_naive.py:94-110: the factored (mxu) accumulation is less exact
+MXU_TOL = dict(rtol=5e-2, atol=2e-8)
 
 
 def _np_state(seed, n, with_acc=True):
@@ -158,9 +164,72 @@ def test_naive_sim_matches_jax_pallas_sim(use_pallas):
     np.testing.assert_array_equal(got["mass"], s["mass"])
 
 
-def test_mxu_raises():
-    with pytest.raises(NotImplementedError, match="B2"):
-        NaiveSim(SimParams(particle_num=8), NaiveParams(mxu=True))
+@pytest.mark.parametrize("n", [200, 1000])
+def test_mxu_forces_match_jax_mxu_kernel_and_dense(n):
+    params = SimParams(particle_num=n, g=1e-4, e=1e-4, dt=0.016)
+    pos_new, pos_old, mass = _force_inputs(n, seed=7)
+    t_new, t_old, t_mass = _torch(pos_new, pos_old, mass)
+    got = naive_forces_mxu_ref(t_new, t_old, t_mass, params).numpy()
+    jargs = (jnp.asarray(pos_new), jnp.asarray(pos_old), jnp.asarray(mass), _jax_params(params))
+    dense = np.asarray(jax_forces_dense(*jargs))
+    mxu = np.asarray(naive_forces_pallas(*jargs, tile_i=128, tile_j=128, mxu=True))
+    np.testing.assert_allclose(got, mxu, **MXU_TOL)
+    np.testing.assert_allclose(got, dense, **MXU_TOL)
+    # the receiver shard keeps the self-mask on the global diagonal
+    shard = naive_forces_mxu_ref(t_new[64:192], t_old, t_mass, params, row_offset=64).numpy()
+    jshard = naive_forces_pallas(
+        jnp.asarray(pos_new[64:192]), *jargs[1:], tile_i=128, tile_j=128, mxu=True,
+        row_offset=64,
+    )
+    np.testing.assert_allclose(shard, np.asarray(jshard), **MXU_TOL)
+    np.testing.assert_allclose(shard, dense[64:192], **MXU_TOL)
+    # receiver blocks of the plain version give the one dense evaluation
+    blocked = naive_forces_mxu_ref(t_new, t_old, t_mass, params, block=96)
+    torch.testing.assert_close(blocked, torch.from_numpy(got), rtol=0, atol=0)
+
+
+def test_mxu_coincident_pair_nan_parity():
+    params = SimParams(particle_num=32, g=1e-4)
+    pos_new, pos_old, mass = _force_inputs(32, seed=5)
+    pos_old[9] = pos_new[5]
+    got = naive_forces_mxu_ref(*_torch(pos_new, pos_old, mass), params).numpy()
+    jargs = (jnp.asarray(pos_new), jnp.asarray(pos_old), jnp.asarray(mass), _jax_params(params))
+    want = np.asarray(naive_forces_pallas(*jargs, tile_i=128, tile_j=128, mxu=True))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want[5]).all()
+    ok = ~np.isnan(want).any(axis=1)
+    np.testing.assert_allclose(got[ok], want[ok], **MXU_TOL)
+
+
+def test_naive_sim_mxu_matches_jax_mxu_sim():
+    params = SimParams(particle_num=256, g=1e-5)
+    s = _np_state(8, 256, with_acc=False)
+    ap = dict(use_pallas=True, tile_i=128, tile_j=128, mxu=True)
+    jstep = JaxNaiveSim(_jax_params(params), jp.NaiveParams(**ap)).make_step(donate=False)
+    step = NaiveSim(params, NaiveParams(**ap)).make_step()
+    a, b = _jax_state(s), state_from_numpy(**s, device="cpu")
+    before = naive_cuda.LAUNCHES_MXU
+    for _ in range(3):
+        a, b = jstep(a), step(b)
+    assert naive_cuda.LAUNCHES_MXU == before  # the CPU takes the plain version
+    got = state_to_numpy(b)
+    np.testing.assert_allclose(got["pos"], np.asarray(a.pos), **POS_TOL)
+    np.testing.assert_allclose(got["vel"], np.asarray(a.vel), **VEL_TOL)
+    np.testing.assert_array_equal(got["mass"], s["mass"])
+
+
+def test_mxu_wrapper_on_cpu_takes_factored_plain_version():
+    params = SimParams(particle_num=100, g=1e-4)
+    args = _torch(*_force_inputs(100))
+    got = naive_cuda.naive_forces_cuda(*args, params, tile_i=64, tile_j=128, mxu=True)
+    torch.testing.assert_close(got, naive_forces_mxu_ref(*args, params), rtol=0, atol=0)
+    # use_pallas=False keeps the plain dx-form whatever mxu says, as in JAX
+    s = _np_state(9, 64, with_acc=False)
+    st = state_from_numpy(**s, device="cpu")
+    p64 = SimParams(particle_num=64, g=1e-4)
+    out = NaiveSim(p64, NaiveParams(use_pallas=False, mxu=True)).make_step()(st)
+    ref = leapfrog_step(st, p64, lambda pn, po, m: naive_forces_ref(pn, po, m, p64))
+    torch.testing.assert_close(out.acc, ref.acc, rtol=0, atol=0)
 
 
 def test_wrapper_on_cpu_takes_plain_version_without_launching():
@@ -182,11 +251,18 @@ def test_wrapper_rejects_bad_arguments(kwargs):
 
 
 def test_kernel_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
-    flags = " ".join(naive_cuda.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags
-    assert "fast_math" not in flags and "fast-math" not in flags
+    for module in (naive_cuda, tree_walk_cuda):
+        flags = " ".join(module.NVCC_FLAGS)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "fast_math" not in flags and "fast-math" not in flags
+    # the walk's theta test must round as the plain version does
+    assert "-fmad=false" in tree_walk_cuda.NVCC_FLAGS
+    assert "-fmad=false" not in naive_cuda.NVCC_FLAGS
     monkeypatch.setattr(naive_cuda, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(naive_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(tree_walk_cuda, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    with pytest.raises(RuntimeError, match="nvcc"):
-        naive_cuda.build()
+    for build in (naive_cuda.build, lambda: naive_cuda.build(mxu=True), tree_walk_cuda.build):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build()
+    assert not any(tmp_path.iterdir())  # nothing half-built is left behind

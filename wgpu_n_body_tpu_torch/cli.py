@@ -2,17 +2,22 @@
 (reference src/bin/ + benches/benchmark.rs).
 
     python -m wgpu_n_body_tpu_torch.cli headless --sim naive --n 262144
-    python -m wgpu_n_body_tpu_torch.cli bench
+    python -m wgpu_n_body_tpu_torch.cli headless --tree-kw walk='"per_particle"'
+    python -m wgpu_n_body_tpu_torch.cli bench --sim naive,tree --tree-kw walk='"per_particle"'
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
-``cuda``; there is no silent fallback to the CPU). Only the naive backend
-on one device is ported: ``--sim tree|tree-host`` and ``--devices > 1``
-exit with code 2.
+``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``
+and ``--sim tree`` with the per-particle walk, on one device. ``--sim
+tree`` with the default group walk (ROADMAP B4), ``--sim tree-host``
+(A11) and ``--devices > 1`` (A13) exit with code 2, as does a malformed
+``--tree-kw``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import dataclasses
 import json
 import sys
 import time
@@ -20,8 +25,9 @@ import time
 import torch
 
 from wgpu_n_body_tpu_torch.inits import INITS, uniform_init
-from wgpu_n_body_tpu_torch.models import NaiveSim
-from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
+from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
+from wgpu_n_body_tpu_torch.models.base import Simulator
+from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
 from wgpu_n_body_tpu_torch.utils.profiling import sync
@@ -34,16 +40,58 @@ def _device(name: str) -> torch.device:
     return device
 
 
-def _build_sim(args) -> NaiveSim:
-    if args.sim != "naive" or args.devices > 1:
-        print(
+def _usage_error(msg: str):
+    print(msg, file=sys.stderr)
+    raise SystemExit(2)
+
+
+def _tree_kw(specs: list[str]) -> dict:
+    """--tree-kw NAME=VALUE overrides as TreeParams kwargs; values are
+    Python literals, as in the JAX CLI. A malformed one exits 2 naming the
+    field and the value."""
+    fields = {f.name for f in dataclasses.fields(TreeParams)}
+    out = {}
+    for spec in specs:
+        name, sep, val = spec.partition("=")
+        if not sep or name not in fields:
+            _usage_error(
+                f"--tree-kw {spec!r}: expected NAME=VALUE with NAME one of {sorted(fields)}"
+            )
+        try:
+            out[name] = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            _usage_error(
+                f"--tree-kw {name}: value {val!r} is not a Python literal "
+                "(quote strings, e.g. walk='\"per_particle\"')"
+            )
+    return out
+
+
+def _build_sim(args) -> Simulator:
+    if args.sim == "tree-host" or args.devices > 1:
+        _usage_error(
             f"--sim {args.sim} --devices {args.devices}: not yet ported "
-            "(ROADMAP A6-A13); the port runs --sim naive on one device",
-            file=sys.stderr,
+            "(ROADMAP A11, A13); the port runs --sim naive|tree on one device"
         )
-        raise SystemExit(2)
+    if args.sim not in ("naive", "tree"):
+        _usage_error(f"--sim {args.sim!r}: choose naive or tree")
     params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
-    return NaiveSim(params, NaiveParams(use_pallas=not args.no_pallas))
+    if args.sim == "naive":
+        return NaiveSim(params, NaiveParams(use_pallas=not args.no_pallas))
+    tkw = _tree_kw(args.tree_kw)
+    try:
+        tp = TreeParams(**{"theta": args.theta, **tkw})
+    except TypeError as exc:
+        _usage_error(f"--tree-kw: {exc}")
+    if tp.walk == "group":
+        _usage_error(
+            "--sim tree: the group walk (TreeParams walk='group', the default) is "
+            "not yet ported (ROADMAP B4); pass --tree-kw walk='\"per_particle\"'"
+        )
+    try:
+        return TreeSim(params, tp)
+    except ValueError as exc:
+        _usage_error(f"--sim tree: {exc}")
 
 
 def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
@@ -56,9 +104,15 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
     p.add_argument("--e", type=float, default=e)
     p.add_argument("--dt", type=float, default=dt)
     p.add_argument("--init", choices=["uniform", "disc", "spherical"])
+    p.add_argument("--theta", type=float, default=0.75)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-pallas", action="store_true",
                    help="plain torch force instead of the hand-written kernel")
+    p.add_argument(
+        "--tree-kw", action="append", default=[], metavar="NAME=VALUE",
+        help="override a TreeParams field (value = Python literal), e.g. "
+        "--tree-kw walk='\"per_particle\"' --tree-kw leaf_bucket=32",
+    )
     p.add_argument("--devices", type=int, default=0,
                    help="shard over K devices (not ported yet: 0/1 only)")
     p.add_argument("--device", type=str, default="cuda",
@@ -68,6 +122,8 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
 def cmd_headless(args) -> int:
     """bin/headless.rs analog: per-step microseconds printed
     (headless.rs:12-34)."""
+    if args.tree_kw and args.sim != "tree":
+        _usage_error(f"--tree-kw applies to --sim tree only (got --sim {args.sim})")
     sim = _build_sim(args)
     runner = OfflineHeadless(
         sim, INITS[args.init or "uniform"], seed=args.seed, device=_device(args.device)
@@ -86,6 +142,8 @@ def cmd_headless(args) -> int:
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every or args.steps,
         energy_every=args.energy_every,
+        overflow_check_every=args.overflow_check_every,
+        diag_log_every=args.diag_every,
     )
     mean = runner.timer.mean_s()
     print(f"mean: {mean * 1e6:.1f} us/step over {args.steps} steps")
@@ -99,7 +157,10 @@ def cmd_bench(args) -> int:
     device = _device(args.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     sizes = args.sizes or [8192 * k for k in (1, 2, 4, 8, 16)]
-    for sim_name in args.sim.split(","):
+    sims = args.sim.split(",")
+    if args.tree_kw and "tree" not in sims:
+        _usage_error(f"--tree-kw applies to --sim tree only (got --sim {args.sim})")
+    for sim_name in sims:
         for n in sizes:
             a = argparse.Namespace(**vars(args))
             a.sim, a.n = sim_name, n
@@ -121,7 +182,7 @@ def cmd_bench(args) -> int:
                 "device": kind,
                 "s_per_step": dt,
                 "bodies_per_sec": n / dt,
-                "pairs_per_sec": n * n / dt,
+                "pairs_per_sec": n * n / dt if sim_name == "naive" else None,
             }))
     return 0
 
@@ -139,6 +200,17 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--energy-every", type=int, default=0)
+    p.add_argument(
+        "--overflow-check-every", type=int, default=0,
+        help="also re-build the tree from the current state at this step "
+        "cadence and raise on arena overflow (every step's own build is "
+        "checked at each chunk boundary regardless)",
+    )
+    p.add_argument(
+        "--diag-every", type=int, default=0,
+        help="log the backend health dict (node count, capacity, overflow) "
+        "at this cadence (one extra sort and build per log)",
+    )
     p.set_defaults(fn=cmd_headless)
 
     p = sub.add_parser("bench", help="criterion-style sweep")

@@ -2,5 +2,6 @@
 
 from wgpu_n_body_tpu_torch.models.base import Simulator
 from wgpu_n_body_tpu_torch.models.naive import NaiveSim
+from wgpu_n_body_tpu_torch.models.tree import TreeSim
 
-__all__ = ["Simulator", "NaiveSim"]
+__all__ = ["Simulator", "NaiveSim", "TreeSim"]

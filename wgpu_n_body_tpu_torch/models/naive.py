@@ -3,9 +3,10 @@
 
 State stays on its device; particle order is preserved across steps. The
 force is picked by the tensors' device: with ``use_pallas=True`` a CUDA
-state goes through the hand-written kernel (``ops/naive_cuda.py``) and a
-CPU state through the plain torch version; ``use_pallas=False`` takes the
-plain version on every device.
+state goes through the hand-written kernel (``ops/naive_cuda.py``; the
+factored one when ``mxu=True``) and a CPU state through the plain torch
+version of the same form; ``use_pallas=False`` takes the plain dx-form on
+every device, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -24,11 +25,6 @@ class NaiveSim(Simulator):
     def __init__(self, sim_params: SimParams, add_params: NaiveParams | None = None):
         super().__init__(sim_params)
         self.add_params = add_params or NaiveParams()
-        if self.add_params.mxu:
-            raise NotImplementedError(
-                "NaiveParams.mxu=True (the factored-accumulation kernel) is not "
-                "ported yet: ROADMAP B2"
-            )
 
     def step_fn(self) -> StepFn:
         params, ap = self.sim_params, self.add_params
@@ -37,7 +33,8 @@ class NaiveSim(Simulator):
 
             def force(pos_new, pos_old, mass):
                 return naive_forces_cuda(
-                    pos_new, pos_old, mass, params, tile_i=ap.tile_i, tile_j=ap.tile_j
+                    pos_new, pos_old, mass, params,
+                    tile_i=ap.tile_i, tile_j=ap.tile_j, mxu=ap.mxu,
                 )
 
         else:

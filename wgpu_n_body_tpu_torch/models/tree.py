@@ -1,0 +1,115 @@
+"""Barnes-Hut octree backend — counterpart of ``wgpu_n_body_tpu/models/tree.py``
+(reference src/sims/tree.rs + tree.wgsl).
+
+One step, all on the state's device:
+
+    morton sort (== the reference's DFS particle reorder)
+    -> arena build (ops/tree_build.py)
+    -> leapfrog with the theta walk as the force
+
+Like the reference, TreeSim reorders particles every step and returns the
+sorted state. ``walk="per_particle"`` runs the stackless walk: the CUDA
+kernel ``csrc/tree_walk.cu`` for a CUDA state, its plain torch version for
+a CPU state. The JAX default ``walk="group"`` is not ported yet (ROADMAP
+B4) and raises.
+
+Every build's overflow flag is kept on the device, OR-ed over the steps
+since the last check, so the runner can raise on an overflow in any batch
+with one host read where it already synchronises (``raise_on_overflow``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
+from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
+from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
+from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
+from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
+
+
+class TreeSim(Simulator):
+    """Barnes-Hut O(N log N) backend, device-resident."""
+
+    def __init__(self, sim_params: SimParams, add_params: TreeParams | None = None):
+        super().__init__(sim_params)
+        # The reference defaults theta=0.75 when params are missing
+        # (tree.rs:42-51); here the default lives in TreeParams itself.
+        self.add_params = tp = add_params or TreeParams()
+        if tp.walk == "group":
+            raise NotImplementedError(
+                "TreeSim walk='group' (the JAX default group walk) is not ported "
+                "yet: ROADMAP B4; use TreeParams(walk='per_particle')"
+            )
+        if tp.walk != "per_particle":
+            raise ValueError(f"unknown walk {tp.walk!r}")
+        if not isinstance(tp.max_depth, int) or not 1 <= tp.max_depth <= 20:
+            raise ValueError(f"max_depth must be an int in [1, 20], got {tp.max_depth!r}")
+        if not isinstance(tp.leaf_bucket, int) or tp.leaf_bucket < 1:
+            raise ValueError(f"leaf_bucket must be an int >= 1, got {tp.leaf_bucket!r}")
+        if not isinstance(tp.theta, (int, float)) or not tp.theta >= 0:
+            raise ValueError(f"theta must be a number >= 0, got {tp.theta!r}")
+        self._overflowed: torch.Tensor | None = None
+
+    def _sort_build(self, state: ParticleState):
+        tp = self.add_params
+        with trace_scope("morton_sort"):
+            state_sorted, bound, keys = morton_sort(state, tp.max_depth)
+        with trace_scope("tree_build"):
+            tree = build_tree(state_sorted, keys, bound, tp)
+        return state_sorted, tree
+
+    def step_fn(self) -> StepFn:
+        params, tp = self.sim_params, self.add_params
+
+        def force_of(tree):
+            def force(pos_new, pos_old, mass):
+                with trace_scope("theta_walk"):
+                    return tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
+
+            return force
+
+        def step(state: ParticleState) -> ParticleState:
+            with trace_scope("tree_step"):
+                # Sort and build from the pre-step positions, as the
+                # reference does before its compute dispatch (tree.rs:271-297).
+                state_sorted, tree = self._sort_build(state)
+                flag = tree.overflowed
+                self._overflowed = flag if self._overflowed is None else self._overflowed | flag
+                return leapfrog_step(state_sorted, params, force_of(tree))
+
+        return step
+
+    def _overflow_error(self) -> RuntimeError:
+        cap = self.add_params.capacity(self.sim_params.particle_num)
+        return RuntimeError(
+            f"octree arena overflow (cap {cap} nodes): forces are truncated; "
+            "raise node_capacity_factor or leaf_bucket"
+        )
+
+    def raise_on_overflow(self) -> None:
+        """Raise if any build since the last call overflowed its arena.
+        One host read of a device flag: call it where the host waits for
+        the device anyway."""
+        flag, self._overflowed = self._overflowed, None
+        if flag is not None and bool(flag):
+            raise self._overflow_error()
+
+    def check_overflow(self, state: ParticleState) -> None:
+        """Raise if the arena overflows for this state (one sort + build,
+        no walk)."""
+        _, tree = self._sort_build(state)
+        if bool(tree.overflowed):
+            raise self._overflow_error()
+
+    def diagnose(self, state: ParticleState) -> dict:
+        """Tree health for this state: node count against the arena.
+        (The group walk's ``walk_deferred`` comes with ROADMAP B4.)"""
+        _, tree = self._sort_build(state)
+        return {
+            "num_nodes": int(tree.num_nodes),
+            "node_capacity": self.add_params.capacity(self.sim_params.particle_num),
+            "overflowed": bool(tree.overflowed),
+        }

@@ -1,82 +1,58 @@
-"""Wrapper of the hand-written all-pairs CUDA kernel (``csrc/naive_forces.cu``).
+"""Wrappers of the hand-written all-pairs CUDA kernels.
 
-Counterpart of ``wgpu_n_body_tpu/ops/naive_pallas.py::naive_forces_pallas``
-(``mxu=False``). The kernel is compiled by ``nvcc`` for ``sm_90a`` into
-``wgpu_n_body_tpu_torch/_build/`` on first use, named by a hash of its
-source, and loaded with ``ctypes`` (a plain C launcher, no PyTorch headers,
-so the build takes seconds).
+Counterpart of ``wgpu_n_body_tpu/ops/naive_pallas.py::naive_forces_pallas``:
+``mxu=False`` launches ``csrc/naive_forces.cu`` (the dx-form ``_kernel``),
+``mxu=True`` launches ``csrc/naive_forces_mxu.cu`` (the factored
+``_kernel_mxu``). Each kernel is compiled by ``nvcc`` for ``sm_90a`` into
+``wgpu_n_body_tpu_torch/_build/`` on first use (``ops/cuda_build.py``) and
+loaded with ``ctypes`` (a plain C launcher, no PyTorch headers, so the
+build takes seconds).
 
 ``naive_forces_cuda`` launches the kernel for CUDA tensors. For tensors on
-the CPU it returns the plain version (``naive_ref.naive_forces_ref``);
-every other device raises. A CUDA tensor never falls back to the plain
-version: the build or the launch succeeds, or an exception says why.
+the CPU it returns the matching plain version (``naive_ref``); every other
+device raises. A CUDA tensor never falls back to the plain version: the
+build or the launch succeeds, or an exception says why.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+from wgpu_n_body_tpu_torch.ops import cuda_build
+from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_mxu_ref, naive_forces_ref
 from wgpu_n_body_tpu_torch.params import SimParams
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "naive_forces.cu"
+SOURCE_MXU = _PKG / "csrc" / "naive_forces_mxu.cu"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",  # registers / shared memory / spills into the build log
-]
+NVCC_FLAGS = list(cuda_build.BASE_FLAGS)
 _MAX_SMEM_TILE_J = 48 * 1024 // 16  # float4 sources in 48 KB of shared memory
 
-#: Kernel launches since import (or since a caller reset it to 0).
+#: Launches of the dx-form kernel (B1) since import, or since a caller set it to 0.
 LAUNCHES = 0
-_lib: ctypes.CDLL | None = None
+#: Launches of the factored kernel (B2), likewise.
+LAUNCHES_MXU = 0
+_libs: dict[bool, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    exe = shutil.which("nvcc")
-    if exe is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        exe = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(exe):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda)")
-    return exe
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel unless a library of this exact source exists.
+def build(mxu: bool = False) -> tuple[Path, str]:
+    """Compile the dx-form kernel (or, with ``mxu``, the factored one)
+    unless a library of this exact source exists.
 
     Returns (library path, compiler output). Raises RuntimeError with
     nvcc's output when the build fails.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libnaive_forces_{digest}.so"
-    if lib_path.exists():
-        return lib_path, "cached"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
-    return lib_path, log
+    return cuda_build.compile_cu(SOURCE_MXU if mxu else SOURCE, BUILD_DIR, NVCC_FLAGS)
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        fn = lib.naive_forces_launch
+def _library(mxu: bool) -> ctypes.CDLL:
+    if mxu not in _libs:
+        lib = ctypes.CDLL(str(build(mxu)[0]))
+        fn = lib.naive_forces_mxu_launch if mxu else lib.naive_forces_launch
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pos_new, src, out
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_recv, n_src, row_offset
@@ -84,8 +60,8 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p,  # device, stream
         ]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[mxu] = lib
+    return _libs[mxu]
 
 
 def _check_tiles(tile_i: int, tile_j: int) -> None:
@@ -103,15 +79,18 @@ def naive_forces_cuda(
     row_offset: int = 0,
     tile_i: int = 512,
     tile_j: int = 2048,
+    mxu: bool = False,
 ) -> torch.Tensor:
     """(N_recv, 3) acc*dt of receivers ``pos_new`` against sources
     ``pos_old`` / ``mass``; ``row_offset`` is the global source index of
-    receiver row 0 (for the self-mask of a receiver shard).
+    receiver row 0 (for the self-mask of a receiver shard). ``mxu``
+    selects the factored accumulation Σw·p_j − p_i·Σw (B2) over the
+    dx-form Σw·(p_j − p_i) (B1).
 
     CUDA tensors go through the kernel; CPU tensors through the plain
-    version; anything else raises.
+    version of the same form; anything else raises.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_MXU
     _check_tiles(tile_i, tile_j)
     if not isinstance(row_offset, int) or row_offset < 0:
         raise ValueError(f"row_offset must be an int >= 0, got {row_offset!r}")
@@ -120,7 +99,8 @@ def naive_forces_cuda(
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
     device = pos_new.device
     if device.type == "cpu":
-        return naive_forces_ref(pos_new, pos_old, mass, params, row_offset=row_offset)
+        plain = naive_forces_mxu_ref if mxu else naive_forces_ref
+        return plain(pos_new, pos_old, mass, params, row_offset=row_offset)
     if device.type != "cuda":
         raise ValueError(f"naive_forces_cuda takes CUDA or CPU tensors, got {device}")
     for name, t in (("pos_new", pos_new), ("pos_old", pos_old), ("mass", mass)):
@@ -145,13 +125,19 @@ def naive_forces_cuda(
     tile_i = min(tile_i, -(-n_recv // 32) * 32)  # no idle warps on tiny inputs
     tile_j = min(tile_j, max(n_src, 1))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().naive_forces_launch(
+    lib = _library(mxu)
+    launch = lib.naive_forces_mxu_launch if mxu else lib.naive_forces_launch
+    err = launch(
         pos_new.data_ptr(), src.data_ptr(), out.data_ptr(),
         n_recv, n_src, row_offset, params.e, tile_i, tile_j,
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
     )
+    name = "naive_forces_mxu" if mxu else "naive_forces"
     if err != 0:
-        raise RuntimeError(f"naive_forces kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    if mxu:
+        LAUNCHES_MXU += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -6,7 +6,8 @@ the same record in both packages and each reads the other's checkpoints.
 ``ParticleState`` holds the same SoA fields as torch tensors.
 
 The state bridge (``state_from_numpy`` / ``state_to_numpy`` /
-``params_from_dict``) is how one numpy state is fed to both packages.
+``params_from_dict``) is how one numpy state and one parameter record are
+fed to both packages.
 """
 
 from __future__ import annotations
@@ -50,14 +51,116 @@ class NaiveParams:
       use_pallas: True selects the hand-written kernel for CUDA tensors
         (the name is kept so checkpoints of both packages agree); False
         uses the plain torch force on every device.
-      mxu: the factored-accumulation kernel variant of the JAX package.
-        Not ported yet; ``NaiveSim`` raises if it is set.
+      mxu: opt-in factored-accumulation kernel (``csrc/naive_forces_mxu.cu``,
+        port of ``naive_pallas._kernel_mxu``): the same per-pair weights,
+        summed as Σw·p_j − p_i·Σw. Less accurate than the dx-form default
+        (the JAX package documents ~2e-4 vs ~2e-5 p99 relative error in
+        f32). Only read when ``use_pallas`` is True.
     """
 
     tile_i: int = 512
     tile_j: int = 2048
     use_pallas: bool = True
     mxu: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeParams:
+    """Extra params for the Barnes-Hut backend: the JAX package's
+    ``TreeParams`` field for field, default for default, so checkpoints
+    and ``dataclasses.asdict`` records are shared.
+
+    Reference: ``AddParams::TreeSimParams { theta }`` (src/sims/mod.rs:18-23)
+    with default theta 0.75 (src/sims/tree.rs:42-51).
+
+    Read by the port today:
+      theta: opening angle; a cell is accepted when width < theta * dist.
+      max_depth: octree depth D; Morton keys have 3*D bits (D <= 20).
+        Cells still holding more than ``leaf_bucket`` particles at depth D
+        are terminal and direct-summed in bucket-sized chunks.
+      node_capacity_factor: arena size = factor * N nodes (see
+        ``capacity``); None resolves by bucket (4.0 for singleton leaves,
+        1.0 below 8, 0.5 from 8 up). Overflow is flagged, never hangs.
+      leaf_bucket: cells of at most this many particles are leaves; a leaf
+        that fails the theta test is summed exactly over its particles.
+      walk: "per_particle" (ported: the stackless walk of
+        ``ops/tree_walk.py``, CUDA kernel ``csrc/tree_walk.cu``) or "group"
+        (the JAX default, not ported yet: ROADMAP B4).
+
+    The group walk's fields (``walk_tile``, ``walk_list_cap``,
+    ``walk_block``, ``walk_straggler_budget``, ``walk_straggler_slots``,
+    ``walk_engine``, ``octet_capacity_factor``) and the multi-chip LET
+    fields (``let_import_list_cap``, ``let_fused``, ``let_forest_factor``)
+    are carried with the JAX defaults and meanings (see
+    ``wgpu_n_body_tpu/params.py``) so that records round-trip; the port
+    reads them once the group walk and the sharded tree are ported.
+    """
+
+    theta: float = 0.75
+    max_depth: int = 16
+    node_capacity_factor: float | None = None
+    leaf_bucket: int = 16
+    walk: str = "group"
+    walk_tile: int | None = None
+    walk_list_cap: int = 8192
+    walk_block: int = 2048
+    walk_straggler_budget: int = 2
+    walk_straggler_slots: int = 8
+    walk_engine: str = "octet"
+    octet_capacity_factor: float | None = None
+    let_import_list_cap: int | None = None
+    let_fused: bool = False
+    let_forest_factor: float = 2.5
+
+    def let_forest_cap(self, p: int, let_cap: int) -> int:
+        """Row capacity of the fused LET walk's compacted import forest:
+        ``let_forest_factor`` let_caps, at least one, at most P * let_cap."""
+        return min(p * let_cap, max(let_cap, int(self.let_forest_factor * let_cap)))
+
+    def effective_import_list_cap(self) -> int:
+        """walk_list_cap of the split LET schedule's import-forest walk:
+        ``let_import_list_cap``, or 2048 capped by walk_list_cap."""
+        if self.let_import_list_cap is not None:
+            return self.let_import_list_cap
+        return min(self.walk_list_cap, 2048)
+
+    def effective_walk_tile(self, n: int) -> int:
+        """walk_tile with the default resolved by receiver count n:
+        512 at n >= 2**21, 256 below."""
+        if self.walk_tile is not None:
+            return self.walk_tile
+        return 512 if n >= (1 << 21) else 256
+
+    @property
+    def effective_capacity_factor(self) -> float:
+        """node_capacity_factor with the bucket-aware default resolved."""
+        if self.node_capacity_factor is not None:
+            return self.node_capacity_factor
+        if self.leaf_bucket == 1:
+            return 4.0
+        return 0.5 if self.leaf_bucket >= 8 else 1.0
+
+    def capacity(self, n: int) -> int:
+        """Node-arena size for N particles (reference: 4N octants,
+        src/sims/tree.rs:188-199). The auto default is floored at 4096
+        for tiny N; an explicit node_capacity_factor is exact."""
+        cap = int(self.effective_capacity_factor * n)
+        if self.node_capacity_factor is None:
+            cap = max(4096, cap)
+        return cap + 1
+
+    def octet_capacity(self, n: int) -> int:
+        """Octet-table rows (internal nodes only) for N particles; the
+        auto factor is 4.0 for singleton leaves, 0.5 below bucket 8 and
+        0.06 from 8 up, floored at 16384 rows (4096 when explicit) and
+        capped by the node capacity."""
+        f = self.octet_capacity_factor
+        if f is None:
+            f = 4.0 if self.leaf_bucket == 1 else (
+                0.5 if self.leaf_bucket < 8 else 0.06
+            )
+            return min(self.capacity(n), max(16384, int(n * f)))
+        return min(self.capacity(n), max(4096, int(n * f)))
 
 
 class ParticleState(NamedTuple):
@@ -120,6 +223,20 @@ def state_to_numpy(state: ParticleState) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
-def params_from_dict(d: dict) -> SimParams:
-    """SimParams from ``dataclasses.asdict`` of either package's SimParams."""
-    return SimParams(**d)
+_ADD_PARAM_KINDS = {"naive": NaiveParams, "tree": TreeParams}
+
+
+def params_from_dict(d: dict) -> SimParams | NaiveParams | TreeParams:
+    """Parameters from ``dataclasses.asdict`` of either package's records.
+
+    A dict with a ``"kind"`` key (``"naive"`` or ``"tree"``, the
+    checkpoint's add-params record) gives that backend's params; one
+    without gives SimParams.
+    """
+    d = dict(d)
+    kind = d.pop("kind", None)
+    if kind is None:
+        return SimParams(**d)
+    if kind not in _ADD_PARAM_KINDS:
+        raise ValueError(f"unknown add-params kind {kind!r}")
+    return _ADD_PARAM_KINDS[kind](**d)

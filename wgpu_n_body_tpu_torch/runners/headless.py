@@ -8,6 +8,12 @@ wants numbers (timing, diagnostics, dumps). Two stepping modes:
 - ``run(..., chunk=k)``: k steps queued back to back with one
   synchronisation at the end; the host touches state only at chunk
   boundaries, so dump/checkpoint/energy cadences must divide k.
+
+Backends with an arena that can overflow (TreeSim) are checked at every
+chunk boundary through ``raise_on_overflow``: the flag of every build in
+the chunk is read once, after the synchronisation the chunk ends with
+anyway. (The JAX package checks only the first batch unless
+``overflow_check_every`` is set.)
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ class OfflineHeadless:
             self.state = self._step(self.state)
             box["sync"] = self.state.pos
         self.step_num += 1
+        if hasattr(self.sim, "raise_on_overflow"):
+            self.sim.raise_on_overflow()
         return self.timer.times_s[-1]
 
     def run(
@@ -60,9 +68,19 @@ class OfflineHeadless:
         checkpoint_path: str | None = None,
         checkpoint_every: int = 0,
         energy_every: int = 0,
+        overflow_check_every: int = 0,
+        diag_log_every: int = 0,
         log_fn: Callable[[str], None] = print,
     ) -> ParticleState:
-        """Drive ``steps`` steps with optional periodic side channels."""
+        """Drive ``steps`` steps with optional periodic side channels.
+
+        Overflow of a backend's arena raises RuntimeError at the end of the
+        chunk it happened in. ``overflow_check_every``: backends exposing
+        ``check_overflow`` also re-build from the current state at this
+        cadence and raise if that tree overflows (the state the next step
+        builds from). ``diag_log_every``: backends exposing ``diagnose``
+        log their health dict at this cadence (one sort and build each).
+        """
         if trajectory is not None and trajectory_every <= 0:
             trajectory_every = max(chunk, 1)
         if chunk > 1:
@@ -84,6 +102,20 @@ class OfflineHeadless:
                 box["sync"] = self.state.pos
             self.step_num += k
             done += k
+            if hasattr(self.sim, "raise_on_overflow"):
+                self.sim.raise_on_overflow()
+            if (
+                overflow_check_every
+                and hasattr(self.sim, "check_overflow")
+                and self.step_num % overflow_check_every < k
+            ):
+                self.sim.check_overflow(self.state)
+            if (
+                diag_log_every
+                and hasattr(self.sim, "diagnose")
+                and self.step_num % diag_log_every < k
+            ):
+                log_fn(f"step {self.step_num}: {self.sim.diagnose(self.state)}")
             if log_every and (done % log_every < k):
                 us = self.timer.times_s[-1] / k * 1e6
                 log_fn(f"step {self.step_num}: {us:.1f} us/step")

@@ -23,6 +23,7 @@ from wgpu_n_body_tpu_torch.params import (
     NaiveParams,
     ParticleState,
     SimParams,
+    TreeParams,
     params_from_dict,
     state_from_numpy,
     state_to_numpy,
@@ -37,12 +38,14 @@ class Checkpoint(NamedTuple):
     state: ParticleState
     params: SimParams
     step: int
-    add_params: NaiveParams | dict | None  # dict: a kind not ported yet
+    add_params: NaiveParams | TreeParams | None
     schedule: dict | None  # {"name", "let_cap", "mesh_axes"} for sharded runs
 
     def make_sim(self):
-        """Rebuild the Simulator this checkpoint was written by."""
+        """Rebuild the Simulator this checkpoint was written by (no
+        add-params means a TreeSim with default TreeParams, as in JAX)."""
         from wgpu_n_body_tpu_torch.models.naive import NaiveSim
+        from wgpu_n_body_tpu_torch.models.tree import TreeSim
 
         if self.schedule is not None:
             raise NotImplementedError(
@@ -51,9 +54,7 @@ class Checkpoint(NamedTuple):
             )
         if isinstance(self.add_params, NaiveParams):
             return NaiveSim(self.params, self.add_params)
-        raise NotImplementedError(
-            "checkpoint holds a tree run; TreeSim is not ported yet (ROADMAP A6-A9)"
-        )
+        return TreeSim(self.params, self.add_params)
 
 
 def save_checkpoint(
@@ -63,15 +64,12 @@ def save_checkpoint(
     add-params) to ``path`` (.npz)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     ap = getattr(sim, "add_params", None)
+    kind = {NaiveParams: "naive", TreeParams: "tree"}.get(type(ap))
     meta = {
         "version": _FORMAT_VERSION,
         "step": int(step),
         "params": dataclasses.asdict(params),
-        "add_params": (
-            {"kind": "naive", **dataclasses.asdict(ap)}
-            if isinstance(ap, NaiveParams)
-            else None
-        ),
+        "add_params": None if kind is None else {"kind": kind, **dataclasses.asdict(ap)},
         "schedule": None,
     }
     tmp = path + ".tmp"
@@ -92,10 +90,8 @@ def load_checkpoint(path: str, device: str | torch.device) -> Checkpoint:
             raise ValueError(f"unsupported checkpoint version {meta['version']}")
         state = state_from_numpy(z["pos"], z["vel"], z["acc"], z["mass"], device)
     add_params = meta.get("add_params")
-    if add_params is not None and add_params["kind"] == "naive":
-        add_params = NaiveParams(
-            **{k: v for k, v in add_params.items() if k != "kind"}
-        )
+    if add_params is not None:
+        add_params = params_from_dict(add_params)
     return Checkpoint(
         state=state,
         params=params_from_dict(meta["params"]),
