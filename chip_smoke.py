@@ -26,7 +26,17 @@ Phases (any failure exits non-zero):
     and overflow cases, and the full N=4M walk timed;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
-    launched B3 once, the state is sane and the checkpoint reloads.
+    launched B3 once (and the diagnostics' group walk B4 and B3 once), the
+    state is sane and the checkpoint reloads;
+12. the group walk kernel (B4) against its plain version on every tile at
+    N=262144 (uniform and disc: deferred tiles and step counts equal, forces
+    within a per-row p99 of 1e-5), against float64 all-pairs and B3 on 2048
+    receivers of the N=4M tree, at theta=0 against B1, with every tile
+    deferred against B3, and the full N=4M walk timed beside B3;
+13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
+    group walk, N=4,000,000) and check that each step launched B4 once and
+    B3 once (its fallback over the deferred mask), the diagnostics, the
+    checkpoint and the mass multiset.
 The last two lines are a JSON record of the kernels and ``{"ok": true, ...}``.
 """
 
@@ -125,16 +135,17 @@ def main_state(params, dev):
 
 
 def zero_launch_counts():
-    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
+    tree_walk_group_cuda.LAUNCHES = 0
 
 
 def launch_counts():
-    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
 
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
-            "B3": tree_walk_cuda.LAUNCHES}
+            "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES}
 
 
 def phase_b2(dev, smi):
@@ -216,7 +227,7 @@ def phase_b2(dev, smi):
     zero_launch_counts()
     runner.run(steps=STEPS_MXU, log_fn=lambda line: None)
     counts = launch_counts()
-    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0}:
+    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0}:
         fail(f"NaiveSim(mxu=True) {STEPS_MXU} steps launched {counts}")
     if not all(torch.isfinite(t).all() for t in runner.state[:3]):
         fail("non-finite state after the NaiveSim(mxu=True) run")
@@ -416,7 +427,9 @@ def phase_tree_cli(dev, smi):
         zero_launch_counts()
         out = run_cli(cli, argv)
         counts = launch_counts()
-        if counts != {"B1": 0, "B2": 0, "B3": STEPS}:
+        # one B3 launch per step; the diagnostics line at the last step runs
+        # one group walk (B4, then B3 over its deferred mask), as in JAX
+        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1}:
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -430,9 +443,208 @@ def phase_tree_cli(dev, smi):
         init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the tree run changed the mass multiset")
-    print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} launches in "
-          f"{STEPS} steps, {us:.1f} us/step; [{smi}]")
+    print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches "
+          f"in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; [{smi}]")
     return counts["B3"]
+
+
+def phase_b4(dev, smi):
+    """12. The group walk kernel (B4) against its plain version, float64,
+    B1 and B3."""
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
+    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import group_walk_tiles, tile_setup
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+
+    group = tree_walk_group_cuda.group_tree_forces_cuda
+
+    def sort_build(state, params, tp):
+        ss, bound, keys = morton_sort(state, tp.max_depth)
+        tree = build_tree(ss, keys, bound, tp)
+        pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
+        return ss, tree, keys, pos_new
+
+    # -- 12a. every tile at N=262144: kernel vs plain version ------------------
+    # walk_tile 128, 256 and 512 launch the kernel's three instantiations
+    # (one, two and four receivers per thread); 256 is the default at this N
+    # and 512 the default of the N=4M main path
+    params = SimParams(particle_num=N_MAIN)
+    max_abs, ms_plain = 0.0, None
+    for name, init in (("uniform", uniform_init), ("disc", disc_init)):
+        ss, tree, keys, pos_new = sort_build(init(torch.Generator().manual_seed(0), params, dev),
+                                             params, TreeParams())
+        for g_tile in (128, 256, 512):
+            tp = TreeParams(walk_tile=g_tile)  # otherwise the defaults: theta 0.75
+            tiles = tile_setup(keys, N_MAIN, tp)
+            args = (pos_new, ss.pos, ss.mass, tree, tiles, params, tp)
+            ms_k, (k_acc, k_bad, k_steps, k_rows) = time_ms(
+                lambda: tree_walk_group_cuda.group_walk_tiles_cuda(*args), 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_acc, p_bad, p_steps, p_rows = group_walk_tiles(*args)
+            torch.cuda.synchronize()
+            ms_p = (time.perf_counter() - t0) * 1e3
+            what = f"B4 {name} walk_tile {g_tile}"
+            if not torch.equal(k_bad, p_bad) or not torch.equal(k_steps, p_steps):
+                fail(f"{what}: deferred tiles or step counts differ from the plain version "
+                     f"({int((k_bad != p_bad).sum())} flags, {int((k_steps != p_steps).sum())} "
+                     "counts)")
+            if not torch.equal(k_rows[~k_bad], p_rows[~p_bad]):
+                fail(f"{what}: list rows of the finished tiles differ from the plain version")
+            good = ~(tiles.deferred | p_bad[tiles.tile_id])
+            rel = row_rel_err(k_acc[good], p_acc[good])
+            abs_err = (k_acc[good] - p_acc[good]).abs().max().item()
+            nt = int((tiles.piece_len > 0).sum())
+            print(f"12a {what} N={N_MAIN} theta=0.75: {nt} tiles, {int(k_bad.sum())} deferred, "
+                  f"steps/tile max {int(k_steps.max())} mean "
+                  f"{float(k_steps[:nt].float().mean()):.1f}, list rows "
+                  f"{int(k_rows[~k_bad].sum())} — flags, steps and rows equal to the plain "
+                  f"version; forces of {int(good.sum())} receivers per-row p99 "
+                  f"{np.percentile(rel, 99):.3e} max {rel.max():.3e}, max|k-p| {abs_err:.3e}; "
+                  f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; [{smi}]")
+            if not np.isfinite(rel).all() or np.percentile(rel, 99) > 1e-5:
+                fail(f"{what}: forces differ from the plain version (gate p99 1e-5)")
+            max_abs = max(max_abs, abs_err)
+            if name == "uniform" and g_tile == 512:  # the main path's instantiation
+                ms_plain = ms_p
+            del tiles, args, k_acc, p_acc
+        del ss, tree, keys, pos_new
+    torch.cuda.empty_cache()
+
+    # -- 12b. the N=4M tree: 2048 receivers against float64 and B3 -------------
+    params = SimParams(particle_num=N_TREE)  # cli headless defaults
+    tp = TreeParams()  # walk_tile resolves to 512 at this N
+    ss, tree, keys, pos_new = sort_build(
+        uniform_init(torch.Generator().manual_seed(0), params, dev), params, tp)
+    acc, stats = group(pos_new, ss.pos, ss.mass, tree, keys, params, tp)
+    gen = torch.Generator().manual_seed(1)
+    idx = torch.randperm(N_TREE, generator=gen)[:2048].sort().values.to(dev)
+    b3_sub = tree_walk_cuda.tree_forces_cuda(pos_new[idx], ss.pos, ss.mass, tree, params, tp,
+                                             self_idx=idx.to(torch.int32))
+    truth = naive_forces_ref(pos_new[idx].double(), ss.pos.double(), ss.mass.double(), params,
+                             block=16, row_offset=idx)
+    mre_4, mre_3 = mean_rel_err(acc[idx], truth), mean_rel_err(b3_sub, truth)
+    print(f"12b N={N_TREE} theta=0.75 vs float64 all-pairs on {idx.numel()} receivers: mean "
+          f"relative error B4 {mre_4:.4e}, B3 {mre_3:.4e} (gates 0.03 and 1.01 x B3)")
+    if not (mre_4 <= 0.03 and mre_4 <= 1.01 * mre_3):
+        fail("the group walk is less accurate than the gates allow")
+    del truth, b3_sub
+
+    # -- 12e. the full N=4M walk, timed beside B3 ------------------------------
+    ms_group, (acc2, stats2) = time_ms(
+        lambda: group(pos_new, ss.pos, ss.mass, tree, keys, params, tp), 3)
+    if not torch.equal(acc2, acc) or not torch.isfinite(acc).all():
+        fail("the N=4M group walk is non-finite or differs between two runs")
+    tiles = tile_setup(keys, N_TREE, tp)
+    ms_kern, (_, k_bad, k_steps, k_rows) = time_ms(
+        lambda: tree_walk_group_cuda.group_walk_tiles_cuda(
+            pos_new, ss.pos, ss.mass, tree, tiles, params, tp), 3)
+    ms_setup, _ = time_ms(lambda: tile_setup(keys, N_TREE, tp), 3)
+    ms_b3, _ = time_ms(
+        lambda: tree_walk_cuda.tree_forces_cuda(pos_new, ss.pos, ss.mass, tree, params, tp), 2)
+    nt = int((tiles.piece_len > 0).sum())
+    deferred = int(stats.deferred)
+    m = int(tree.num_nodes)
+    internal = int((tree.nodes_f32[:m, NO_CHILD] == 0).sum())
+    tp2 = TreeParams(walk_list_cap=2 * tp.walk_list_cap)
+    deferred2 = int(group(pos_new, ss.pos, ss.mass, tree, keys, params, tp2)[1].deferred)
+    fin = ~k_bad[:nt]
+    rows_fin = k_rows[:nt][fin].double()
+    pairs = float((rows_fin * tiles.piece_len[:nt][fin].double()).sum())  # receiver-row pairs
+    print(f"12e N={N_TREE} group walk (tiles of {tiles.g}, r_cap {tiles.r_cap}): {ms_group:.3f} ms "
+          f"per call (tile set-up {ms_setup:.3f} ms, B4 kernel {ms_kern:.3f} ms, the rest B3 over "
+          f"the deferred mask and the merge); B3 full per-particle walk {ms_b3:.3f} ms; {nt} "
+          f"tiles, {int(k_bad.sum())} bad, {deferred} receivers deferred ({deferred2} with twice "
+          f"the step budget); steps/tile max {int(k_steps.max())} mean "
+          f"{float(k_steps[:nt].float().mean()):.1f}; list rows {int(rows_fin.sum())} "
+          f"({float(rows_fin.mean()):.1f} per finished tile), {pairs:.4e} receiver-row pairs "
+          f"({pairs / (ms_kern * 1e-3):.4e} per s in the kernel); internal nodes {internal} "
+          f"({internal / N_TREE:.4f} N; the JAX octet table holds {tp.octet_capacity(N_TREE)} "
+          f"rows); [{smi}]")
+    del ss, tree, keys, pos_new, acc, acc2, tiles
+    torch.cuda.empty_cache()
+
+    # -- 12c. theta=0 against the all-pairs kernel B1 at N=16384 ---------------
+    p16 = SimParams(particle_num=16384, g=1e-5)
+    tp0 = TreeParams(theta=0.0, walk_list_cap=16384)  # every tile finishes: B4 alone
+    ss16, tree16, keys16, pn16 = sort_build(
+        uniform_init(torch.Generator().manual_seed(5), p16, dev), p16, tp0)
+    kt, st0 = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tp0)
+    kn = naive_cuda.naive_forces_cuda(pn16, ss16.pos, ss16.mass, p16)
+    torch.cuda.synchronize()
+    rel = row_rel_err(kt, kn)
+    print(f"12c theta=0 group walk vs B1 at N=16384: {int(st0.deferred)} deferred, per-row p99 "
+          f"{np.percentile(rel, 99):.3e} max {rel.max():.3e} (gate p99 2e-4)")
+    if int(st0.deferred) != 0 or not np.isfinite(rel).all() or np.percentile(rel, 99) > 2e-4:
+        fail("the theta=0 group walk differs from the all-pairs kernel")
+
+    # -- 12d. every tile over its budget: all rows are B3's --------------------
+    tpd = TreeParams(theta=0.0, walk_list_cap=128)
+    kd, std = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tpd)
+    want = tree_walk_cuda.tree_forces_cuda(pn16, ss16.pos, ss16.mass, tree16, p16, tpd)
+    torch.cuda.synchronize()
+    if int(std.deferred) != 16384 or not torch.equal(kd, want):
+        fail(f"forced deferral: {int(std.deferred)} deferred, rows equal to B3: "
+             f"{torch.equal(kd, want)}")
+    print(f"12d theta=0, walk_list_cap=128: {int(std.deferred)} of 16384 deferred, rows equal "
+          "to B3's")
+    return {
+        "name": "tree_walk_group",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/tree_walk_group.cu",
+        "replaces": "wgpu_n_body_tpu/ops/tree_walk_group.py:245",
+        "launches": 0,  # set from the main path's run (phase 13)
+        "max_abs_err": max_abs,
+        "ms": ms_group,
+        "plain_ms": ms_plain,
+        "ms_receivers": N_TREE,
+        "plain_ms_receivers": N_MAIN,
+        "plain_ms_walk_tile": 512,
+        "kernel_ms": ms_kern,
+        "b3_ms_same_run": ms_b3,
+    }
+
+
+def phase_group_cli(dev, smi):
+    """13. The main path: ``cli headless`` with its defaults (group walk)."""
+    from wgpu_n_body_tpu_torch import cli
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams
+    from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "group.npz")
+        argv = ["headless", "--steps", str(STEPS), "--diag-every", str(STEPS),
+                "--checkpoint", ckpt]
+        zero_launch_counts()
+        out = run_cli(cli, argv)
+        counts = launch_counts()
+        diags = re.findall(r"'walk_deferred': (\d+)", out)
+        # each step walks once (B4, then B3 over its deferred mask), and so
+        # does each diagnostics line
+        walks = STEPS + len(diags)
+        if len(diags) != 1 or counts != {"B1": 0, "B2": 0, "B3": walks, "B4": walks}:
+            fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
+        if "'overflowed': False" not in out:
+            fail("the tree diagnostics do not report a healthy arena")
+        us = float(re.search(r"mean: (\S+) us/step", out).group(1))
+        ck = load_checkpoint(ckpt, dev)
+        sim = ck.make_sim()
+        if not isinstance(sim, TreeSim) or sim.add_params.walk != "group" or ck.step != STEPS:
+            fail("the checkpoint does not reload as a group-walk TreeSim at the last step")
+        st = ck.state
+        if st.n != N_TREE or not all(torch.isfinite(t).all() for t in st[:3]):
+            fail("non-finite or mis-sized state after the group-walk run")
+        init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
+        if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
+            fail("the group-walk run changed the mass multiset")
+    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B4 "
+          f"{counts['B4']} and B3 {counts['B3']} launches in {STEPS} steps + {len(diags)} "
+          f"diagnostics (walk_deferred {diags[0]}), {us:.1f} us/step; [{smi}]")
+    return counts["B4"]
 
 
 def main() -> None:
@@ -444,7 +656,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch import cli
         from wgpu_n_body_tpu_torch.inits import uniform_init
         from wgpu_n_body_tpu_torch.models import NaiveSim
-        from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+        from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
         from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
         from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
         from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
@@ -465,17 +677,18 @@ def main() -> None:
 
     # -- 2. build every kernel, one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
     builds = {
         "B1": pool.submit(naive_cuda.build),
         "B2": pool.submit(naive_cuda.build, True),
         "B3": pool.submit(tree_walk_cuda.build),
+        "B4": pool.submit(tree_walk_group_cuda.build),
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
     built = {k: f.result() for k, f in builds.items()}  # raises a build's error
     lib_path, log = built["B1"]
-    print(f"build (3 sources in parallel): {t_build:.3f} s -> {lib_path.name}")
+    print(f"build ({len(built)} sources in parallel): {t_build:.3f} s -> {lib_path.name}")
     print_ptxas(log)
 
     def kernel(pn, po, m, params, row_offset, tile_i, tile_j):
@@ -561,7 +774,7 @@ def main() -> None:
         out = run_cli(cli, argv)
         counts = launch_counts()
         launches = counts["B1"]
-        if counts != {"B1": STEPS, "B2": 0, "B3": 0}:
+        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0}:
             fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
@@ -602,7 +815,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
-    for key in ("B2", "B3"):
+    for key in ("B2", "B3", "B4"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -611,9 +824,11 @@ def main() -> None:
     phase_build(dev)
     b3 = phase_b3(dev, smi)
     b3["launches"] = phase_tree_cli(dev, smi)
+    b4 = phase_b4(dev, smi)
+    b4["launches"] = phase_group_cli(dev, smi)
 
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
-    print(json.dumps({"kernels": [b1, b2, b3]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

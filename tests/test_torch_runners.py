@@ -22,11 +22,12 @@ from wgpu_n_body_tpu.runners.trajectory import TrajectoryReader as JaxTrajectory
 from wgpu_n_body_tpu.utils import checkpoint as jax_checkpoint
 from wgpu_n_body_tpu_torch import cli
 from wgpu_n_body_tpu_torch.inits import uniform_init
-from wgpu_n_body_tpu_torch.models import NaiveSim
+from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
 from wgpu_n_body_tpu_torch.ops import energy
 from wgpu_n_body_tpu_torch.params import (
     NaiveParams,
     SimParams,
+    TreeParams,
     state_from_numpy,
     state_to_numpy,
 )
@@ -170,8 +171,12 @@ def test_make_sim_of_tree_checkpoint_raises(tmp_path):
     jax_checkpoint.save_checkpoint(ck, jax_uniform_init(jax.random.key(0), jparams), jparams, 5)
     ckpt = load_checkpoint(ck, device="cpu")
     assert ckpt.step == 5 and ckpt.add_params is None
-    with pytest.raises(NotImplementedError, match="TreeSim"):
-        ckpt.make_sim()
+    # no add-params means TreeSim with the default (group) walk, as in JAX;
+    # only a sharded run's checkpoint still raises
+    sim = ckpt.make_sim()
+    assert isinstance(sim, TreeSim) and sim.add_params == TreeParams()
+    with pytest.raises(NotImplementedError, match="A13"):
+        ckpt._replace(schedule={"name": "let", "let_cap": 64, "mesh_axes": ["x"]}).make_sim()
 
 
 def test_chunk_cadence_validation():
@@ -191,14 +196,29 @@ def test_cli_headless_on_cpu(tmp_path, capsys):
     assert TrajectoryReader(traj).steps == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize(
-    "extra", [["--sim", "tree"], ["--sim", "tree-host"], ["--sim", "naive", "--devices", "2"]]
-)
+@pytest.mark.parametrize("extra", [["--sim", "tree-host"], ["--sim", "naive", "--devices", "2"]])
 def test_cli_not_ported_exits_2(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["headless", "--n", "64", "--device", "cpu", *extra])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_headless_tree_defaults_on_cpu(tmp_path, capsys):
+    # no --tree-kw: TreeSim with the default group walk
+    ck = str(tmp_path / "tree.npz")
+    argv = ["headless", "--sim", "tree", "--n", "256", "--steps", "2", "--device", "cpu",
+            "--diag-every", "2", "--checkpoint", ck]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "us/step over 2 steps" in out and "'walk_deferred': 0" in out
+    ckpt = load_checkpoint(ck, device="cpu")
+    assert ckpt.step == 2 and torch.isfinite(ckpt.state.pos).all()
+    assert ckpt.add_params == TreeParams() and ckpt.make_sim().add_params.walk == "group"
+    assert cli.main(["bench", "--sim", "tree", "--sizes", "128", "--reps", "1",
+                     "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["sim"] == "tree" and rec["n"] == 128 and rec["s_per_step"] > 0
 
 
 def test_cli_bench_on_cpu(capsys):

@@ -434,9 +434,12 @@ def test_tree_sim_matches_jax_tree_sim():
     np.testing.assert_array_equal(np.sort(got["mass"]), np.sort(s["mass"]))
 
 
-def test_tree_sim_group_walk_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="B4"):
-        TreeSim(SimParams(particle_num=8))
+def test_tree_sim_default_is_the_group_walk_and_steps():
+    sim = TreeSim(SimParams(particle_num=64, g=1e-5))
+    assert sim.add_params == TreeParams() and sim.add_params.walk == "group"
+    out = sim.make_step()(_port_state(_np_state(15, 64)))
+    assert torch.isfinite(out.pos).all() and torch.isfinite(out.acc).all()
+    assert (out.acc != 0).any(dim=1).all()
     with pytest.raises(ValueError, match="walk"):
         TreeSim(SimParams(particle_num=8), TreeParams(walk="stack"))
 

@@ -1,0 +1,237 @@
+"""PyTorch port, group walk: the tile partition, the plain group walk and
+its kernel wrapper on the CPU, fed the same numpy state as the JAX
+package's ``group_tree_forces`` (skip engine, one pass: what the JAX
+package runs on the CPU) and held against it.
+
+Integers (tile ids, adaptive-cell depths, static budgets, deferral
+counts) must be equal. Forces carry ``tests/test_tree_group.py``'s
+tolerances. The kernel itself is checked on the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wgpu_n_body_tpu import params as jp
+from wgpu_n_body_tpu.ops import tree_build as jax_build
+from wgpu_n_body_tpu.ops.tree_walk_group import _tile_assignment as jax_tile_assignment
+from wgpu_n_body_tpu.ops.tree_walk_group import group_tree_forces as jax_group_tree_forces
+from wgpu_n_body_tpu_torch.ops import tree_walk_cuda, tree_walk_group_cuda
+from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense
+from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_order, morton_sort
+from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
+    _tile_assignment,
+    _window,
+    group_tree_forces,
+    group_walk_tiles,
+    tile_setup,
+)
+from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
+
+# tests/test_tree_group.py:52 (theta=0 against the all-pairs sum) and the
+# plain walk against JAX: the same rows, float32 sums in another order
+THETA0_TOL = dict(rtol=2e-4, atol=1e-8)
+JAX_TOL = dict(rtol=1e-4, atol=1e-8)
+
+DEPTH = 10
+
+
+def _np_state(seed, n, kind="uniform"):
+    """n bodies in [-1, 1]^3 (``clustered``: half of them in a 1e-3 ball,
+    ``duplicates``: a quarter exact copies), masses U[0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (n, 3))
+    if kind == "clustered":
+        pos[: n // 2] = 0.3 + pos[: n // 2] * 1e-3
+    if kind == "duplicates":
+        pos[n // 2 : n // 2 + n // 4] = pos[: n // 4]
+    z = np.zeros((n, 3), np.float32)
+    return {"pos": pos.astype(np.float32), "vel": z, "acc": z,
+            "mass": rng.uniform(0.5, 2.0, n).astype(np.float32)}
+
+
+def _tp(**kw):
+    """The same TreeParams in both packages: the small walk of
+    tests/test_tree_group.py, skip engine."""
+    kw = {"max_depth": DEPTH, "walk_tile": 32, "walk_list_cap": 2048,
+          "walk_engine": "skip", **kw}
+    return jp.TreeParams(**kw), TreeParams(**kw)
+
+
+def _sim_params(n, g=1e-3):
+    return jp.SimParams(particle_num=n, g=g), SimParams(particle_num=n, g=g)
+
+
+def _jax_walk(s, gid=None, **tp_kw):
+    """JAX group walk of the sorted state: (acc of receivers ``gid`` (a
+    slice of the sorted order, default all), deferred)."""
+    jtp, _ = _tp(**tp_kw)
+    n = s["pos"].shape[0]
+    st = jp.ParticleState(**{k: jnp.asarray(v) for k, v in s.items()})
+    ss, bound, keys = jax_build.morton_sort(st, jtp.max_depth)
+    tree = jax_build.build_tree(ss, keys, bound, jtp)
+    gid = gid or slice(0, n)
+    acc, stats = jax_group_tree_forces(
+        ss.pos[gid], ss.pos, ss.mass, tree, (keys[0][gid], keys[1][gid]),
+        _sim_params(n)[0], jtp, gid_offset=gid.start,
+    )
+    return np.asarray(acc), int(stats.deferred)
+
+
+def _port(s, **tp_kw):
+    """The port's sorted state, tree and keys."""
+    _, ttp = _tp(**tp_kw)
+    ss, bound, keys = morton_sort(state_from_numpy(**s, device="cpu"), ttp.max_depth)
+    return ss, build_tree(ss, keys, bound, ttp), keys, ttp
+
+
+SCENE = _np_state(0, 300)  # the scene of the JAX engine comparison (ROADMAP C)
+
+
+@pytest.fixture(scope="module")
+def jax_skip():
+    """JAX skip-engine forces and deferral counts of SCENE at two thetas."""
+    return {theta: _jax_walk(SCENE, theta=theta) for theta in (0.1, 0.75)}
+
+
+# ---------------------------------------------------------------- tiles
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "duplicates"])
+@pytest.mark.parametrize("g", [1, 16, 32, 100, 256, 512])  # 256, 512: the defaults
+def test_tile_assignment_equals_jax(kind, g):
+    n = 700 if g <= 100 else 2048
+    s = _np_state(1, n, kind)
+    _, _, (hi, lo) = morton_order(torch.from_numpy(s["pos"]), DEPTH)
+    want = jax_tile_assignment(
+        (jnp.asarray(hi.numpy(), jnp.uint32), jnp.asarray(lo.numpy(), jnp.uint32)),
+        n, DEPTH, g, 64,
+    )
+    got = _tile_assignment((hi, lo), n, DEPTH, g, 64)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # tile_id
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))  # lstar
+    assert got[2:] == tuple(want[2:])  # t_cap, t_blk, ta_blk
+    if kind == "clustered" and g in (32, 512):
+        assert got[1].max() > got[1].min() + 3  # the cluster's cells are deeper
+
+
+def test_window_is_a_sliding_min_and_max():
+    x = torch.from_numpy(np.random.default_rng(2).integers(-50, 50, 300))
+    for w in (1, 2, 5, 64, 255, 300):
+        for op, red in ((torch.minimum, np.min), (torch.maximum, np.max)):
+            want = [red(x.numpy()[a : a + w]) for a in range(300 - w + 1)]
+            assert _window(x, w, op).tolist() == want
+
+
+def test_tile_setup_covers_every_receiver_once():
+    ss, _, keys, ttp = _port(_np_state(3, 500, "clustered"))
+    t = tile_setup(keys, 500, ttp)
+    start, length = t.piece_start.long(), t.piece_len.long()
+    assert int(length.sum()) == 500 and (length <= t.g).all() and not t.deferred.any()
+    np.testing.assert_array_equal((start[t.tile_id] + t.slot).numpy(), np.arange(500))
+    assert t.r_cap == 4096 and t.t_cap % 32 == 0
+
+
+# ---------------------------------------------------------------- forces
+
+
+@pytest.mark.parametrize("theta", [0.1, 0.75])
+def test_forces_match_jax_skip_engine(theta, jax_skip):
+    want, want_def = jax_skip[theta]
+    ss, tree, keys, ttp = _port(SCENE, theta=theta)
+    _, params = _sim_params(300)
+    got, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    assert stats.deferred.dtype == torch.int32 and stats.deferred.shape == ()
+    assert int(stats.deferred) == want_def == 0
+    np.testing.assert_allclose(got.numpy(), want, **JAX_TOL)
+
+
+@pytest.mark.parametrize("bucket", [1, 16])
+def test_theta_zero_equals_naive(bucket):
+    n = 200  # not a multiple of the tile: ragged last tiles
+    ss, tree, keys, ttp = _port(_np_state(4, n), theta=0.0, leaf_bucket=bucket)
+    _, params = _sim_params(n)
+    got, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    assert int(stats.deferred) == 0
+    torch.testing.assert_close(got, naive_forces_dense(ss.pos, ss.pos, ss.mass, params),
+                               **THETA0_TOL)
+
+
+def test_full_deferral_is_exact_and_equals_per_particle_walk():
+    # every tile overflows its step budget: all receivers take the
+    # per-particle walk, and the answer stays the exact all-pairs sum
+    n = 256
+    ss, tree, keys, ttp = _port(_np_state(5, n), theta=0.0, walk_list_cap=128, leaf_bucket=1)
+    _, params = _sim_params(n)
+    tiles = tile_setup(keys, n, ttp)
+    _, bad, steps, _ = group_walk_tiles(ss.pos, ss.pos, ss.mass, tree, tiles, params, ttp)
+    nt = int((tiles.piece_len > 0).sum())
+    assert bad[:nt].all() and (steps[:nt] == tiles.r_cap).all() and not bad[nt:].any()
+    got, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    assert int(stats.deferred) == n
+    torch.testing.assert_close(got, naive_forces_dense(ss.pos, ss.pos, ss.mass, params),
+                               **THETA0_TOL)
+    torch.testing.assert_close(
+        got, tree_forces(ss.pos, ss.pos, ss.mass, tree, params, ttp), rtol=0, atol=0
+    )
+
+
+def test_partial_deferral_matches_jax():
+    # a budget some tiles of the clustered scene overflow and others keep
+    s = _np_state(6, 300, "clustered")
+    want, want_def = _jax_walk(s, theta=0.5, walk_list_cap=128)
+    ss, tree, keys, ttp = _port(s, theta=0.5, walk_list_cap=128)
+    _, params = _sim_params(300)
+    got, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    assert 0 < int(stats.deferred) == want_def < 300
+    np.testing.assert_allclose(got.numpy(), want, **JAX_TOL)
+
+
+def test_group_walk_is_at_least_as_accurate_as_per_particle():
+    ss, tree, keys, ttp = _port(SCENE, theta=0.75)
+    _, params = _sim_params(300)
+    exact = naive_forces_dense(ss.pos.double(), ss.pos.double(), ss.mass.double(), params)
+    scale = exact.norm(dim=1).mean()
+    grp = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)[0]
+    per = tree_forces(ss.pos, ss.pos, ss.mass, tree, params, ttp)
+    err_grp = float((grp.double() - exact).abs().mean() / scale)
+    err_per = float((per.double() - exact).abs().mean() / scale)
+    assert err_grp <= 1.01 * err_per and err_grp < 0.03
+
+
+# ---------------------------------------------------------------- wrapper
+
+
+def test_wrapper_on_cpu_takes_plain_version_and_other_devices_raise():
+    ss, tree, keys, ttp = _port(_np_state(7, 200), theta=0.6)
+    _, params = _sim_params(200)
+    before = (tree_walk_group_cuda.LAUNCHES, tree_walk_cuda.LAUNCHES)
+    got, stats = tree_walk_group_cuda.group_tree_forces_cuda(
+        ss.pos, ss.pos, ss.mass, tree, keys, params, ttp
+    )
+    assert (tree_walk_group_cuda.LAUNCHES, tree_walk_cuda.LAUNCHES) == before
+    want, want_stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(stats.deferred) == int(want_stats.deferred)
+    with pytest.raises(ValueError, match="several devices"):
+        tree_walk_group_cuda.group_tree_forces_cuda(
+            ss.pos.to("meta"), ss.pos, ss.mass, tree, keys, params, ttp
+        )
+    meta = [t.to("meta") for t in (ss.pos, ss.mass)]
+    meta_tree = type(tree)(*(t.to("meta") if torch.is_tensor(t) else t for t in tree))
+    meta_keys = tuple(k.to("meta") for k in keys)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tree_walk_group_cuda.group_tree_forces_cuda(
+            meta[0], meta[0], meta[1], meta_tree, meta_keys, params, ttp
+        )
+    tiles = tile_setup(keys, 200, ttp)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tree_walk_group_cuda.group_walk_tiles_cuda(
+            ss.pos, ss.pos, ss.mass, tree, tiles, params, ttp
+        )
+    with pytest.raises(NotImplementedError, match="A13"):
+        tree_walk_group_cuda.group_tree_forces_cuda(
+            ss.pos, ss.pos, ss.mass, tree, keys, params, ttp, imports=object()
+        )

@@ -104,7 +104,7 @@ def test_cli_headless_tree_on_cpu(tmp_path, capsys):
         (["--tree-kw", "leaf_bucket=[1"], "leaf_bucket"),
         (["--tree-kw", "bucket=4"], "NAME one of"),
         (["--tree-kw", 'leaf_bucket="x"', *PER_PARTICLE], "leaf_bucket"),
-        ([], "per_particle"),  # the default group walk
+        (["--tree-kw", 'walk="stack"'], "unknown walk"),
         (["--sim", "naive", *PER_PARTICLE], "--sim tree only"),
     ],
 )
@@ -164,20 +164,28 @@ def test_port_tree_checkpoint_loads_in_jax(tmp_path):
     np.testing.assert_allclose(r.state.vel.numpy(), np.asarray(jstate.vel), **VEL_TOL)
 
 
-def test_group_walk_checkpoint_loads_but_make_sim_names_roadmap(tmp_path):
+def test_jax_default_tree_checkpoint_resumes_in_port(tmp_path):
+    # a checkpoint of the JAX default TreeSim (group walk, octet engine)
+    # steps in the port with the group walk's skip-engine semantics, as the
+    # JAX skip engine steps it
     ck = str(tmp_path / "group.npz")
-    jparams = jp.SimParams(particle_num=16)
+    jparams = jp.SimParams(particle_num=128, g=1e-5)
     state = jp.ParticleState(**{k: jnp.asarray(v) for k, v in state_to_numpy(
-        uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=16),
+        uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=128),
                      torch.device("cpu"))).items()})
     jax_checkpoint.save_checkpoint(ck, state, jparams, 4, sim=JaxTreeSim(jparams))
     ckpt = load_checkpoint(ck, device="cpu")
-    assert ckpt.add_params == TreeParams() and ckpt.add_params.walk == "group"
-    with pytest.raises(NotImplementedError, match="B4"):
-        ckpt.make_sim()
+    assert ckpt.step == 4 and ckpt.add_params == TreeParams() and ckpt.add_params.walk == "group"
+    sim = ckpt.make_sim()
+    assert isinstance(sim, TreeSim) and sim.add_params.walk_engine == "octet"
+    got = state_to_numpy(sim.make_step()(ckpt.state))
+    jtp = dataclasses.replace(jax_checkpoint.load_checkpoint(ck).add_params, walk_engine="skip")
+    jstate = JaxTreeSim(jparams, jtp).make_step(donate=False)(state)
+    np.testing.assert_allclose(got["pos"], np.asarray(jstate.pos), **POS_TOL)
+    np.testing.assert_allclose(got["vel"], np.asarray(jstate.vel), **VEL_TOL)
+    np.testing.assert_array_equal(got["mass"], np.asarray(jstate.mass))
     # and a port save of the same params round-trips through both loaders
-    save_checkpoint(ck, ckpt.state, ckpt.params, 4,
-                    sim=type("S", (), {"add_params": TreeParams()})())
+    save_checkpoint(ck, ckpt.state, ckpt.params, 4, sim=sim)
     assert jax_checkpoint.load_checkpoint(ck).add_params == jp.TreeParams()
 
 
@@ -198,3 +206,25 @@ def test_profile_step_attributes_kernels_to_ranges():
     assert by_kernel[("theta_walk", "tree_walk_kernel")] == 40
     assert busy == 40 + 40 + 5 and span == 195
     assert main([]) == 1  # no CUDA device here: refuses instead of timing the CPU
+
+
+def test_profile_step_counts_a_kernel_to_its_innermost_range():
+    # the group walk's own ranges nest inside TreeSim's theta_walk
+    from wgpu_n_body_tpu_torch.utils.profile_step import kernel_breakdown
+
+    trace = [
+        {"cat": "gpu_user_annotation", "name": "theta_walk", "ts": 0, "dur": 100},
+        {"cat": "gpu_user_annotation", "name": "group_tiles", "ts": 0, "dur": 10},
+        {"cat": "gpu_user_annotation", "name": "group_kernel", "ts": 10, "dur": 60},
+        {"cat": "gpu_user_annotation", "name": "group_fallback", "ts": 70, "dur": 30},
+        {"cat": "kernel", "name": "searchsorted", "ts": 2, "dur": 5},
+        {"cat": "kernel", "name": "group_walk_kernel", "ts": 12, "dur": 55},
+        {"cat": "kernel", "name": "tree_walk_kernel", "ts": 72, "dur": 20},
+        {"cat": "kernel", "name": "where", "ts": 95, "dur": 3},
+        {"cat": "kernel", "name": "kick", "ts": 120, "dur": 4},
+    ]
+    by_range, by_kernel, busy, span = kernel_breakdown(trace)
+    assert by_range == {"group_tiles": 5, "group_kernel": 55, "group_fallback": 23,
+                        "leapfrog": 4}
+    assert by_kernel[("group_kernel", "group_walk_kernel")] == 55
+    assert busy == 87 and span == 122

@@ -2,15 +2,14 @@
 (reference src/bin/ + benches/benchmark.rs).
 
     python -m wgpu_n_body_tpu_torch.cli headless --sim naive --n 262144
-    python -m wgpu_n_body_tpu_torch.cli headless --tree-kw walk='"per_particle"'
-    python -m wgpu_n_body_tpu_torch.cli bench --sim naive,tree --tree-kw walk='"per_particle"'
+    python -m wgpu_n_body_tpu_torch.cli headless          # TreeSim, N=4M, group walk
+    python -m wgpu_n_body_tpu_torch.cli bench --sim naive,tree
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``
-and ``--sim tree`` with the per-particle walk, on one device. ``--sim
-tree`` with the default group walk (ROADMAP B4), ``--sim tree-host``
-(A11) and ``--devices > 1`` (A13) exit with code 2, as does a malformed
-``--tree-kw``.
+and ``--sim tree`` (either walk), on one device. ``--sim tree-host``
+(ROADMAP A11) and ``--devices > 1`` (A13) exit with code 2, as does a
+malformed ``--tree-kw``.
 """
 
 from __future__ import annotations
@@ -83,11 +82,6 @@ def _build_sim(args) -> Simulator:
         tp = TreeParams(**{"theta": args.theta, **tkw})
     except TypeError as exc:
         _usage_error(f"--tree-kw: {exc}")
-    if tp.walk == "group":
-        _usage_error(
-            "--sim tree: the group walk (TreeParams walk='group', the default) is "
-            "not yet ported (ROADMAP B4); pass --tree-kw walk='\"per_particle\"'"
-        )
     try:
         return TreeSim(params, tp)
     except ValueError as exc:
@@ -208,8 +202,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--diag-every", type=int, default=0,
-        help="log the backend health dict (node count, capacity, overflow) "
-        "at this cadence (one extra sort and build per log)",
+        help="log the backend health dict (node count, capacity, overflow, "
+        "walk_deferred) at this cadence (one extra sort, build and group walk "
+        "per log)",
     )
     p.set_defaults(fn=cmd_headless)
 

@@ -8,10 +8,12 @@ One step, all on the state's device:
     -> leapfrog with the theta walk as the force
 
 Like the reference, TreeSim reorders particles every step and returns the
-sorted state. ``walk="per_particle"`` runs the stackless walk: the CUDA
-kernel ``csrc/tree_walk.cu`` for a CUDA state, its plain torch version for
-a CPU state. The JAX default ``walk="group"`` is not ported yet (ROADMAP
-B4) and raises.
+sorted state. The force is the default group walk (``walk="group"``: the
+CUDA kernel ``csrc/tree_walk_group.cu`` plus the per-particle kernel over
+the receivers it defers) or the stackless per-particle walk
+(``walk="per_particle"``: ``csrc/tree_walk.cu``), each with its plain torch
+version for a CPU state. Both values of ``walk_engine`` run the group
+walk's skip-engine semantics (ROADMAP C).
 
 Every build's overflow flag is kept on the device, OR-ed over the steps
 since the last check, so the runner can raise on an overflow in any batch
@@ -26,6 +28,7 @@ from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
 from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
 
@@ -38,12 +41,7 @@ class TreeSim(Simulator):
         # The reference defaults theta=0.75 when params are missing
         # (tree.rs:42-51); here the default lives in TreeParams itself.
         self.add_params = tp = add_params or TreeParams()
-        if tp.walk == "group":
-            raise NotImplementedError(
-                "TreeSim walk='group' (the JAX default group walk) is not ported "
-                "yet: ROADMAP B4; use TreeParams(walk='per_particle')"
-            )
-        if tp.walk != "per_particle":
+        if tp.walk not in ("group", "per_particle"):
             raise ValueError(f"unknown walk {tp.walk!r}")
         if not isinstance(tp.max_depth, int) or not 1 <= tp.max_depth <= 20:
             raise ValueError(f"max_depth must be an int in [1, 20], got {tp.max_depth!r}")
@@ -59,14 +57,18 @@ class TreeSim(Simulator):
             state_sorted, bound, keys = morton_sort(state, tp.max_depth)
         with trace_scope("tree_build"):
             tree = build_tree(state_sorted, keys, bound, tp)
-        return state_sorted, tree
+        return state_sorted, tree, keys
 
     def step_fn(self) -> StepFn:
         params, tp = self.sim_params, self.add_params
 
-        def force_of(tree):
+        def force_of(tree, keys):
             def force(pos_new, pos_old, mass):
                 with trace_scope("theta_walk"):
+                    if tp.walk == "group":
+                        return group_tree_forces_cuda(
+                            pos_new, pos_old, mass, tree, keys, params, tp
+                        )[0]
                     return tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
 
             return force
@@ -75,10 +77,10 @@ class TreeSim(Simulator):
             with trace_scope("tree_step"):
                 # Sort and build from the pre-step positions, as the
                 # reference does before its compute dispatch (tree.rs:271-297).
-                state_sorted, tree = self._sort_build(state)
+                state_sorted, tree, keys = self._sort_build(state)
                 flag = tree.overflowed
                 self._overflowed = flag if self._overflowed is None else self._overflowed | flag
-                return leapfrog_step(state_sorted, params, force_of(tree))
+                return leapfrog_step(state_sorted, params, force_of(tree, keys))
 
         return step
 
@@ -100,16 +102,21 @@ class TreeSim(Simulator):
     def check_overflow(self, state: ParticleState) -> None:
         """Raise if the arena overflows for this state (one sort + build,
         no walk)."""
-        _, tree = self._sort_build(state)
+        _, tree, _ = self._sort_build(state)
         if bool(tree.overflowed):
             raise self._overflow_error()
 
     def diagnose(self, state: ParticleState) -> dict:
-        """Tree health for this state: node count against the arena.
-        (The group walk's ``walk_deferred`` comes with ROADMAP B4.)"""
-        _, tree = self._sort_build(state)
+        """Tree health for this state: node count against the arena, and
+        how many receivers one group walk of the sorted state defers to the
+        per-particle walk (computed whatever ``walk`` is, as in JAX)."""
+        ss, tree, keys = self._sort_build(state)
+        _, stats = group_tree_forces_cuda(
+            ss.pos, ss.pos, ss.mass, tree, keys, self.sim_params, self.add_params
+        )
         return {
             "num_nodes": int(tree.num_nodes),
             "node_capacity": self.add_params.capacity(self.sim_params.particle_num),
             "overflowed": bool(tree.overflowed),
+            "walk_deferred": int(stats.deferred),
         }

@@ -10,9 +10,14 @@ from wgpu_n_body_tpu_torch.ops.naive_ref import (
 from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
 from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupWalkStats, group_tree_forces
+from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import group_tree_forces_cuda
 
 __all__ = [
+    "GroupWalkStats",
     "build_tree",
+    "group_tree_forces",
+    "group_tree_forces_cuda",
     "leapfrog_step",
     "morton_sort",
     "naive_forces_cuda",

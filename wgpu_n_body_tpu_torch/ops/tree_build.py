@@ -21,8 +21,10 @@ row ``cap``. More real nodes than ``cap`` clamp ``num_nodes`` to ``cap`` —
 walks stay bounded and terminate, forces lose the truncated tail — and
 set ``overflowed``. The JAX package emits nodes in 65536-row chunks up to
 the last live one to save TPU work; here one vectorised pass over the
-arena writes the same rows. The octet tables of the group walk
-(``octets``/``octet_pts``) are not built yet (ROADMAP B4).
+arena writes the same rows. The JAX octet tables (``octets``/
+``octet_pts``) are not built: the port's group walk
+(``ops/tree_walk_group.py``) walks this arena directly for both values of
+``walk_engine``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class TreeArrays(NamedTuple):
     num_nodes:  () int32 — real node count clamped to cap.
     root_width: () float32 — 2 * bound (tree.rs:450).
     overflowed: () bool — the unclamped node count exceeded cap.
-    octets, octet_pts: the group walk's tables; None until ROADMAP B4.
+    octets, octet_pts: the JAX octet engine's tables; always None here.
 
     ``NO_CHILD`` is 3-state: 0 = internal, 1 = terminal cell of at most
     leaf_bucket particles, 2 = terminal cell at max_depth holding more

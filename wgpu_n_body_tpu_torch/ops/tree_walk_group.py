@@ -1,0 +1,326 @@
+"""Group (tile-shared) theta walk, plain torch — counterpart of
+``wgpu_n_body_tpu/ops/tree_walk_group.py::group_tree_forces`` and the plain
+version of the CUDA kernel ``csrc/tree_walk_group.cu``
+(``ops/tree_walk_group_cuda.py``).
+
+The walk amortises one traversal over a *tile* of Morton-adjacent
+receivers:
+
+  tiles    pieces of at most ``walk_tile`` consecutive sorted receivers
+           that never leave their density-adaptive Morton cell
+           (``_tile_assignment``), so each tile's bounding box stays tight;
+  phase A  each tile walks the arena once from the root, without a stack
+           (the JAX skip engine): a node whose width is below
+           theta * dmin(bbox, cog) enters the tile's list as one
+           point-mass row and the walk jumps past its subtree; a terminal
+           cell that fails the test enters it as one member row per
+           particle, one step each (overfull max-depth cells included);
+           an internal node that fails costs one step and is opened;
+  phase B  every receiver of the tile sums its list with one point-mass
+           formula, the self pair excluded by global sorted index (member
+           rows carry their sorted index, node rows -1);
+  fallback a tile that needs more than ``r_cap = ceil(2*walk_list_cap/256)
+           *256`` steps is *bad*: its receivers (and any that spilled out of
+           the static tile budget) are deferred to the per-particle walk.
+
+This is the JAX skip engine as it runs in one pass (the JAX package's CPU
+path). The JAX package's default octet engine opens the same nodes up to
+its 9-bit quantized centre of gravity; the port runs the skip engine's
+exact test for both values of ``walk_engine`` (ROADMAP C lists the
+difference). The JAX density ordering of tiles, list compaction sort,
+straggler pass and tiered fallback batches are TPU scheduling and static
+shape machinery; none changes a result, and none is here.
+
+Phase A runs all tiles in lockstep, one step per iteration, as the JAX
+``lax.while_loop``; phase B evaluates the lists in chunks of rows so that
+memory stays bounded.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from wgpu_n_body_tpu_torch.ops import morton
+from wgpu_n_body_tpu_torch.ops.tree_build import (
+    COG_X,
+    MASS,
+    NO_CHILD,
+    WIDTH,
+    TreeArrays,
+)
+from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
+from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+
+
+class GroupWalkStats(NamedTuple):
+    deferred: torch.Tensor  # () int32: receivers sent down the fallback walk
+
+
+class Tiles(NamedTuple):
+    """The tile partition of the receivers (``tile_setup``).
+
+    tile_id:     (n,) int64 tile of each receiver (spills merged into the
+                 last tile).
+    slot:        (n,) int64 position of each receiver in its tile.
+    piece_start: (t_cap,) int32 first receiver of each tile.
+    piece_len:   (t_cap,) int32 receivers of each tile (0: unused tile).
+    deferred:    (n,) bool receivers deferred by the partition itself
+                 (beyond the static tile budget, or beyond walk_tile slots).
+    t_cap, g, r_cap: tile budget, walk_tile and the per-tile step budget.
+    """
+
+    tile_id: torch.Tensor
+    slot: torch.Tensor
+    piece_start: torch.Tensor
+    piece_len: torch.Tensor
+    deferred: torch.Tensor
+    t_cap: int
+    g: int
+    r_cap: int
+
+
+def _window(x: torch.Tensor, w: int, op) -> torch.Tensor:
+    """y[a] = op(x[a : a + w]) for a in [0, len(x) - w], by doubling: about
+    log2(w) elementwise passes (``op`` is torch.minimum or torch.maximum)."""
+    m, span = x, 1
+    while 2 * span <= w:
+        m = op(m[:-span], m[span:])  # m[a] = op(x[a : a + 2*span])
+        span *= 2
+    k = x.shape[0] - w + 1
+    return op(m[:k], m[w - span : w - span + k])
+
+
+def _tile_assignment(keys, n, depth, g_tile, ta_blk_max=2048):
+    """Split the sorted receivers into density-adaptive pieces
+    (``tree_walk_group.py:184-242``, integers equal).
+
+    Each receiver's tile cell is its deepest ancestor Morton cell still
+    holding >= g_tile receivers; pieces break where that cell changes and
+    every g_tile receivers within it. Returns (tile_id (n,) int64, lstar
+    (n,) int64, t_cap, t_blk, ta_blk).
+
+    The JAX package sizes every level's runs with cummax/cummin scans over
+    (depth+1, n) arrays. Here lstar comes from the split levels s alone:
+    g_tile consecutive receivers [a, a+g_tile) share their key prefix down
+    to level min(s[a+1 : a+g_tile]) - 1, and a cell holds >= g_tile
+    receivers iff such a window inside it covers the receiver, so lstar[i]
+    is the max of that depth over the windows covering i — two sliding
+    windows of ~log2(g_tile) passes each, the same integers.
+    """
+    hi, lo = keys
+    dev = hi.device
+    i64 = torch.int64
+    ii = torch.arange(n, dtype=i64, device=dev)
+    s = morton.split_levels(hi, lo, depth)
+    if g_tile == 1:
+        lstar = torch.full((n,), depth, dtype=i64, device=dev)
+    elif n < g_tile:
+        lstar = torch.zeros(n, dtype=i64, device=dev)
+    else:
+        shared = _window(s[1:].to(torch.int32), g_tile - 1, torch.minimum) - 1
+        pad = torch.full((g_tile - 1,), -1, dtype=torch.int32, device=dev)
+        lstar = _window(torch.cat([pad, shared, pad]), g_tile, torch.maximum)
+        lstar = torch.clamp(lstar, 0, depth).to(i64)
+    prev_lstar = torch.cat([torch.full((1,), -1, dtype=i64, device=dev), lstar[:-1]])
+    grp_start = (ii == 0) | (lstar != prev_lstar) | (s <= lstar)
+    grp_id = torch.cumsum(grp_start, 0) - 1
+    grp_first = torch.zeros(n + 1, dtype=i64, device=dev)  # slot n: dropped
+    grp_first.scatter_(0, torch.where(grp_start, grp_id, n), ii)
+    rs_grp = grp_first[grp_id]
+    brk = grp_start | ((ii - rs_grp) % g_tile == 0)
+    tile_id = torch.cumsum(brk, 0) - 1
+    # static budgets, as the JAX package sizes them
+    t_cap = -(-n // g_tile) + max(8, 2 * -(-n // g_tile))
+    t_blk = min(32, t_cap)
+    t_cap = -(-t_cap // t_blk) * t_blk
+    ta_blk = min(ta_blk_max, t_cap)
+    t_cap = -(-t_cap // ta_blk) * ta_blk
+    return tile_id, lstar, t_cap, t_blk, ta_blk
+
+
+def tile_setup(keys, n: int, tree_params: TreeParams) -> Tiles:
+    """The tiles of n sorted receivers with Morton ``keys``
+    (``tree_walk_group.py:287-301``). No host read."""
+    g = tree_params.effective_walk_tile(n)
+    tile_id_raw, _, t_cap, _, _ = _tile_assignment(
+        keys, n, tree_params.max_depth, g, tree_params.walk_block
+    )
+    spilled = tile_id_raw >= t_cap  # merged into the last tile; deferred
+    tile_id = torch.clamp(tile_id_raw, max=t_cap - 1)
+    dev = tile_id.device
+    piece_start = torch.searchsorted(tile_id, torch.arange(t_cap, device=dev))
+    piece_end = torch.cat([piece_start[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
+    slot = torch.arange(n, device=dev) - piece_start[tile_id]
+    r_cap = -(-(2 * tree_params.walk_list_cap) // 256) * 256
+    return Tiles(
+        tile_id=tile_id,
+        slot=slot,
+        piece_start=piece_start.to(torch.int32),
+        piece_len=(piece_end - piece_start).to(torch.int32),
+        deferred=spilled | (slot >= g),
+        t_cap=t_cap,
+        g=g,
+        r_cap=r_cap,
+    )
+
+
+def _check_engine_args(imports) -> None:
+    if imports is not None:
+        raise NotImplementedError(
+            "group_tree_forces(imports=...) is the fused LET walk of the sharded "
+            "tree, not ported yet (ROADMAP A13)"
+        )
+
+
+def group_walk_tiles(
+    pos_new: torch.Tensor,
+    src_pos: torch.Tensor,
+    src_mass: torch.Tensor,
+    tree: TreeArrays,
+    tiles: Tiles,
+    params: SimParams,
+    tree_params: TreeParams,
+    gid_offset: int = 0,
+):
+    """Phases A and B for every tile: ((n, 3) acc*dt of the group walk,
+    tile_bad (t_cap,) bool, tile_steps (t_cap,) int32, tile_rows (t_cap,)
+    int32).
+
+    ``tile_steps`` counts phase-A steps (r_cap for a bad tile) and
+    ``tile_rows`` the list rows emitted. Rows of receivers in bad tiles, or
+    deferred by ``tiles``, are not meaningful: the fallback replaces them.
+    """
+    dev = pos_new.device
+    n, n_src = pos_new.shape[0], src_pos.shape[0]
+    cap = tree.nodes_f32.shape[0] - 1
+    g, t_cap, r_cap = tiles.g, tiles.t_cap, tiles.r_cap
+    theta = tree_params.theta
+    gdt = params.g * params.dt
+    e = params.e
+    i64 = torch.int64
+
+    # Tiles 0..T-1 hold every receiver; the rest of the static budget is empty.
+    nt = min(int(tiles.tile_id[-1]) + 1, t_cap) if n else 0
+    piece_start = tiles.piece_start[:nt].to(i64)
+    piece_len = tiles.piece_len[:nt].to(i64)
+    sidx = torch.arange(g, dtype=i64, device=dev)
+    # padded (T, G) receiver blocks: unused slots repeat the piece's first
+    # receiver (the bbox stays tight) and match no source index
+    part_idx = piece_start[:, None] + torch.minimum(sidx[None, :], piece_len[:, None] - 1)
+    tile_pos = pos_new[part_idx]  # (T, G, 3)
+    tile_gid = torch.where(sidx[None, :] < piece_len[:, None], part_idx + gid_offset, n_src)
+    blo = tile_pos.amin(1)
+    bhi = tile_pos.amax(1)
+
+    # ---- phase A: all tiles in lockstep, one node or member row per step ----
+    # Emitted ids index the combined table [node rows | source rows]; id
+    # `cap` is the sentinel (zero mass, far away: it adds exactly 0).
+    num_nodes = tree.num_nodes.to(i64)
+    skip = tree.skip.to(i64)
+    first = tree.first.to(i64)
+    count = tree.count.to(i64)
+    member_base = cap + 1
+    cur = torch.zeros(nt, dtype=i64, device=dev)
+    koff = torch.zeros(nt, dtype=i64, device=dev)
+    steps = torch.zeros(nt, dtype=i64, device=dev)
+    ids = []
+    for _ in range(r_cap):
+        done = cur >= num_nodes
+        if bool(done.all()):
+            break
+        at = torch.clamp(cur, max=cap)
+        row = tree.nodes_f32[at]
+        cx, cy, cz = row[:, COG_X], row[:, COG_X + 1], row[:, COG_X + 2]
+        dx = torch.clamp(torch.maximum(blo[:, 0] - cx, cx - bhi[:, 0]), min=0.0)
+        dy = torch.clamp(torch.maximum(blo[:, 1] - cy, cy - bhi[:, 1]), min=0.0)
+        dz = torch.clamp(torch.maximum(blo[:, 2] - cz, cz - bhi[:, 2]), min=0.0)
+        dmin = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        theta_ok = row[:, WIDTH] < theta * dmin
+        near = ~theta_ok & (row[:, NO_CHILD] > 0.0)
+        entry = torch.where(theta_ok, cur, torch.where(near, member_base + first[at] + koff, cap))
+        ids.append(torch.where(done, cap, entry))
+        steps += (~done).to(i64)
+        exhausted = koff + 1 >= count[at]
+        koff = torch.where(near & ~exhausted & ~done, koff + 1, 0)
+        nxt = torch.where(theta_ok | (near & exhausted), skip[at], torch.where(near, cur, cur + 1))
+        cur = torch.where(done, cur, nxt)
+    bad = cur < num_nodes
+    lists = torch.stack(ids) if ids else torch.zeros((0, nt), dtype=i64, device=dev)
+
+    # ---- phase B: the uniform point-mass formula, in chunks of list rows ----
+    comb = torch.cat([tree.nodes_f32[:, COG_X : MASS + 1], torch.cat([src_pos, src_mass[:, None]], 1)])
+    comb_gid = torch.cat(
+        [torch.full((cap + 1,), -1, dtype=i64, device=dev), torch.arange(n_src, device=dev)]
+    )
+    px, py, pz = (tile_pos[:, :, c : c + 1] for c in range(3))  # (T, G, 1)
+    acc_tiles = torch.zeros((nt, g, 3), dtype=torch.float32, device=dev)
+    chunk = max(1, (1 << 22) // max(nt * g, 1))
+    for c0 in range(0, lists.shape[0], chunk):
+        idc = lists[c0 : c0 + chunk].T  # (T, C)
+        rows = comb[idc]  # (T, C, 4)
+        is_self = comb_gid[idc][:, None, :] == tile_gid[:, :, None]  # (T, G, C)
+        dx = rows[:, None, :, 0] - px
+        dy = rows[:, None, :, 1] - py
+        dz = rows[:, None, :, 2] - pz
+        r2 = dx * dx + dy * dy + dz * dz
+        r2s = torch.where(is_self, 1.0, r2)
+        inv_r = torch.rsqrt(r2s)
+        r = r2s * inv_r
+        w = rows[:, None, :, 3] * gdt * inv_r / (r2s * r + e)
+        w = torch.where(is_self, 0.0, w)
+        acc_tiles += torch.stack([(w * dx).sum(2), (w * dy).sum(2), (w * dz).sum(2)], 2)
+
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if nt:
+        acc = acc_tiles[tiles.tile_id, torch.clamp(tiles.slot, max=g - 1)]
+
+    def full(x, dtype):
+        out = torch.zeros(t_cap, dtype=dtype, device=dev)
+        out[:nt] = x.to(dtype)
+        return out
+
+    tile_rows = (lists != cap).sum(0)
+    return (
+        acc,
+        full(bad, torch.bool),
+        full(torch.where(bad, r_cap, steps), torch.int32),
+        full(tile_rows, torch.int32),
+    )
+
+
+def group_tree_forces(
+    pos_new: torch.Tensor,
+    src_pos: torch.Tensor,
+    src_mass: torch.Tensor,
+    tree: TreeArrays,
+    keys: tuple[torch.Tensor, torch.Tensor],
+    params: SimParams,
+    tree_params: TreeParams,
+    gid_offset: int = 0,
+    imports=None,
+) -> tuple[torch.Tensor, GroupWalkStats]:
+    """((B, 3) acc*dt, stats) of the group walk, plain torch.
+
+    pos_new:  (B, 3) post-drift receivers, a contiguous slice of the sorted
+              order starting at sorted index ``gid_offset``.
+    src_pos:  (N, 3) pre-step sources, the full sorted order.
+    src_mass: (N,) sorted masses.
+    keys:     Morton (hi, lo) keys of the receivers (same slice).
+    imports:  the JAX fused-LET import forest; not ported, raises.
+    """
+    _check_engine_args(imports)
+    n = pos_new.shape[0]
+    tiles = tile_setup(keys, n, tree_params)
+    acc, tile_bad, _, _ = group_walk_tiles(
+        pos_new, src_pos, src_mass, tree, tiles, params, tree_params, gid_offset
+    )
+    deferred = tiles.deferred | tile_bad[tiles.tile_id]
+    idx = deferred.nonzero().flatten()
+    if idx.numel():
+        acc[idx] = tree_forces(
+            pos_new[idx], src_pos, src_mass, tree, params, tree_params,
+            self_idx=gid_offset + idx,
+        )
+    return acc, GroupWalkStats(deferred=deferred.sum().to(torch.int32))

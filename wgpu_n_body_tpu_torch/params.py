@@ -73,7 +73,7 @@ class TreeParams:
     Reference: ``AddParams::TreeSimParams { theta }`` (src/sims/mod.rs:18-23)
     with default theta 0.75 (src/sims/tree.rs:42-51).
 
-    Read by the port today:
+    Read by the port:
       theta: opening angle; a cell is accepted when width < theta * dist.
       max_depth: octree depth D; Morton keys have 3*D bits (D <= 20).
         Cells still holding more than ``leaf_bucket`` particles at depth D
@@ -83,17 +83,35 @@ class TreeParams:
         1.0 below 8, 0.5 from 8 up). Overflow is flagged, never hangs.
       leaf_bucket: cells of at most this many particles are leaves; a leaf
         that fails the theta test is summed exactly over its particles.
-      walk: "per_particle" (ported: the stackless walk of
-        ``ops/tree_walk.py``, CUDA kernel ``csrc/tree_walk.cu``) or "group"
-        (the JAX default, not ported yet: ROADMAP B4).
+      walk: "group" (the default: the tile walk of
+        ``ops/tree_walk_group.py``, CUDA kernel ``csrc/tree_walk_group.cu``,
+        at least as accurate as the per-particle walk for every receiver)
+        or "per_particle" (the stackless walk of ``ops/tree_walk.py``, CUDA
+        kernel ``csrc/tree_walk.cu``; also the group walk's fallback).
+      walk_tile: receivers per group-walk tile (Morton-adjacent, inside
+        one density-adaptive cell); None resolves by receiver count, 512
+        at n >= 2**21, 256 below (``effective_walk_tile``). At most 512
+        on CUDA tensors (the kernel holds four receivers per thread).
+      walk_list_cap: a tile whose walk takes more than
+        ``ceil(2*walk_list_cap/256)*256`` steps (one per visited node or
+        emitted member row) defers its receivers to the per-particle walk.
+      walk_block: read only where the JAX package reads it, in the static
+        tile budget (``tree_walk_group._tile_assignment``), so the tiles
+        are the JAX package's.
+      walk_engine: "octet" (the JAX default) and "skip" both run the skip
+        engine's walk here. The JAX octet engine tests theta against a
+        9-bit quantized centre of gravity and so opens slightly more
+        nodes; its tables are TPU gather-latency machinery (ROADMAP C).
 
-    The group walk's fields (``walk_tile``, ``walk_list_cap``,
-    ``walk_block``, ``walk_straggler_budget``, ``walk_straggler_slots``,
-    ``walk_engine``, ``octet_capacity_factor``) and the multi-chip LET
-    fields (``let_import_list_cap``, ``let_fused``, ``let_forest_factor``)
-    are carried with the JAX defaults and meanings (see
-    ``wgpu_n_body_tpu/params.py``) so that records round-trip; the port
-    reads them once the group walk and the sharded tree are ported.
+    Carried with the JAX defaults and meanings (see
+    ``wgpu_n_body_tpu/params.py``) so that records round-trip, and not
+    read: ``walk_straggler_budget`` and ``walk_straggler_slots`` (the JAX
+    second pass that restarts straggler tiles runs on the TPU only; its CPU
+    path, which the port follows, is one pass, and a CUDA block finishes
+    its own tile with no lockstep), ``octet_capacity_factor`` (no octet
+    tables are built), and the multi-chip LET fields
+    (``let_import_list_cap``, ``let_fused``, ``let_forest_factor``) until
+    the sharded tree is ported (ROADMAP A13).
     """
 
     theta: float = 0.75

@@ -1,22 +1,26 @@
-"""Where the time goes in one TreeSim per-particle step on a CUDA card.
+"""Where the time goes in one TreeSim step on a CUDA card.
 
-    python -m wgpu_n_body_tpu_torch.utils.profile_step [N]   # default 4,000,000
+    python -m wgpu_n_body_tpu_torch.utils.profile_step [N] [--walk per_particle]
 
-Prints, for the uniform scene at θ=0.75 (the ``cli headless`` defaults
-with ``walk="per_particle"``):
-- stage times by CUDA events over 3 steps (sort, build, kick+drift, walk,
-  kick) and the host wall of each step;
-- the wall of 5 synchronised ``TreeSim`` steps, with the SM clock and power;
-- a ``torch.profiler`` window of 2 steps: kernel events attributed to the
-  ``record_function`` ranges on the GPU timeline (``morton_sort``,
-  ``tree_build``, ``theta_walk``; the rest is the leapfrog), busy time as
-  the union of kernel intervals, the idle share of the window, the top
-  kernels, and the peak device memory.
+N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
+defaults (uniform scene, θ=0.75). Every number comes from ``TreeSim``'s own
+step. Prints:
+- the wall of 5 synchronised steps, with the SM clock and power;
+- a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
+  the GPU timeline, each kernel attributed to the innermost range that holds
+  it (``morton_sort``, ``tree_build`` and ``theta_walk`` from ``TreeSim``;
+  inside the group walk ``group_tiles``, ``group_kernel`` (B4) and
+  ``group_fallback`` (B3 over the deferred mask, and the merge) from
+  ``group_tree_forces_cuda``; the rest is the leapfrog), busy time as the
+  union of kernel intervals, the idle share of the window, the top kernels,
+  and the peak device memory;
+- ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
 Needs a CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -28,11 +32,11 @@ import torch
 
 from wgpu_n_body_tpu_torch.inits import uniform_init
 from wgpu_n_body_tpu_torch.models import TreeSim
-from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
-from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
-from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
-RANGES = ("morton_sort", "tree_build", "theta_walk")
+STEPS = 3  # in the profiler window
+RANGES = ("morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
+          "group_fallback")  # outer to inner
 
 
 def _smi(query: str) -> str:
@@ -42,40 +46,18 @@ def _smi(query: str) -> str:
     ).stdout.strip()
 
 
-def stage_times(state, params, tp):
-    """One step by hand with CUDA events between the stages; returns
-    (next state, [sort, build, kick+drift, walk, kick] ms, host wall ms)."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    t0 = time.perf_counter()
-    ev[0].record()
-    ss, bound, keys = morton_sort(state, tp.max_depth)
-    ev[1].record()
-    tree = build_tree(ss, keys, bound, tp)
-    ev[2].record()
-    half = params.dt / 2.0
-    vel_h = ss.vel + ss.acc * half
-    pos_new = ss.pos + vel_h * params.dt
-    ev[3].record()
-    acc = tree_forces_cuda(pos_new, ss.pos, ss.mass, tree, params, tp)
-    ev[4].record()
-    vel = vel_h + acc * half
-    ev[5].record()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    return (ParticleState(pos_new, vel, acc, ss.mass),
-            [ev[i].elapsed_time(ev[i + 1]) for i in range(5)], wall)
-
-
 def kernel_breakdown(trace_events):
     """(per-range kernel µs, per-(range, kernel) µs, busy µs, span µs)
-    from a chrome trace's events."""
+    from a chrome trace's events; a kernel counts to the innermost range
+    that holds it."""
     kernels = [e for e in trace_events if e.get("cat") == "kernel"]
     ranges = [e for e in trace_events
               if e.get("cat") == "gpu_user_annotation" and e.get("name") in RANGES]
     by_range, by_kernel = {}, {}
     for k in kernels:
-        where = next((r["name"] for r in ranges
-                      if r["ts"] <= k["ts"] < r["ts"] + r["dur"]), "leapfrog")
+        inside = [r for r in ranges if r["ts"] <= k["ts"] < r["ts"] + r["dur"]]
+        where = (min(inside, key=lambda r: (r["dur"], -RANGES.index(r["name"])))["name"]
+                 if inside else "leapfrog")
         by_range[where] = by_range.get(where, 0.0) + k["dur"]
         key = (where, k["name"][:60])
         by_kernel[key] = by_kernel.get(key, 0.0) + k["dur"]
@@ -89,25 +71,22 @@ def kernel_breakdown(trace_events):
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    parser = argparse.ArgumentParser(prog="profile_step")
+    parser.add_argument("n", type=int, nargs="?", default=4_000_000)
+    parser.add_argument("--walk", choices=["group", "per_particle"], default="group")
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("profile_step needs a CUDA device", file=sys.stderr)
         return 1
-    n = int(argv[0]) if argv else 4_000_000
     dev = torch.device("cuda", 0)
     print(_smi("name,power.limit"))
-    params = SimParams(particle_num=n)
-    tp = TreeParams(walk="per_particle")
+    params = SimParams(particle_num=args.n)
+    tp = TreeParams(walk=args.walk)
+    print(f"TreeSim N={args.n} theta={tp.theta} walk={tp.walk}")
     sim = TreeSim(params, tp)
     step = sim.make_step()
     state = step(uniform_init(torch.Generator().manual_seed(0), params, dev))  # warm
     torch.cuda.synchronize()
-
-    names = ("sort", "build", "kick+drift", "walk", "kick")
-    for _ in range(3):
-        state, ms, wall = stage_times(state, params, tp)
-        print("stages ms", {k: round(v, 3) for k, v in zip(names, ms)},
-              f"host wall {wall:.3f} ms")
 
     walls = []
     for _ in range(5):
@@ -120,7 +99,7 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
+        for _ in range(STEPS):
             state = step(state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -130,14 +109,15 @@ def main(argv=None) -> int:
         with open(path) as f:
             by_range, by_kernel, busy, span = kernel_breakdown(json.load(f)["traceEvents"])
     total = sum(by_range.values())
-    print(f"profiler, 2 steps: kernel time {total / 2:.1f} us/step, busy {busy / 2:.1f} "
-          f"us/step, wall {wall_us / 2:.1f} us/step, idle share of the window "
-          f"{1 - busy / wall_us:.4f}, of the kernel span {1 - busy / span:.4f}")
+    print(f"profiler, {STEPS} steps: kernel time {total / STEPS:.1f} us/step, busy "
+          f"{busy / STEPS:.1f} us/step, wall {wall_us / STEPS:.1f} us/step, idle share of the "
+          f"window {1 - busy / wall_us:.4f}, of the kernel span {1 - busy / span:.4f}")
     for where, us in sorted(by_range.items(), key=lambda x: -x[1]):
-        print(f"  {where}: {us / 2:.1f} us/step ({us / total:.2%})")
+        print(f"  {where}: {us / STEPS:.1f} us/step ({us / total:.2%})")
     for (where, name), us in sorted(by_kernel.items(), key=lambda x: -x[1])[:15]:
-        print(f"    {where:12s} {us / 2:10.1f} us/step  {name}")
+        print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print("diagnose", sim.diagnose(state))
     return 0
 
 
