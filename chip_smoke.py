@@ -28,15 +28,27 @@ Phases (any failure exits non-zero):
     10`` in-process at the default N=4,000,000 and check that each step
     launched B3 once (and the diagnostics' group walk B4 and B3 once), the
     state is sane and the checkpoint reloads;
-12. the group walk kernel (B4) against its plain version on every tile at
-    N=262144 (uniform and disc: deferred tiles and step counts equal, forces
-    within a per-row p99 of 1e-5), against float64 all-pairs and B3 on 2048
-    receivers of the N=4M tree, at theta=0 against B1, with every tile
-    deferred against B3, and the full N=4M walk timed beside B3;
+12. the group walk kernels (B4: a walk kernel writing each tile's list of
+    ids, an evaluation kernel summing them) against their plain versions on
+    every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
+    ids, deferred tiles, step and row counts equal; forces on the same
+    lists within a per-row p99 of 1e-5), against float64 all-pairs and B3
+    on 2048 receivers of the N=4M tree, at theta=0 against B1, with every
+    tile deferred against B3, with a list pool too small (12d), the full
+    N=4M walk timed stage by stage beside B3 and its SFU bound (12e), and
+    the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
+    measurement config), where no tile may find the pool empty (12f);
 13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
-    group walk, N=4,000,000) and check that each step launched B4 once and
-    B3 once (its fallback over the deferred mask), the diagnostics, the
-    checkpoint and the mass multiset.
+    group walk, N=4,000,000) and check that each step launched both B4
+    kernels once and B3 once (its fallback over the deferred mask), the
+    diagnostics (nothing deferred, none for the pool), the checkpoint and
+    the mass multiset.
+Every kernel's record has its bound: the larger of its special-function
+ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
+``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
+3.35 TB/s. ``utils/group_walk_study.py`` holds B4's development
+measurements (the replaced fused kernel beside the new ones, its phase
+split, SASS counts, a launch-shape sweep); this script does not run them.
 The last two lines are a JSON record of the kernels and ``{"ok": true, ...}``.
 """
 
@@ -134,21 +146,70 @@ def main_state(params, dev):
             torch.ones(N_MAIN, device=dev))
 
 
+#: Hopper's special-function units: 16 results per SM per clock (rsqrt,
+#: reciprocal); the published float32 rate outside the tensor cores and the
+#: HBM rate of an H100 SXM (NVIDIA's H100 datasheet), at 700 W.
+SFU_PER_SM_CLOCK = 16
+FP32_PEAK = 67e12
+HBM_PEAK = 3.35e12
+NO_LIBRARY = ("none: no single PyTorch call computes softened gravity over pairs or a "
+              "tree walk")
+
+
+def bound(count, mufu_each, flops_each, nbytes, mhz):
+    """The least time the card could take: the larger of the special-function
+    ops at 16 per SM per clock at ``mhz``, the float32 flops at the published
+    peak and the bytes at the HBM rate, for ``count`` pairs (or
+    interactions)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {
+        "SFU": count * mufu_each / (SFU_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3,
+        "FP32": count * flops_each / FP32_PEAK * 1e3,
+        "HBM": nbytes / HBM_PEAK * 1e3,
+    }
+    unit = max(times, key=times.get)
+    return {"bound_ms": times[unit], "bound_by": "bytes" if unit == "HBM" else "operations",
+            "bound_unit": unit, "bound_count": count, "bound_fp32_ms": times["FP32"],
+            "sm_mhz": mhz}
+
+
+def sorted_scene(state, params, tp):
+    """(sorted state, tree, keys, drifted positions) of one tree step."""
+    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
+
+    ss, bound_, keys = morton_sort(state, tp.max_depth)
+    tree = build_tree(ss, keys, bound_, tp)
+    pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
+    return ss, tree, keys, pos_new
+
+
+@contextlib.contextmanager
+def pool_of(gcuda, n_chunks):
+    """The group walk wrapper's list pool set to ``n_chunks`` chunks."""
+    saved = gcuda.pool_chunks
+    gcuda.pool_chunks = lambda n: n_chunks  # the wrapper sizes its pool by this
+    try:
+        yield
+    finally:
+        gcuda.pool_chunks = saved
+
+
 def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
-    tree_walk_group_cuda.LAUNCHES = 0
+    tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
 
 
 def launch_counts():
     from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
 
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
-            "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES}
+            "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
+            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL}
 
 
-def phase_b2(dev, smi):
+def phase_b2(dev, smi, mhz):
     """8. The factored all-pairs kernel (B2) against its plain version."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.models import NaiveSim
@@ -227,7 +288,7 @@ def phase_b2(dev, smi):
     zero_launch_counts()
     runner.run(steps=STEPS_MXU, log_fn=lambda line: None)
     counts = launch_counts()
-    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0}:
+    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0, "B4 eval": 0}:
         fail(f"NaiveSim(mxu=True) {STEPS_MXU} steps launched {counts}")
     if not all(torch.isfinite(t).all() for t in runner.state[:3]):
         fail("non-finite state after the NaiveSim(mxu=True) run")
@@ -245,6 +306,9 @@ def phase_b2(dev, smi):
         "max_abs_err": max_abs,
         "ms": ms_k,
         "plain_ms": ms_p,
+        **bound(pairs, 2, 20, N_MAIN * (12 + 12 + 4 + 12), mhz),
+        "library_ms": None,
+        "library": NO_LIBRARY,
     }
 
 
@@ -285,31 +349,50 @@ def phase_build(dev):
           f"card sort {ms_sort:.3f} ms, build {ms_build:.3f} ms")
 
 
-def phase_b3(dev, smi):
+def walk_interactions(pos, tree, tp):
+    """(b,) interactions of the per-particle walk of each receiver (accepted
+    nodes plus the members of opened terminal cells): the rules of
+    ``ops/tree_walk.py``, counting only."""
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, WIDTH
+
+    cap = tree.nodes_f32.shape[0] - 1
+    num_nodes = tree.num_nodes.long()
+    skip, count = tree.skip.long(), tree.count.long()
+    cur = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    inter = torch.zeros_like(cur)
+    while bool((cur < num_nodes).any()):
+        done = cur >= num_nodes
+        at = torch.clamp(cur, max=cap)
+        row = tree.nodes_f32[at]
+        d = row[:, :3] - pos
+        accept = row[:, WIDTH] < tp.theta * torch.sqrt((d * d).sum(1))
+        far = accept & ~done
+        near = ~accept & (row[:, NO_CHILD] > 0) & ~done
+        inter += far.long() + near.long() * count[at]
+        cur = torch.where(done, cur, torch.where(far | near, skip[at], cur + 1))
+    return inter
+
+
+def phase_b3(dev, smi, mhz):
     """10. The tree walk kernel (B3) against the plain walk and float64."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
     from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense, naive_forces_ref
-    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
     from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
 
     walk = tree_walk_cuda.tree_forces_cuda
 
-    def sort_build(state, params, tp):
-        ss, bound, keys = morton_sort(state, tp.max_depth)
-        tree = build_tree(ss, keys, bound, tp)
-        pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
-        return ss, tree, pos_new
-
     # -- the N=4M headless scene, one sort and build ---------------------------
     params = SimParams(particle_num=N_TREE)  # cli headless defaults
     tp = TreeParams(walk="per_particle")  # theta 0.75, leaf_bucket 16, max_depth 16
     state = uniform_init(torch.Generator().manual_seed(0), params, dev)
-    ss, tree, pos_new = sort_build(state, params, tp)
+    ss, tree, _, pos_new = sorted_scene(state, params, tp)
     if bool(tree.overflowed):
         fail("the N=4M uniform tree overflowed its arena")
-    print(f"10 N={N_TREE} tree: {int(tree.num_nodes)} nodes of cap {tree.nodes_f32.shape[0] - 1}")
+    m_nodes = int(tree.num_nodes)
+    print(f"10 N={N_TREE} tree: {m_nodes} nodes of cap {tree.nodes_f32.shape[0] - 1}")
 
     # -- 10a. 4096 sampled receivers, kernel vs plain walk ---------------------
     gen = torch.Generator().manual_seed(1)
@@ -331,6 +414,11 @@ def phase_b3(dev, smi):
           f"receiver); [{smi}]")
     if not np.isfinite(rel).all() or np.percentile(rel, 99) > 1e-4:
         fail("B3 and the plain walk disagree")
+    inter = walk_interactions(recv, tree, tp).double()
+    b3_count = float(inter.mean()) * N_TREE  # scaled from the sample
+    print(f"10a B3 interactions per receiver on the {idx.numel()} sampled receivers: mean "
+          f"{float(inter.mean()):.1f}, max {int(inter.max())}; {b3_count:.4e} for N={N_TREE} "
+          f"scaled from the sample")
 
     # -- 10b. both against float64 all-pairs on 2048 of those receivers --------
     sel = slice(0, None, 2)
@@ -357,7 +445,8 @@ def phase_b3(dev, smi):
     # -- 10d. theta=0 against the all-pairs kernel B1 at N=16384 ---------------
     p16 = SimParams(particle_num=16384, g=1e-5)
     tp0 = TreeParams(theta=0.0, walk="per_particle")
-    ss16, tree16, pn16 = sort_build(uniform_init(torch.Generator().manual_seed(5), p16, dev), p16, tp0)
+    ss16, tree16, _, pn16 = sorted_scene(
+        uniform_init(torch.Generator().manual_seed(5), p16, dev), p16, tp0)
     kt = walk(pn16, ss16.pos, ss16.mass, tree16, p16, tp0)
     kn = naive_cuda.naive_forces_cuda(pn16, ss16.pos, ss16.mass, p16)
     torch.cuda.synchronize()
@@ -374,8 +463,8 @@ def phase_b3(dev, smi):
     zeros = np.zeros((64, 3), np.float32)
     p64 = SimParams(particle_num=64, g=1e-3)
     tpo = TreeParams(theta=0.0, max_depth=3, leaf_bucket=4, walk="per_particle")
-    sso, treeo, _ = sort_build(state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev),
-                               p64, tpo)
+    sso, treeo, _, _ = sorted_scene(
+        state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev), p64, tpo)
     if not (treeo.nodes_f32[: int(treeo.num_nodes), NO_CHILD] == 2.0).any():
         fail("the cluster scene has no overfull cell")
     k = walk(sso.pos, sso.pos, sso.mass, treeo, p64, tpo)
@@ -389,8 +478,8 @@ def phase_b3(dev, smi):
     base = rng.uniform(-1.0, 1.0, (32, 3)).astype(np.float32)
     pos = np.concatenate([base, base + np.float32(1e-6)])
     tpf = TreeParams(theta=0.5, leaf_bucket=1, node_capacity_factor=1, walk="per_particle")
-    ssf, treef, _ = sort_build(state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev),
-                               p64, tpf)
+    ssf, treef, _, _ = sorted_scene(
+        state_from_numpy(pos, zeros, zeros, np.ones(64, np.float32), dev), p64, tpf)
     kf = walk(ssf.pos, ssf.pos, ssf.mass, treef, p64, tpf)
     torch.cuda.synchronize()
     if not bool(treef.overflowed) or int(treef.num_nodes) != treef.nodes_f32.shape[0] - 1:
@@ -406,6 +495,12 @@ def phase_b3(dev, smi):
         "max_abs_err": max_abs,
         "ms": ms_full,
         "plain_ms": ms_plain,
+        # the point-mass term needs one rsqrt and one reciprocal (B3's own
+        # code spends a sqrt and two IEEE divides on it)
+        **bound(b3_count, 2, 20, N_TREE * (12 + 16 + 12) + m_nodes * 44, mhz),
+        "bound_count_scaled_from": int(idx.numel()),
+        "library_ms": None,
+        "library": NO_LIBRARY,
         "ms_receivers": N_TREE,
         "plain_ms_receivers": int(idx.numel()),
         "ms_same_receivers": ms_sub,
@@ -429,7 +524,7 @@ def phase_tree_cli(dev, smi):
         counts = launch_counts()
         # one B3 launch per step; the diagnostics line at the last step runs
         # one group walk (B4, then B3 over its deferred mask), as in JAX
-        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1}:
+        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1, "B4 eval": 1}:
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -448,75 +543,100 @@ def phase_tree_cli(dev, smi):
     return counts["B3"]
 
 
-def phase_b4(dev, smi):
-    """12. The group walk kernel (B4) against its plain version, float64,
+def phase_b4(dev, smi, mhz):
+    """12. The group walk kernels (B4: the walk kernel writing the lists, the
+    evaluation kernel summing them) against their plain versions, float64,
     B1 and B3."""
     from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
-    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
+    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
     from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
-    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_sort
-    from wgpu_n_body_tpu_torch.ops.tree_walk_group import group_walk_tiles, tile_setup
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
+        LIST_CHUNK,
+        group_eval_lists,
+        group_walk_lists,
+        list_ids,
+        max_chunks,
+        pool_chunks,
+        tile_setup,
+    )
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
-    group = tree_walk_group_cuda.group_tree_forces_cuda
+    group = gcuda.group_tree_forces_cuda
 
-    def sort_build(state, params, tp):
-        ss, bound, keys = morton_sort(state, tp.max_depth)
-        tree = build_tree(ss, keys, bound, tp)
-        pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
-        return ss, tree, keys, pos_new
-
-    # -- 12a. every tile at N=262144: kernel vs plain version ------------------
-    # walk_tile 128, 256 and 512 launch the kernel's three instantiations
-    # (one, two and four receivers per thread); 256 is the default at this N
-    # and 512 the default of the N=4M main path
+    # -- 12a. every tile at N=262144: each kernel vs its plain version --------
+    # walk_tile 128, 256 and 512 launch the evaluation kernel's three
+    # instantiations (one, two and four receivers per thread); 256 is the
+    # default at this N and 512 the default of the N=4M main path
     params = SimParams(particle_num=N_MAIN)
     max_abs, ms_plain = 0.0, None
     for name, init in (("uniform", uniform_init), ("disc", disc_init)):
-        ss, tree, keys, pos_new = sort_build(init(torch.Generator().manual_seed(0), params, dev),
-                                             params, TreeParams())
+        ss, tree, keys, pos_new = sorted_scene(init(torch.Generator().manual_seed(0), params, dev),
+                                               params, TreeParams())
         for g_tile in (128, 256, 512):
             tp = TreeParams(walk_tile=g_tile)  # otherwise the defaults: theta 0.75
             tiles = tile_setup(keys, N_MAIN, tp)
-            args = (pos_new, ss.pos, ss.mass, tree, tiles, params, tp)
             ms_k, (k_acc, k_bad, k_steps, k_rows) = time_ms(
-                lambda: tree_walk_group_cuda.group_walk_tiles_cuda(*args), 3)
+                lambda: gcuda.group_walk_tiles_cuda(pos_new, ss.pos, ss.mass, tree, tiles,
+                                                    params, tp), 3)
+            k_lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
+            k_eval = gcuda.group_eval_lists_cuda(pos_new, ss.pos, ss.mass, tree, tiles, k_lists,
+                                                 params)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p_acc, p_bad, p_steps, p_rows = group_walk_tiles(*args)
+            p_lists = group_walk_lists(pos_new, tree, tiles, tp)
             torch.cuda.synchronize()
-            ms_p = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            p_acc = group_eval_lists(pos_new, ss.pos, ss.mass, tree, tiles, k_lists, params)
+            torch.cuda.synchronize()
+            ms_p, ms_pe = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
             what = f"B4 {name} walk_tile {g_tile}"
-            if not torch.equal(k_bad, p_bad) or not torch.equal(k_steps, p_steps):
+            if k_lists.pool_full.any() or p_lists.pool_full.any():
+                fail(f"{what}: the list pool ran out at the default size")
+            if not (torch.equal(k_lists.bad, p_lists.bad)
+                    and torch.equal(k_lists.steps, p_lists.steps)):
                 fail(f"{what}: deferred tiles or step counts differ from the plain version "
-                     f"({int((k_bad != p_bad).sum())} flags, {int((k_steps != p_steps).sum())} "
-                     "counts)")
-            if not torch.equal(k_rows[~k_bad], p_rows[~p_bad]):
+                     f"({int((k_lists.bad != p_lists.bad).sum())} flags, "
+                     f"{int((k_lists.steps != p_lists.steps).sum())} counts)")
+            fin = ~p_lists.bad
+            if not torch.equal(k_lists.rows[fin], p_lists.rows[fin]):
                 fail(f"{what}: list rows of the finished tiles differ from the plain version")
-            good = ~(tiles.deferred | p_bad[tiles.tile_id])
-            rel = row_rel_err(k_acc[good], p_acc[good])
-            abs_err = (k_acc[good] - p_acc[good]).abs().max().item()
+            k_ids, p_ids = list_ids(k_lists)[fin], list_ids(p_lists)[fin]
+            if not torch.equal(k_ids, p_ids):
+                fail(f"{what}: the walk kernel's list ids differ from the plain version's in "
+                     f"{int((k_ids != p_ids).any(1).sum())} tiles")
+            if not (torch.equal(k_bad, k_lists.bad) and torch.equal(k_rows, k_lists.rows)
+                    and torch.equal(k_steps, k_lists.steps)):
+                fail(f"{what}: two walks of the same tiles differ")
+            good = ~(tiles.deferred | p_lists.bad[tiles.tile_id])
+            if not torch.equal(k_acc[good], k_eval[good]):
+                fail(f"{what}: two evaluations of the same tiles differ")
+            rel = row_rel_err(k_eval[good], p_acc[good])
+            abs_err = (k_eval[good] - p_acc[good]).abs().max().item()
             nt = int((tiles.piece_len > 0).sum())
             print(f"12a {what} N={N_MAIN} theta=0.75: {nt} tiles, {int(k_bad.sum())} deferred, "
                   f"steps/tile max {int(k_steps.max())} mean "
                   f"{float(k_steps[:nt].float().mean()):.1f}, list rows "
-                  f"{int(k_rows[~k_bad].sum())} — flags, steps and rows equal to the plain "
-                  f"version; forces of {int(good.sum())} receivers per-row p99 "
-                  f"{np.percentile(rel, 99):.3e} max {rel.max():.3e}, max|k-p| {abs_err:.3e}; "
-                  f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; [{smi}]")
+                  f"{int(k_rows[fin].sum())} — walk kernel: flags, steps, rows and "
+                  f"{int(k_ids.ne(-1).sum())} list ids equal to the plain version's; "
+                  f"evaluation kernel vs plain on those lists, {int(good.sum())} receivers: "
+                  f"per-row p99 {np.percentile(rel, 99):.3e} max {rel.max():.3e}, max|k-p| "
+                  f"{abs_err:.3e}; kernels {ms_k:.3f} ms, plain {ms_p:.3f} + {ms_pe:.3f} ms; "
+                  f"[{smi}]")
             if not np.isfinite(rel).all() or np.percentile(rel, 99) > 1e-5:
                 fail(f"{what}: forces differ from the plain version (gate p99 1e-5)")
             max_abs = max(max_abs, abs_err)
             if name == "uniform" and g_tile == 512:  # the main path's instantiation
-                ms_plain = ms_p
-            del tiles, args, k_acc, p_acc
+                ms_plain = ms_p + ms_pe
+            del tiles, k_acc, k_eval, p_acc, k_lists, p_lists, k_ids, p_ids
         del ss, tree, keys, pos_new
     torch.cuda.empty_cache()
 
     # -- 12b. the N=4M tree: 2048 receivers against float64 and B3 -------------
     params = SimParams(particle_num=N_TREE)  # cli headless defaults
     tp = TreeParams()  # walk_tile resolves to 512 at this N
-    ss, tree, keys, pos_new = sort_build(
+    ss, tree, keys, pos_new = sorted_scene(
         uniform_init(torch.Generator().manual_seed(0), params, dev), params, tp)
     acc, stats = group(pos_new, ss.pos, ss.mass, tree, keys, params, tp)
     gen = torch.Generator().manual_seed(1)
@@ -532,44 +652,66 @@ def phase_b4(dev, smi):
         fail("the group walk is less accurate than the gates allow")
     del truth, b3_sub
 
-    # -- 12e. the full N=4M walk, timed beside B3 ------------------------------
+    # -- 12e. the full N=4M walk, each stage timed, beside B3 ------------------
     ms_group, (acc2, stats2) = time_ms(
         lambda: group(pos_new, ss.pos, ss.mass, tree, keys, params, tp), 3)
     if not torch.equal(acc2, acc) or not torch.isfinite(acc).all():
         fail("the N=4M group walk is non-finite or differs between two runs")
     tiles = tile_setup(keys, N_TREE, tp)
-    ms_kern, (_, k_bad, k_steps, k_rows) = time_ms(
-        lambda: tree_walk_group_cuda.group_walk_tiles_cuda(
-            pos_new, ss.pos, ss.mass, tree, tiles, params, tp), 3)
+    ms_walk, lists = time_ms(lambda: gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp), 3)
+    ms_eval, _ = time_ms(lambda: gcuda.group_eval_lists_cuda(
+        pos_new, ss.pos, ss.mass, tree, tiles, lists, params), 3)
+    ms_kern = ms_walk + ms_eval
     ms_setup, _ = time_ms(lambda: tile_setup(keys, N_TREE, tp), 3)
     ms_b3, _ = time_ms(
         lambda: tree_walk_cuda.tree_forces_cuda(pos_new, ss.pos, ss.mass, tree, params, tp), 2)
     nt = int((tiles.piece_len > 0).sum())
-    deferred = int(stats.deferred)
+    deferred, pool_deferred = int(stats.deferred), int(stats.pool_deferred)
     m = int(tree.num_nodes)
     internal = int((tree.nodes_f32[:m, NO_CHILD] == 0).sum())
     tp2 = TreeParams(walk_list_cap=2 * tp.walk_list_cap)
     deferred2 = int(group(pos_new, ss.pos, ss.mass, tree, keys, params, tp2)[1].deferred)
-    fin = ~k_bad[:nt]
-    rows_fin = k_rows[:nt][fin].double()
+    fin = ~(lists.bad | lists.pool_full)[:nt]
+    rows_fin = lists.rows[:nt][fin].double()
     pairs = float((rows_fin * tiles.piece_len[:nt][fin].double()).sum())  # receiver-row pairs
+    used = int((lists.chunks >= 0).sum())
+    # receiver-row pairs in the 32-row groups that hold one of the tile's own
+    # receivers: the evaluation kernel runs its self-masked loop on those
+    ids = list_ids(lists)[:nt]
+    ids = torch.nn.functional.pad(ids, (0, -ids.shape[1] % 32), value=-1)
+    rel_id = ids - (tree.nodes_f32.shape[0] + tiles.piece_start[:nt].long())[:, None]
+    own = (rel_id >= 0) & (rel_id < tiles.piece_len[:nt].long()[:, None])
+    masked = own.view(nt, -1, 32).any(2).sum(1).double() * 32
+    masked_share = float((masked * tiles.piece_len[:nt]).sum()) / pairs
+    del ids, rel_id, own
+    b4_bound = bound(pairs, 2, 20, N_TREE * (12 + 16 + 12) + tree.nodes_f32.numel() * 4 + 3 * m * 4,
+                     mhz)
     print(f"12e N={N_TREE} group walk (tiles of {tiles.g}, r_cap {tiles.r_cap}): {ms_group:.3f} ms "
-          f"per call (tile set-up {ms_setup:.3f} ms, B4 kernel {ms_kern:.3f} ms, the rest B3 over "
-          f"the deferred mask and the merge); B3 full per-particle walk {ms_b3:.3f} ms; {nt} "
-          f"tiles, {int(k_bad.sum())} bad, {deferred} receivers deferred ({deferred2} with twice "
-          f"the step budget); steps/tile max {int(k_steps.max())} mean "
-          f"{float(k_steps[:nt].float().mean()):.1f}; list rows {int(rows_fin.sum())} "
-          f"({float(rows_fin.mean()):.1f} per finished tile), {pairs:.4e} receiver-row pairs "
-          f"({pairs / (ms_kern * 1e-3):.4e} per s in the kernel); internal nodes {internal} "
+          f"per call (tile set-up {ms_setup:.3f} ms; B4 {ms_kern:.3f} ms = walk kernel "
+          f"{ms_walk:.3f} + evaluation kernel with its table {ms_eval:.3f}; the rest B3 over the "
+          f"deferred mask and the merge); B3 full per-particle walk {ms_b3:.3f} ms; "
+          f"{nt} tiles, {int(lists.bad.sum())} bad, {int(lists.pool_full.sum())} without pool "
+          f"room, {deferred} receivers deferred ({pool_deferred} for the pool; {deferred2} with "
+          f"twice the step budget); steps/tile max {int(lists.steps.max())} mean "
+          f"{float(lists.steps[:nt].float().mean()):.1f}; list rows {int(rows_fin.sum())} "
+          f"({float(rows_fin.mean()):.1f} per finished tile) in {used} of "
+          f"{pool_chunks(N_TREE)} pool chunks; {pairs:.4e} receiver-row pairs "
+          f"({pairs / (ms_eval * 1e-3):.4e} per s in the evaluation kernel; {masked_share:.2%} "
+          f"of them in self-masked 32-row groups, padding included); SFU bound "
+          f"{b4_bound['bound_ms']:.3f} ms at {mhz:.0f} MHz: B4 at "
+          f"{b4_bound['bound_ms'] / ms_kern:.2%} of it, the evaluation kernel alone "
+          f"{b4_bound['bound_ms'] / ms_eval:.2%}; internal nodes {internal} "
           f"({internal / N_TREE:.4f} N; the JAX octet table holds {tp.octet_capacity(N_TREE)} "
           f"rows); [{smi}]")
-    del ss, tree, keys, pos_new, acc, acc2, tiles
+    if deferred or pool_deferred:
+        fail("the N=4M uniform group walk deferred receivers")
+    del ss, tree, keys, pos_new, acc, acc2, tiles, lists
     torch.cuda.empty_cache()
 
     # -- 12c. theta=0 against the all-pairs kernel B1 at N=16384 ---------------
     p16 = SimParams(particle_num=16384, g=1e-5)
     tp0 = TreeParams(theta=0.0, walk_list_cap=16384)  # every tile finishes: B4 alone
-    ss16, tree16, keys16, pn16 = sort_build(
+    ss16, tree16, keys16, pn16 = sorted_scene(
         uniform_init(torch.Generator().manual_seed(5), p16, dev), p16, tp0)
     kt, st0 = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tp0)
     kn = naive_cuda.naive_forces_cuda(pn16, ss16.pos, ss16.mass, p16)
@@ -580,7 +722,7 @@ def phase_b4(dev, smi):
     if int(st0.deferred) != 0 or not np.isfinite(rel).all() or np.percentile(rel, 99) > 2e-4:
         fail("the theta=0 group walk differs from the all-pairs kernel")
 
-    # -- 12d. every tile over its budget: all rows are B3's --------------------
+    # -- 12d. every tile over its budget, or no pool room: the rows are B3's ---
     tpd = TreeParams(theta=0.0, walk_list_cap=128)
     kd, std = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tpd)
     want = tree_walk_cuda.tree_forces_cuda(pn16, ss16.pos, ss16.mass, tree16, p16, tpd)
@@ -588,8 +730,58 @@ def phase_b4(dev, smi):
     if int(std.deferred) != 16384 or not torch.equal(kd, want):
         fail(f"forced deferral: {int(std.deferred)} deferred, rows equal to B3: "
              f"{torch.equal(kd, want)}")
+    # a pool one chunk short of the theta=0 lists: some tiles find no room
+    tiles16 = tile_setup(keys16, 16384, tp0)
+    roomy = gcuda.group_walk_lists_cuda(pn16, tree16, tiles16, tp0)
+    n_small = int((roomy.chunks >= 0).sum()) - 1
+    with pool_of(gcuda, n_small):
+        small = gcuda.group_walk_lists_cuda(pn16, tree16, tiles16, tp0)
+        kp, stp = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tp0)
+    full = small.pool_full
+    if not full.any() or full.all() or int((small.chunks >= 0).sum()) > n_small:
+        fail(f"a pool of {n_small} chunks: {int(full.sum())} tiles without room")
+    acc_s = gcuda.group_eval_lists_cuda(pn16, ss16.pos, ss16.mass, tree16, tiles16, small, p16)
+    rest = ~full[tiles16.tile_id]
+    if not torch.equal(acc_s[rest], kt[rest]):
+        fail("tiles that found pool room differ from the run with a roomy pool")
+    b3_0 = tree_walk_cuda.tree_forces_cuda(pn16, ss16.pos, ss16.mass, tree16, p16, tp0)
+    same, as_b3 = (kp == kt).all(1), (kp == b3_0).all(1)
+    moved = int((~same).sum())
+    if not (same | as_b3).all() or not 0 < moved <= int(stp.pool_deferred) == int(stp.deferred):
+        fail(f"pool deferral: {int(stp.pool_deferred)} receivers reported, {moved} rows moved, "
+             f"rows other than the roomy run's or B3's: {int((~(same | as_b3)).sum())}")
     print(f"12d theta=0, walk_list_cap=128: {int(std.deferred)} of 16384 deferred, rows equal "
-          "to B3's")
+          f"to B3's; a pool of {n_small} chunks (one short): {int(full.sum())} tiles without "
+          f"room, the others equal to the roomy run; through the wrapper {int(stp.pool_deferred)} "
+          f"receivers deferred for the pool, each row the roomy run's or B3's")
+    del ss16, tree16, keys16, pn16, roomy, small
+    torch.cuda.empty_cache()
+
+    # -- 12f. the list pool at N=2M disc theta=0.5 (BASELINE's tree config) --
+    n2 = 2_000_000
+    p2, tp5 = SimParams(particle_num=n2), TreeParams(theta=0.5)  # walk_tile resolves to 512
+    ss, tree, keys, pos_new = sorted_scene(
+        disc_init(torch.Generator().manual_seed(0), p2, dev), p2, tp5)
+    tiles = tile_setup(keys, n2, tp5)
+    worst = tiles.t_cap * max_chunks(tiles)  # every tile's list at its step budget
+    with pool_of(gcuda, worst):
+        need = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp5)
+    used = int((need.chunks >= 0).sum())
+    ms_disc, (_, st5) = time_ms(lambda: group(pos_new, ss.pos, ss.mass, tree, keys, p2, tp5), 2)
+    nt = int((tiles.piece_len > 0).sum())
+    fin = ~need.bad[:nt]
+    print(f"12f N={n2} disc theta=0.5 (tiles of {tiles.g}): {nt} tiles, {int(need.bad.sum())} "
+          f"over the step budget; with a pool of every tile's budget ({worst} chunks) the walk "
+          f"takes {used} chunks, {used * LIST_CHUNK / n2:.3f} ids per receiver (finished tiles' "
+          f"rows {float(need.rows[:nt][fin].double().sum()) / n2:.3f} per receiver); the default "
+          f"pool holds {pool_chunks(n2)} chunks ({pool_chunks(n2) * LIST_CHUNK / n2:.3f} per "
+          f"receiver, {pool_chunks(n2) / max(used, 1):.2f}x that need): {int(st5.deferred)} "
+          f"receivers deferred, {int(st5.pool_deferred)} for the pool; group walk "
+          f"{ms_disc:.3f} ms; [{smi}]")
+    if int(st5.pool_deferred) or used > pool_chunks(n2):
+        fail("the default list pool is too small for the N=2M disc theta=0.5 scene")
+    del ss, tree, keys, pos_new, tiles, need
+    torch.cuda.empty_cache()
     return {
         "name": "tree_walk_group",
         "route": "cuda",
@@ -597,14 +789,30 @@ def phase_b4(dev, smi):
         "replaces": "wgpu_n_body_tpu/ops/tree_walk_group.py:245",
         "launches": 0,  # set from the main path's run (phase 13)
         "max_abs_err": max_abs,
-        "ms": ms_group,
+        "ms": ms_kern,
         "plain_ms": ms_plain,
+        **b4_bound,
+        "library_ms": None,
+        "library": NO_LIBRARY,
         "ms_receivers": N_TREE,
         "plain_ms_receivers": N_MAIN,
         "plain_ms_walk_tile": 512,
-        "kernel_ms": ms_kern,
+        "walk_kernel_ms": ms_walk,
+        "eval_kernel_ms": ms_eval,
+        "whole_walk_ms": ms_group,
         "b3_ms_same_run": ms_b3,
     }
+
+
+def max_sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi ``clocks.max.sm``): the
+    clock a bound assumes."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()
+    try:
+        return float(out[0])
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no maximum SM clock: {out}")
 
 
 def phase_group_cli(dev, smi):
@@ -626,7 +834,8 @@ def phase_group_cli(dev, smi):
         # each step walks once (B4, then B3 over its deferred mask), and so
         # does each diagnostics line
         walks = STEPS + len(diags)
-        if len(diags) != 1 or counts != {"B1": 0, "B2": 0, "B3": walks, "B4": walks}:
+        if len(diags) != 1 or counts != {"B1": 0, "B2": 0, "B3": walks, "B4": walks,
+                                         "B4 eval": walks}:
             fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -641,10 +850,14 @@ def phase_group_cli(dev, smi):
         init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the group-walk run changed the mass multiset")
-    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B4 "
-          f"{counts['B4']} and B3 {counts['B3']} launches in {STEPS} steps + {len(diags)} "
-          f"diagnostics (walk_deferred {diags[0]}), {us:.1f} us/step; [{smi}]")
-    return counts["B4"]
+    pool = re.findall(r"'walk_pool_deferred': (\d+)", out)
+    if pool != ["0"]:
+        fail(f"the N=4M diagnostics report pool deferrals {pool}")
+    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B4 walk "
+          f"{counts['B4']} and evaluation {counts['B4 eval']}, B3 {counts['B3']} launches in "
+          f"{STEPS} steps + {len(diags)} diagnostics (walk_deferred {diags[0]}, "
+          f"walk_pool_deferred {pool[0]}), {us:.1f} us/step; [{smi}]")
+    return counts["B4"], counts["B4 eval"]
 
 
 def main() -> None:
@@ -690,6 +903,7 @@ def main() -> None:
     lib_path, log = built["B1"]
     print(f"build ({len(built)} sources in parallel): {t_build:.3f} s -> {lib_path.name}")
     print_ptxas(log)
+    mhz = max_sm_clock_mhz()
 
     def kernel(pn, po, m, params, row_offset, tile_i, tile_j):
         """Launch the kernel and surface any fault of its run here."""
@@ -753,8 +967,12 @@ def main() -> None:
     )
     ms_p, p_full = time_ms(lambda: naive_forces_ref(pn, po, m, params), 3)
     pairs = float(N_MAIN) * N_MAIN
+    b1_bound = bound(pairs, 2, 20, N_MAIN * (12 + 12 + 4 + 12), mhz)
     print(f"4 N={N_MAIN}: kernel {ms_k:.3f} ms ({pairs / ms_k * 1e3:.4e} pairs/s); "
-          f"plain {ms_p:.3f} ms ({pairs / ms_p * 1e3:.4e} pairs/s); [{smi}]")
+          f"plain {ms_p:.3f} ms ({pairs / ms_p * 1e3:.4e} pairs/s); max SM clock {mhz:.0f} MHz, "
+          f"bound {b1_bound['bound_ms']:.3f} ms ({b1_bound['bound_unit']}; float32 "
+          f"{b1_bound['bound_fp32_ms']:.3f} ms): kernel at {b1_bound['bound_ms'] / ms_k:.2%}; "
+          f"[{smi}]")
     # full-shape agreement: both are f32 sums in different orders, each held
     # to 1e-4 p99 against float64 above, so their difference to 2e-4
     diff = row_rel_err(k_full, p_full)
@@ -774,7 +992,7 @@ def main() -> None:
         out = run_cli(cli, argv)
         counts = launch_counts()
         launches = counts["B1"]
-        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0}:
+        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0, "B4 eval": 0}:
             fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
@@ -810,6 +1028,9 @@ def main() -> None:
         "max_abs_err": max_abs,
         "ms": ms_k,
         "plain_ms": ms_p,
+        **b1_bound,
+        "library_ms": None,
+        "library": NO_LIBRARY,
     }
     del pn, po, m, po64, pn64, m64
     torch.cuda.empty_cache()
@@ -820,12 +1041,12 @@ def main() -> None:
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
 
-    b2 = phase_b2(dev, smi)
+    b2 = phase_b2(dev, smi, mhz)
     phase_build(dev)
-    b3 = phase_b3(dev, smi)
+    b3 = phase_b3(dev, smi, mhz)
     b3["launches"] = phase_tree_cli(dev, smi)
-    b4 = phase_b4(dev, smi)
-    b4["launches"] = phase_group_cli(dev, smi)
+    b4 = phase_b4(dev, smi, mhz)
+    b4["launches"], b4["launches_eval"] = phase_group_cli(dev, smi)
 
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
     print(json.dumps({"kernels": [b1, b2, b3, b4]}))

@@ -107,7 +107,8 @@ def test_diagnose_matches_jax():
     jparams, params = _sim_params(300)
     want = JaxTreeSim(jparams, jtp).diagnose(_jax_state(s))
     got = TreeSim(params, ttp).diagnose(state_from_numpy(**s, device="cpu"))
-    assert got == want
+    # the port adds the list pool's share of the deferrals, which JAX lacks
+    assert {k: got[k] for k in want} == want and got["walk_pool_deferred"] == 0
     assert got["walk_deferred"] > 0 and got["overflowed"] is False
 
 

@@ -216,15 +216,20 @@ def test_profile_step_counts_a_kernel_to_its_innermost_range():
         {"cat": "gpu_user_annotation", "name": "theta_walk", "ts": 0, "dur": 100},
         {"cat": "gpu_user_annotation", "name": "group_tiles", "ts": 0, "dur": 10},
         {"cat": "gpu_user_annotation", "name": "group_kernel", "ts": 10, "dur": 60},
+        {"cat": "gpu_user_annotation", "name": "group_walk", "ts": 10, "dur": 12},
+        {"cat": "gpu_user_annotation", "name": "group_eval", "ts": 22, "dur": 48},
         {"cat": "gpu_user_annotation", "name": "group_fallback", "ts": 70, "dur": 30},
         {"cat": "kernel", "name": "searchsorted", "ts": 2, "dur": 5},
-        {"cat": "kernel", "name": "group_walk_kernel", "ts": 12, "dur": 55},
+        {"cat": "kernel", "name": "group_lists_kernel", "ts": 12, "dur": 9},
+        {"cat": "kernel", "name": "mul", "ts": 22, "dur": 1},
+        {"cat": "kernel", "name": "group_eval_kernel", "ts": 24, "dur": 45},
         {"cat": "kernel", "name": "tree_walk_kernel", "ts": 72, "dur": 20},
         {"cat": "kernel", "name": "where", "ts": 95, "dur": 3},
         {"cat": "kernel", "name": "kick", "ts": 120, "dur": 4},
     ]
     by_range, by_kernel, busy, span = kernel_breakdown(trace)
-    assert by_range == {"group_tiles": 5, "group_kernel": 55, "group_fallback": 23,
-                        "leapfrog": 4}
-    assert by_kernel[("group_kernel", "group_walk_kernel")] == 55
+    assert by_range == {"group_tiles": 5, "group_walk": 9, "group_eval": 46,
+                        "group_fallback": 23, "leapfrog": 4}
+    assert by_kernel[("group_walk", "group_lists_kernel")] == 9
+    assert by_kernel[("group_eval", "group_eval_kernel")] == 45
     assert busy == 87 and span == 122

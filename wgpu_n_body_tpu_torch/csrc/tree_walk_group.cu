@@ -1,127 +1,127 @@
-// Group (tile-shared) Barnes-Hut theta walk for Hopper (sm_90a).
+// Group (tile-shared) Barnes-Hut theta walk for Hopper (sm_90a): a walk
+// kernel that writes each tile's interaction list, and an evaluation kernel
+// that sums it.
 //
 // Replaces the XLA loops of wgpu_n_body_tpu/ops/tree_walk_group.py::
 // group_tree_forces (skip engine, one pass; the JAX package could not write
 // it in Pallas: a TPU kernel cannot gather per lane). The plain torch
-// version is ops/tree_walk_group.py::group_walk_tiles; the wrapper,
-// ops/tree_walk_group_cuda.py, builds the tiles and runs the per-particle
-// fallback (csrc/tree_walk.cu) for what this kernel defers.
+// versions are ops/tree_walk_group.py::group_walk_lists (kernel a) and
+// group_eval_lists (kernel b); the wrapper, ops/tree_walk_group_cuda.py,
+// builds the tiles, launches both, and runs the per-particle fallback
+// (csrc/tree_walk.cu) for what they defer.
 //
-// One CTA of 128 threads per tile of at most walk_tile Morton-adjacent
-// receivers, held in registers (one to four per thread: walk_tile <= 512).
-// The CTA reduces the tile's bounding box, then loops:
-//
-//   phase A (warp 0)  walk the DFS arena from the root, appending rows to
-//                     a 1024-row interaction list in shared memory, until
-//                     the list is full or the walk ends;
-//   phase B (all)     every thread sums its receivers against the list;
-//
-// so the list never leaves the SM (the JAX package writes it to HBM and
-// sorts it). Per visited node, as the JAX skip engine:
-//   accept (width < theta * dmin(bbox, cog)): one point-mass row (cog, mass,
-//       index -1), 1 step, cur = skip[cur];
-//   terminal cell that fails (no_child > 0): one member row per particle
-//       (position, mass, sorted index), one step each, cur = skip[cur];
-//   internal node that fails: no row, 1 step, cur = cur + 1.
-// A tile whose steps exceed r_cap stops and is flagged bad; the wrapper
-// defers its receivers. Step counts are exact, so the flags and counts equal
-// the plain version's integer for integer.
-//
-// Warp-parallel skip walk. The visited nodes of a stackless walk form an
-// increasing sequence, so warp 0 reads the 32 nodes [cur, cur+32) at once
-// and decides each node's accept/terminal test in parallel. Node k of the
-// window is visited iff no earlier node j of the window that jumps (accepts
-// or is terminal) covers it (skip[j] > k): an exclusive prefix max of those
-// skip targets over the warp. An inclusive scan of the rows each visited
-// node emits gives its place in the list; a window that does not fit stops
-// at its first node that does not, and an opened terminal cell larger than
-// the room left is streamed across flushes (`pending`).
+// (a) group_lists_kernel: one warp per tile of at most walk_tile
+//     Morton-adjacent receivers, four tiles per CTA. The warp reduces the
+//     tile's bounding box and walks the DFS arena from the root without a
+//     stack, as the JAX skip engine: per visited node
+//       accept (width < theta * dmin(bbox, cog)): one row, id k, 1 step,
+//           cur = skip[cur];
+//       terminal cell that fails (no_child > 0): one row per member j, id
+//           cap + 1 + j, one step each, cur = skip[cur];
+//       internal node that fails: no row, 1 step, cur = cur + 1.
+//     The ids index the combined table [node rows | source rows]. The
+//     visited nodes of a stackless walk increase, so the warp reads the 32
+//     nodes [cur, cur+32) at once: node k is visited iff no earlier node of
+//     the window that jumps covers it (an exclusive prefix max of the jump
+//     targets), and a prefix sum of the rows places each node's rows. The
+//     whole warp then writes the window's rows, 32 consecutive ids per
+//     store, finding each id's node by a binary search over the lanes'
+//     offsets, so an opened cell costs one coalesced id per member.
+//     Lists go to device memory in chunks of kChunk ids taken from a pool
+//     with one atomic counter; the chunk table says where each tile's
+//     chunks are. A tile whose steps exceed r_cap stops and is flagged bad;
+//     one that finds the pool empty stops and is flagged pool_full; the
+//     wrapper defers both to the per-particle walk. Step counts are exact.
+//     Which tiles find the pool empty depends on the order in which warps
+//     reach the counter, so the pool is sized to cover the lists of the
+//     scenes measured (ops/tree_walk_group.py::pool_chunks).
+//     At N=4M the lists are ~22M ids (87 MB): ~0.05 ms of HBM traffic each
+//     way. The fused kernel these two replace kept the lists in shared
+//     memory and made three warps of every CTA wait while one walked (half
+//     of each tile's cycles, measured).
+// (b) group_eval_kernel: one CTA of 128 threads per tile, receivers in
+//     registers (one to four per thread: walk_tile <= 512), tiles in tile
+//     order (heaviest list first did not pay for its device sort at N=4M
+//     and lost on the disc scene: PERF.md). The list streams through a
+//     ring of kStages shared-memory stages of kChunk rows: each thread reads ids
+//     and issues 16-byte cp.async gathers of table rows for a later stage
+//     while the CTA sums the current one. (TMA has no gather mode and
+//     cp.async.bulk copies contiguous runs only, so a list of scattered
+//     rows goes through cp.async.) While staging, each warp's ballot marks
+//     the 32-row groups that hold a member of the tile's own receivers: only
+//     those run the self-masked loop; every other group runs the same
+//     arithmetic (pair_term) with no compare and no select.
 //
 // Rounding: the theta test is written with __fmul_rn/__fadd_rn/__fsqrt_rn,
 // so nvcc cannot contract it into FMAs and it rounds as the plain version
-// (one torch kernel per operation) does: both walks open the same nodes.
-// Phase B may use FMAs, rsqrtf and __fdividef: its sums are compared with
-// the plain version's to a tolerance (their order differs anyway).
+// (one torch kernel per operation) does: both walks open the same nodes,
+// and the lists are equal id for id. The evaluation uses FMAs and the
+// flush-to-zero forms of rsqrt and the approximate divide (one MUFU each,
+// without the fix-ups for subnormal inputs that cost 7 of the fused
+// kernel's 26 SASS instructions per pair): r2 and the denominator r2*r + e
+// are normal unless two bodies lie within 1e-19 of each other. Its sums are
+// compared with the plain version's to a tolerance.
 //
-// What bounds it on H100: phase B is FP32/SFU arithmetic, ~20 instructions
-// and two MUFU ops (rsqrt, reciprocal) per receiver-row pair, with the row
-// read once from shared memory as a broadcast for the whole CTA. Phase A
-// is latency: one dependent round of global loads per 32-node window,
-// walked by one warp while the CTA's other warps wait at the barrier; the
-// other CTAs resident on the SM (6 or more, by the register cap) fill those
-// gaps.
-// Later work: overlap A and B inside the CTA (double-buffered lists and a
-// producer warp), and order tiles by density for the tail.
+// What bounds it on H100: (b) is special-function throughput, two MUFU
+// ops per receiver-row pair (rsqrt; the reciprocal of the divide) at 16
+// per SM per clock: 1.0607e10 pairs at N=4M, 5.07 ms at 1980 MHz. Its loop
+// issues ~16 instructions per pair, so issue (4 per SM per clock) binds
+// about as tightly. (a) is latency: one dependent round of five loads per
+// 32-node window, hidden by the ~64 walks resident per SM. PERF.md has
+// the measurements.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-// Measured on an NVIDIA H100 80GB HBM3 (700 W) at N=4M uniform, walk_tile
-// 512 (PERF.md): 128 threads, a 1024-row list and at least 6 resident CTAs
-// per SM (80 registers; 11.7 ms) beat 256 or 64 threads, a 2048-row list,
-// other register caps, and a double-buffered variant with a producer warp.
-constexpr int kBlock = 128;  // threads per CTA
-constexpr int kMinBlocks = 6;  // resident CTAs per SM the register budget allows
-constexpr int kWarps = kBlock / 32;
-constexpr int kList = 1024;  // rows of the shared-memory interaction list
 constexpr unsigned kFull = 0xffffffffu;
+// Launch shape, swept on an NVIDIA H100 80GB HBM3 (700 W) at N=4M uniform
+// theta=0.75 (walk_tile 512) and N=2M disc theta=0.5 (walk_tile 256) by
+// utils/group_walk_study.py --sweep, which rebuilds a copy of this file with
+// other values of these constants (PERF.md): 2 stages with a cap of 4
+// resident evaluation CTAs (126 registers at four receivers per thread) beat
+// the other stage and CTA counts by ~3% at N=4M and tied on the disc; 256-row
+// chunks and 4 warps per walk CTA were within ~2% of 128/512 and 2/8;
+// unrolling 8 rows beat 2 and 4, and 32 at N=4M.
+constexpr int kChunk = 256;     // ids per pool chunk == rows per ring stage
+constexpr int kWalkWarps = 4;   // tiles per CTA of the walk kernel
+constexpr int kMinBlocks = 4;   // resident evaluation CTAs per SM (register cap)
+constexpr int kStages = 2;      // ring stages of kChunk rows
+constexpr int kUnroll = 8;      // pair-loop unroll
+constexpr int kBlock = 128;     // threads per evaluation CTA
+constexpr int kMaxTile = 512;
 
-template <int PER>
-__global__ void __launch_bounds__(kBlock, kMinBlocks) group_walk_kernel(
-    const float* __restrict__ pos_new, const float4* __restrict__ src,
-    const float4* __restrict__ nodes, const int* __restrict__ skip,
-    const int* __restrict__ first, const int* __restrict__ count,
-    const int* __restrict__ num_nodes_ptr, const int* __restrict__ piece_start,
-    const int* __restrict__ piece_len, float* __restrict__ out,
-    int* __restrict__ tile_bad, int* __restrict__ tile_steps,
-    int* __restrict__ tile_rows, int g, int r_cap, int gid_offset, float theta,
-    float gdt, float e) {
-  __shared__ float4 s_row[kList];
-  __shared__ int s_gid[kList];
-  __shared__ float s_part[kWarps][6];
-  __shared__ float s_box[6];
-  __shared__ int s_nrows;
-  __shared__ int s_done;
+// ---- (a) the walk ----
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__global__ void __launch_bounds__(kWalkWarps * 32) group_lists_kernel(
+    const float* __restrict__ pos_new, const float4* __restrict__ nodes,
+    const int* __restrict__ skip, const int* __restrict__ first,
+    const int* __restrict__ count, const int* __restrict__ num_nodes_ptr,
+    const int* __restrict__ piece_start, const int* __restrict__ piece_len,
+    int* __restrict__ ids, int* __restrict__ pool_next, int n_chunks,
+    int* __restrict__ chunks, int max_chunks, int* __restrict__ tile_bad,
+    int* __restrict__ tile_steps, int* __restrict__ tile_rows,
+    int* __restrict__ tile_full, int tiles, int g, int r_cap, int cap, float theta) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (t >= tiles) return;  // whole warps
   const int len = min(piece_len[t], g);
   if (len <= 0) {  // an unused tile of the static budget
-    if (tid == 0) {
-      tile_bad[t] = 0;
-      tile_steps[t] = 0;
-      tile_rows[t] = 0;
-    }
+    if (lane == 0) tile_bad[t] = tile_steps[t] = tile_rows[t] = tile_full[t] = 0;
     return;
   }
   const int p0 = piece_start[t];
 
-  // ---- receivers in registers, and the tile's bounding box ----
-  float px[PER], py[PER], pz[PER], ax[PER], ay[PER], az[PER];
-  int me[PER];
+  // the tile's bounding box
   float bl[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
   float bh[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  for (int s = lane; s < len; s += 32) {
 #pragma unroll
-  for (int q = 0; q < PER; ++q) {
-    const int s = tid + q * kBlock;
-    const bool ok = s < len;
-    const int i = p0 + (ok ? s : 0);
-    px[q] = pos_new[3 * i + 0];
-    py[q] = pos_new[3 * i + 1];
-    pz[q] = pos_new[3 * i + 2];
-    me[q] = ok ? gid_offset + i : -2;  // -2 matches no row (members >= 0, nodes -1)
-    ax[q] = ay[q] = az[q] = 0.0f;
-    if (ok) {
-      bl[0] = fminf(bl[0], px[q]);
-      bl[1] = fminf(bl[1], py[q]);
-      bl[2] = fminf(bl[2], pz[q]);
-      bh[0] = fmaxf(bh[0], px[q]);
-      bh[1] = fmaxf(bh[1], py[q]);
-      bh[2] = fmaxf(bh[2], pz[q]);
+    for (int c = 0; c < 3; ++c) {
+      const float v = pos_new[3 * (p0 + s) + c];
+      bl[c] = fminf(bl[c], v);
+      bh[c] = fmaxf(bh[c], v);
     }
   }
 #pragma unroll
@@ -131,167 +131,225 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_walk_kernel(
       bh[c] = fmaxf(bh[c], __shfl_xor_sync(kFull, bh[c], o));
     }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      s_part[warp][c] = bl[c];
-      s_part[warp][3 + c] = bh[c];
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int c = 0; c < 3; ++c) {
-      float a = s_part[0][c], b = s_part[0][3 + c];
-      for (int w = 1; w < kWarps; ++w) {
-        a = fminf(a, s_part[w][c]);
-        b = fmaxf(b, s_part[w][3 + c]);
-      }
-      s_box[c] = a;
-      s_box[3 + c] = b;
-    }
-  }
-  __syncthreads();
 
-  // ---- warp 0's walk state (uniform across its lanes) ----
-  const float blx = s_box[0], bly = s_box[1], blz = s_box[2];
-  const float bhx = s_box[3], bhy = s_box[4], bhz = s_box[5];
   const int num_nodes = __ldg(num_nodes_ptr);
-  int cur = 0, koff = 0, steps = 0, rows_total = 0;
-  bool pending = false, bad = false;
+  int* const my_chunks = chunks + static_cast<long long>(t) * max_chunks;
+  int cur = 0, steps = 0, rows = 0;
+  int have = 0, c_prev = -1, c_last = -1;  // chunks taken; the last two
+  bool bad = false, full = false;
+  while (cur < num_nodes) {
+    // a window of 32 consecutive nodes from cur (cur itself is visited)
+    const int k = cur + lane;
+    const bool valid = k < num_nodes;
+    float4 cm = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 geo = cm;
+    int nskip = 0, nfirst = 0, ncnt = 0;
+    if (valid) {
+      cm = __ldg(&nodes[2 * k]);       // cog xyz, mass
+      geo = __ldg(&nodes[2 * k + 1]);  // width, is_single, no_child, -
+      nskip = __ldg(&skip[k]);
+      nfirst = __ldg(&first[k]);
+      ncnt = __ldg(&count[k]);
+    }
+    const float dx = fmaxf(fmaxf(bl[0] - cm.x, cm.x - bh[0]), 0.0f);
+    const float dy = fmaxf(fmaxf(bl[1] - cm.y, cm.y - bh[1]), 0.0f);
+    const float dz = fmaxf(fmaxf(bl[2] - cm.z, cm.z - bh[2]), 0.0f);
+    const float d2 =
+        __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+    const bool accept = valid && geo.x < __fmul_rn(theta, __fsqrt_rn(d2));
+    const bool terminal = valid && geo.z > 0.0f;
+    const bool jump = accept || terminal;
+    // visited iff no earlier jumping node of the window covers k
+    int cover = jump ? nskip : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, cover, o);
+      if (lane >= o) cover = max(cover, v);
+    }
+    int before = __shfl_up_sync(kFull, cover, 1);
+    if (lane == 0) before = 0;
+    const bool visited = valid && before <= k;
+    const int cnt = max(ncnt, 1);
+    const bool member = visited && !accept && terminal;
+    const int my_rows = visited ? (accept ? 1 : (terminal ? cnt : 0)) : 0;
+    const int my_steps = visited ? (member ? cnt : 1) : 0;
+    steps += __reduce_add_sync(kFull, my_steps);
+    if (steps > r_cap) {  // rows <= steps: the list never passes r_cap rows
+      bad = true;
+      break;
+    }
+    int incl = my_rows;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int excl = incl - my_rows;
+    const int wrows = __shfl_sync(kFull, incl, 31);
+    const int base = accept ? k : cap + 1 + nfirst;  // the id of this lane's first row
 
-  while (true) {
-    if (warp == 0) {
-      // ---- phase A: fill the list ----
-      int nrows = 0;
-      bool done = false;
-      while (true) {
-        if (bad || cur >= num_nodes) {
-          done = true;
+    // the window's rows go to list positions [rows, rows + wrows), 32 at a
+    // time; kChunk >= 32, so 32 positions span at most the last two chunks
+    for (int q0 = 0; q0 < wrows; q0 += 32) {
+      const int need = (rows + min(q0 + 32, wrows) - 1) / kChunk + 1;
+      while (have < need) {
+        int c = 0;
+        if (lane == 0) c = atomicAdd(pool_next, 1);
+        c = __shfl_sync(kFull, c, 0);
+        if (c >= n_chunks) {
+          full = true;
           break;
         }
-        const int room = kList - nrows;
-        if (room == 0) break;
-        if (pending) {  // stream the members of the opened terminal cell `cur`
-          const int f = __ldg(&first[cur]);
-          const int c = max(__ldg(&count[cur]), 1);
-          const int take = min(c - koff, room);
-          for (int m = lane; m < take; m += 32) {
-            const int j = f + koff + m;
-            s_row[nrows + m] = __ldg(&src[j]);
-            s_gid[nrows + m] = j;
-          }
-          nrows += take;
-          steps += take;
-          koff += take;
-          if (koff == c) {
-            pending = false;
-            koff = 0;
-            cur = __ldg(&skip[cur]);
-          }
-          if (steps > r_cap) bad = true;
-          continue;
-        }
-        // a window of 32 consecutive nodes from cur (cur itself is visited)
-        const int k = cur + lane;
-        const bool valid = k < num_nodes;
-        float4 cm = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        float4 geo = cm;
-        int nskip = 0, nfirst = 0, ncnt = 0;
-        if (valid) {
-          cm = __ldg(&nodes[2 * k]);       // cog xyz, mass
-          geo = __ldg(&nodes[2 * k + 1]);  // width, is_single, no_child, -
-          nskip = __ldg(&skip[k]);
-          nfirst = __ldg(&first[k]);
-          ncnt = __ldg(&count[k]);
-        }
-        const float dx = fmaxf(fmaxf(blx - cm.x, cm.x - bhx), 0.0f);
-        const float dy = fmaxf(fmaxf(bly - cm.y, cm.y - bhy), 0.0f);
-        const float dz = fmaxf(fmaxf(blz - cm.z, cm.z - bhz), 0.0f);
-        const float d2 =
-            __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        const bool accept = valid && geo.x < __fmul_rn(theta, __fsqrt_rn(d2));
-        const bool terminal = valid && geo.z > 0.0f;
-        const bool jump = accept || terminal;
-        // visited iff no earlier jumping node of the window covers k
-        int cover = jump ? nskip : 0;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int v = __shfl_up_sync(kFull, cover, o);
-          if (lane >= o) cover = max(cover, v);
-        }
-        int before = __shfl_up_sync(kFull, cover, 1);
-        if (lane == 0) before = 0;
-        const bool visited = valid && before <= k;
-        const int cnt = max(ncnt, 1);
-        const bool member = visited && !accept && terminal;
-        const int my_rows = visited ? (accept ? 1 : (terminal ? cnt : 0)) : 0;
-        const int my_steps = visited ? (member ? cnt : 1) : 0;
-        int incl = my_rows;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int v = __shfl_up_sync(kFull, incl, o);
-          if (lane >= o) incl += v;
-        }
-        const int excl = incl - my_rows;
-        // the window stops at its first visited node whose rows do not fit
-        const unsigned over = __ballot_sync(kFull, visited && incl > room);
-        const int stop = over ? __ffs(over) - 1 : 32;
-        const bool take = visited && lane < stop;
-        if (take && my_rows > 0) {
-          const int at = nrows + excl;
-          if (accept) {
-            s_row[at] = cm;
-            s_gid[at] = -1;
-          } else {
-            for (int m = 0; m < cnt; ++m) {
-              s_row[at + m] = __ldg(&src[nfirst + m]);
-              s_gid[at + m] = nfirst + m;
-            }
-          }
-        }
-        steps += __reduce_add_sync(kFull, take ? my_steps : 0);
-        if (stop < 32) {
-          nrows += __shfl_sync(kFull, excl, stop);
-          pending = __shfl_sync(kFull, member ? 1 : 0, stop) != 0;
-          cur += stop;
-        } else {
-          nrows += __shfl_sync(kFull, incl, 31);
-          const int last = 31 - __clz(__ballot_sync(kFull, visited));
-          cur = __shfl_sync(kFull, jump ? nskip : k + 1, last);
-        }
-        if (steps > r_cap) bad = true;
+        if (lane == 0) my_chunks[have] = c;
+        c_prev = c_last;
+        c_last = c;
+        ++have;
       }
-      rows_total += nrows;
-      if (lane == 0) {
-        s_nrows = bad ? 0 : nrows;
-        s_done = done ? 1 : 0;
-      }
-    }
-    __syncthreads();
-    const int nr = s_nrows;
-    const bool fin = s_done != 0;
-
-    // ---- phase B: every receiver against the list ----
-#pragma unroll 4
-    for (int r = 0; r < nr; ++r) {
-      const float4 s = s_row[r];
-      const int gj = s_gid[r];
+      if (full) break;
+      const int q = q0 + lane;
+      // the lane whose rows hold q: the last lane with excl <= q
+      int src = 0;
 #pragma unroll
-      for (int q = 0; q < PER; ++q) {
-        const float dx = s.x - px[q];
-        const float dy = s.y - py[q];
-        const float dz = s.z - pz[q];
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        const bool self = gj == me[q];
-        const float r2s = self ? 1.0f : r2;
-        const float inv_r = rsqrtf(r2s);
-        const float w = __fdividef(s.w * gdt * inv_r, r2s * (r2s * inv_r) + e);
-        const float ws = self ? 0.0f : w;
-        ax[q] += ws * dx;
-        ay[q] += ws * dy;
-        az[q] += ws * dz;
+      for (int step = 16; step > 0; step >>= 1) {
+        const int e = __shfl_sync(kFull, excl, src + step);
+        if (e <= q) src += step;
+      }
+      const int id0 = __shfl_sync(kFull, base, src);
+      const int ex = __shfl_sync(kFull, excl, src);
+      if (q < wrows) {
+        const int at = rows + q;
+        const int chunk = at / kChunk == have - 1 ? c_last : c_prev;
+        ids[static_cast<long long>(chunk) * kChunk + at % kChunk] = id0 + (q - ex);
       }
     }
-    __syncthreads();  // the list is refilled next
-    if (fin) break;
+    if (full) break;
+    rows += wrows;
+    const int last = 31 - __clz(__ballot_sync(kFull, visited));
+    cur = __shfl_sync(kFull, jump ? nskip : k + 1, last);
+  }
+  if (lane == 0) {
+    tile_bad[t] = bad ? 1 : 0;
+    tile_steps[t] = bad ? r_cap : steps;
+    tile_rows[t] = rows;
+    tile_full[t] = full ? 1 : 0;
+  }
+}
+
+// ---- (b) the evaluation ----
+
+// One receiver-row pair: w = m*g*dt * inv_r / (r2 * r + e), acc += w * d.
+// With SELF, a self pair (r2 == 0) is evaluated at r2 = 1 and weighted 0.
+template <bool SELF>
+__device__ __forceinline__ void pair_term(const float4 s, const float px, const float py,
+                                          const float pz, const bool self, const float e,
+                                          float& ax, float& ay, float& az) {
+  const float dx = s.x - px;
+  const float dy = s.y - py;
+  const float dz = s.z - pz;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  const float r2s = SELF && self ? 1.0f : r2;
+  float inv_r, w;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv_r) : "f"(r2s));
+  asm("div.approx.ftz.f32 %0, %1, %2;" : "=f"(w) : "f"(s.w * inv_r), "f"(r2s * (r2s * inv_r) + e));
+  if (SELF) w = self ? 0.0f : w;
+  ax += w * dx;
+  ay += w * dy;
+  az += w * dz;
+}
+
+constexpr int kGroups = kChunk / 32;
+
+template <int PER>
+__global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
+    const float* __restrict__ pos_new, const float4* __restrict__ table,
+    const int* __restrict__ ids, const int* __restrict__ chunks, int max_chunks,
+    const int* __restrict__ tile_rows, const int* __restrict__ tile_skip,
+    const int* __restrict__ piece_start, const int* __restrict__ piece_len,
+    float* __restrict__ out, int g, int self_base, float e) {
+  __shared__ float4 s_row[kStages][kChunk];
+  __shared__ int s_id[kStages][kChunk];
+  __shared__ int s_self[kStages][kGroups];
+
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int len = min(piece_len[t], g);
+  if (len <= 0 || tile_skip[t]) return;  // empty, or deferred: the fallback writes it
+  const int p0 = piece_start[t];
+  const int nrows = tile_rows[t];
+  const int nst = (nrows + kChunk - 1) / kChunk;
+  const int* const my_chunks = chunks + static_cast<long long>(t) * max_chunks;
+  // ids of this tile's own receivers as sources: [lo, lo + len)
+  const int lo = self_base + p0;
+
+  float px[PER], py[PER], pz[PER], ax[PER], ay[PER], az[PER];
+  int me[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int s = tid + q * kBlock;
+    const bool ok = s < len;
+    const int i = p0 + (ok ? s : 0);
+    px[q] = pos_new[3 * i + 0];
+    py[q] = pos_new[3 * i + 1];
+    pz[q] = pos_new[3 * i + 2];
+    me[q] = ok ? lo + s : -2;  // -2 matches no id (pad rows are -1)
+    ax[q] = ay[q] = az[q] = 0.0f;
+  }
+
+  // stage st of the list into ring slot st % kStages
+  auto stage = [&](int st) {
+    const int slot = st % kStages;
+    const int* const src = ids + static_cast<long long>(my_chunks[st]) * kChunk;
+#pragma unroll
+    for (int r0 = 0; r0 < kChunk; r0 += kBlock) {
+      const int r = r0 + tid;
+      int id = -1;
+      if (st * kChunk + r < nrows) {
+        id = src[r];
+        const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(&s_row[slot][r]));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(table + id));
+      } else {  // far and massless: adds exactly 0
+        s_row[slot][r] = make_float4(1e15f, 0.0f, 0.0f, 0.0f);
+      }
+      s_id[slot][r] = id;
+      const bool own = static_cast<unsigned>(id - lo) < static_cast<unsigned>(len);
+      const unsigned any = __ballot_sync(kFull, own);
+      if (lane == 0) s_self[slot][r >> 5] = any != 0;
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nst) stage(st);
+    asm volatile("cp.async.commit_group;");
+  }
+  for (int st = 0; st < nst; ++st) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 2));
+    __syncthreads();  // stage st is in; every thread is done with stage st - 1
+    if (st + kStages - 1 < nst) stage(st + kStages - 1);
+    asm volatile("cp.async.commit_group;");
+    const int slot = st % kStages;
+    const int groups = (min(kChunk, nrows - st * kChunk) + 31) >> 5;
+    for (int gr = 0; gr < groups; ++gr) {
+      const float4* const rows = &s_row[slot][gr * 32];
+      if (s_self[slot][gr]) {
+        const int* const rid = &s_id[slot][gr * 32];
+#pragma unroll(kUnroll)
+        for (int r = 0; r < 32; ++r) {
+          const float4 s = rows[r];
+          const int id = rid[r];
+#pragma unroll
+          for (int q = 0; q < PER; ++q)
+            pair_term<true>(s, px[q], py[q], pz[q], id == me[q], e, ax[q], ay[q], az[q]);
+        }
+      } else {
+#pragma unroll(kUnroll)
+        for (int r = 0; r < 32; ++r) {
+          const float4 s = rows[r];
+#pragma unroll
+          for (int q = 0; q < PER; ++q)
+            pair_term<false>(s, px[q], py[q], pz[q], false, e, ax[q], ay[q], az[q]);
+        }
+      }
+    }
   }
 
 #pragma unroll
@@ -304,52 +362,73 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_walk_kernel(
       out[3 * i + 2] = az[q];
     }
   }
-  if (tid == 0) {
-    tile_bad[t] = bad ? 1 : 0;
-    tile_steps[t] = bad ? r_cap : steps;
-    tile_rows[t] = rows_total;
-  }
 }
 
 // The narrowest instantiation that holds g receivers: PER = 1, 2 or 4.
-constexpr int kMaxTile = 4 * kBlock;
-
 template <int PER, typename... Args>
-cudaError_t launch(int tiles, int g, cudaStream_t stream, Args... args) {
+cudaError_t launch_eval(int tiles, int g, cudaStream_t stream, Args... args) {
   if constexpr (PER * kBlock < kMaxTile) {
-    if (g > PER * kBlock) return launch<2 * PER>(tiles, g, stream, args...);
+    if (g > PER * kBlock) return launch_eval<2 * PER>(tiles, g, stream, args...);
   }
-  group_walk_kernel<PER><<<tiles, kBlock, 0, stream>>>(args...);
+  group_eval_kernel<PER><<<tiles, kBlock, 0, stream>>>(args...);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// pos_new (b, 3) f32 receivers (sorted slice starting at gid_offset); src
-// (n, 4) f32 sorted sources (x, y, z, m); nodes (cap+1, 8) f32; skip/first/
-// count (cap+1,) int32; num_nodes a device int32 scalar; piece_start/
-// piece_len (tiles,) int32; out (b, 3) f32 (rows of deferred receivers are
-// left unwritten); tile_bad/tile_steps/tile_rows (tiles,) int32. g =
-// walk_tile in [1, 512]. Launches on `stream`, returns the cudaError_t of
+// (a) pos_new (b, 3) f32 receivers; nodes (cap+1, 8) f32; skip/first/count
+// (cap+1,) int32; num_nodes a device int32 scalar; piece_start/piece_len
+// (tiles,) int32; ids (n_chunks * chunk,) int32 pool; pool_next a device
+// int32 counter, zero; chunks (tiles, max_chunks) int32; tile_bad/
+// tile_steps/tile_rows/tile_full (tiles,) int32. g = walk_tile in [1, 512],
+// chunk must equal kChunk. Launches on `stream`, returns the cudaError_t of
 // the launch (0 on success), does not synchronise.
-extern "C" int tree_walk_group_launch(const void* pos_new, const void* src, const void* nodes,
-                                      const void* skip, const void* first, const void* count,
-                                      const void* num_nodes, const void* piece_start,
-                                      const void* piece_len, void* out, void* tile_bad,
-                                      void* tile_steps, void* tile_rows, int tiles, int g,
-                                      int r_cap, int gid_offset, float theta, float gdt,
-                                      float e, int device, void* stream) {
+extern "C" int group_lists_launch(const void* pos_new, const void* nodes, const void* skip,
+                                  const void* first, const void* count, const void* num_nodes,
+                                  const void* piece_start, const void* piece_len, void* ids,
+                                  void* pool_next, int n_chunks, int chunk, void* chunks,
+                                  int max_chunks, void* tile_bad, void* tile_steps,
+                                  void* tile_rows, void* tile_full, int tiles, int g,
+                                  int r_cap, int cap, float theta, int device, void* stream) {
+  if (tiles <= 0) return 0;
+  if (g < 1 || g > kMaxTile || chunk != kChunk || max_chunks * kChunk < r_cap)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (tiles + kWalkWarps - 1) / kWalkWarps;
+  group_lists_kernel<<<blocks, kWalkWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos_new), static_cast<const float4*>(nodes),
+      static_cast<const int*>(skip), static_cast<const int*>(first),
+      static_cast<const int*>(count), static_cast<const int*>(num_nodes),
+      static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
+      static_cast<int*>(ids), static_cast<int*>(pool_next), n_chunks,
+      static_cast<int*>(chunks), max_chunks, static_cast<int*>(tile_bad),
+      static_cast<int*>(tile_steps), static_cast<int*>(tile_rows), static_cast<int*>(tile_full),
+      tiles, g, r_cap, cap, theta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (b) pos_new (b, 3) f32 receivers (sorted slice starting at gid_offset);
+// table (cap+1+n, 4) f32 [node cog, mass*g*dt | source position,
+// mass*g*dt]; ids/chunks/tile_rows from (a); tile_skip (tiles,) int32,
+// nonzero for a deferred tile; out (b, 3) f32 (rows of deferred tiles are
+// left unwritten). self_base =
+// cap + 1 + gid_offset: the id of receiver 0 as a source. Launches on
+// `stream`, returns the cudaError_t of the launch, does not synchronise.
+extern "C" int group_eval_launch(const void* pos_new, const void* table, const void* ids,
+                                 const void* chunks, int max_chunks, const void* tile_rows,
+                                 const void* tile_skip, const void* piece_start,
+                                 const void* piece_len, void* out, int tiles, int g,
+                                 int self_base, float e, int device, void* stream) {
   if (tiles <= 0) return 0;
   if (g < 1 || g > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch<1>(
-      tiles, g, static_cast<cudaStream_t>(stream), static_cast<const float*>(pos_new),
-      static_cast<const float4*>(src), static_cast<const float4*>(nodes),
-      static_cast<const int*>(skip), static_cast<const int*>(first),
-      static_cast<const int*>(count), static_cast<const int*>(num_nodes),
-      static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
-      static_cast<float*>(out), static_cast<int*>(tile_bad), static_cast<int*>(tile_steps),
-      static_cast<int*>(tile_rows), g, r_cap, gid_offset, theta, gdt, e);
+  err = launch_eval<1>(tiles, g, static_cast<cudaStream_t>(stream),
+                       static_cast<const float*>(pos_new), static_cast<const float4*>(table),
+                       static_cast<const int*>(ids), static_cast<const int*>(chunks), max_chunks,
+                       static_cast<const int*>(tile_rows), static_cast<const int*>(tile_skip),
+                       static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
+                       static_cast<float*>(out), g, self_base, e);
   return static_cast<int>(err);
 }

@@ -109,7 +109,8 @@ class TreeSim(Simulator):
     def diagnose(self, state: ParticleState) -> dict:
         """Tree health for this state: node count against the arena, and
         how many receivers one group walk of the sorted state defers to the
-        per-particle walk (computed whatever ``walk`` is, as in JAX)."""
+        per-particle walk (computed whatever ``walk`` is, as in JAX), and how
+        many of those for want of room in the walk's list pool."""
         ss, tree, keys = self._sort_build(state)
         _, stats = group_tree_forces_cuda(
             ss.pos, ss.pos, ss.mass, tree, keys, self.sim_params, self.add_params
@@ -119,4 +120,5 @@ class TreeSim(Simulator):
             "node_capacity": self.add_params.capacity(self.sim_params.particle_num),
             "overflowed": bool(tree.overflowed),
             "walk_deferred": int(stats.deferred),
+            "walk_pool_deferred": int(stats.pool_deferred),
         }

@@ -1,0 +1,385 @@
+"""Development measurements of the group walk kernels (B4) on a CUDA card.
+
+    python -m wgpu_n_body_tpu_torch.utils.group_walk_study [--fused PATH] [--sweep]
+        [--sass-dir DIR]
+
+Prints, each timed line with the card's name and power limit:
+- the SASS loops of the evaluation kernel that evaluate pairs: instructions
+  and MUFU ops per pair, from ``cuobjdump -sass`` (listings to ``--sass-dir``);
+- with ``--fused PATH``: the fused kernel the two kernels replaced (one CTA
+  per tile, phase A walking while the CTA waits, then phase B), built from
+  PATH, which must be the ``csrc/tree_walk_group.cu`` of commit e0dd89f
+  (checked by its SHA-256; for example ``git show
+  e0dd89f:wgpu_n_body_tpu_torch/csrc/tree_walk_group.cu > _parent/tree_walk_group.cu``,
+  a git-ignored directory). It is timed in turns with the new kernels
+  (fused, new, new, fused) at N=4M uniform and N=262144 disc walk_tile 256,
+  each beside the SFU bound of its pairs at the card's maximum SM clock;
+  then a copy with clock probes at its phase boundaries gives each phase's
+  share of the tiles' cycles, the per-tile spread and when the last tile
+  ends, and its pair loop's SASS;
+- with ``--sweep``: the new kernels rebuilt from copies of their source with
+  other values of the launch constants (``kMinBlocks``, ``kStages``,
+  ``kChunk``, ``kUnroll``, ``kWalkWarps``), each timed at N=4M uniform
+  theta=0.75 and N=2M disc theta=0.5 with the source as built first and
+  last, and the walk kernel over all, half and a quarter of the N=4M tiles.
+Builds go to the git-ignored ``_build/``. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+from wgpu_n_body_tpu_torch.ops import cuda_build
+from wgpu_n_body_tpu_torch.ops import tree_walk_group as twg
+from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
+from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+
+N_TREE = 4_000_000
+N_DISC = 262144
+SFU_PER_SM_CLOCK = 16
+#: SHA-256 of the fused kernel's source (csrc/tree_walk_group.cu at e0dd89f),
+#: which the probe edits below are written against.
+FUSED_SHA256 = "c242dc5c1127c1314247459ee1d056c3e853ee4d28deacbd86aef8e099f32ab2"
+
+# Clock probes spliced into the fused kernel at its phase boundaries: per
+# tile, warp 0's phase-A cycles, warp 1's cycles from the loop's top to the
+# end of the barrier behind phase A, thread 0's phase-B cycles, the tile's
+# total cycles, its start and end on the global timer, its SM, and warp 1's
+# cycles outside its own phase B.
+PROBE_ROWS = 65536
+PROBE_EDITS = (
+    ("constexpr unsigned kFull = 0xffffffffu;\n",
+     "constexpr unsigned kFull = 0xffffffffu;\n"
+     f"__device__ long long g_probe[{PROBE_ROWS}][8];\n"
+     "__device__ __forceinline__ long long pr_clock() {\n"
+     "  long long c;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(c) :: \"memory\");\n"
+     "  return c;\n"
+     "}\n"),
+    ("  const int p0 = piece_start[t];\n",
+     "  const int p0 = piece_start[t];\n"
+     "  const long long pr_t0 = pr_clock();\n"
+     "  long long pr_g0, pr_a = 0, pr_w = 0, pr_b = 0;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pr_g0));\n"),
+    ("  while (true) {\n    if (warp == 0) {\n",
+     "  while (true) {\n    const long long pr_a0 = pr_clock();\n    if (warp == 0) {\n"),
+    ("    __syncthreads();\n    const int nr = s_nrows;\n",
+     "    const long long pr_w0 = pr_clock();\n"
+     "    __syncthreads();\n"
+     "    const long long pr_w1 = pr_clock();\n"
+     "    if (warp == 0) pr_a += pr_w0 - pr_a0; else pr_w += pr_w1 - pr_a0;\n"
+     "    const int nr = s_nrows;\n"),
+    ("    __syncthreads();  // the list is refilled next\n",
+     "    pr_b += pr_clock() - pr_w1;\n    __syncthreads();  // the list is refilled next\n"),
+    ("  if (tid == 0) {\n    tile_bad[t] = bad ? 1 : 0;\n",
+     "  if (t < " + str(PROBE_ROWS) + " && (tid == 0 || tid == 32)) {\n"
+     "    long long g1;\n"
+     "    unsigned sm;\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+     "    asm(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+     "    if (tid == 32) {\n"
+     "      g_probe[t][1] = pr_w; g_probe[t][7] = pr_clock() - pr_t0 - pr_b;\n"
+     "    } else {\n"
+     "      g_probe[t][0] = pr_a; g_probe[t][2] = pr_b; g_probe[t][3] = pr_clock() - pr_t0;\n"
+     "      g_probe[t][4] = pr_g0; g_probe[t][5] = g1; g_probe[t][6] = sm;\n"
+     "    }\n"
+     "  }\n"
+     "  if (tid == 0) {\n    tile_bad[t] = bad ? 1 : 0;\n"),
+)
+PROBE_READ = """
+extern "C" int group_walk_probe_read(void* dst, int bytes) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_probe, bytes, 0, cudaMemcpyDeviceToDevice));
+}
+"""
+
+#: Launch-shape variants of the sweep; {} is the source as it stands.
+SWEEP = ([{}] + [{"kStages": st, "kMinBlocks": mb} for st in (2, 3, 4) for mb in (4, 5, 6)]
+         + [{"kChunk": c} for c in (128, 512)] + [{"kUnroll": u} for u in (2, 4, 32)]
+         + [{"kWalkWarps": w} for w in (2, 8)] + [{}])
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, reps):
+    """Mean ms of ``fn`` over ``reps`` calls after one warm call (CUDA
+    events); returns (ms, the warm call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def scene(init, n, tp, dev):
+    """(sorted state, tree, tiles, drifted positions, params) of one step."""
+    params = SimParams(particle_num=n)
+    ss, bound, keys = morton_sort(init(torch.Generator().manual_seed(0), params, dev),
+                                  tp.max_depth)
+    tree = build_tree(ss, keys, bound, tp)
+    pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt
+    return ss, tree, twg.tile_setup(keys, n, tp), pos_new, params
+
+
+def sfu_bound_ms(pairs, mhz):
+    """Two MUFU ops per receiver-row pair at 16 per SM per clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 * pairs / (SFU_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
+
+
+def pairs_of(tiles, bad, rows):
+    nt = int((tiles.piece_len > 0).sum())
+    fin = ~bad[:nt]
+    return float((rows[:nt][fin].double() * tiles.piece_len[:nt][fin].double()).sum())
+
+
+def sass_loops(lib_path, name_part, sass_dir):
+    """Innermost SASS loops that evaluate pairs (hold MUFU.RSQ) in the
+    kernels whose mangled name holds ``name_part``: (kernel, instructions,
+    MUFU.RSQ, all MUFU) each. One MUFU.RSQ per pair, so instructions per
+    pair is the ratio."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
+        Path(sass_dir, Path(lib_path).name + ".sass").write_text(text)
+    found = []
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if name_part not in name:
+            continue
+        labels, ins, branches, pending = {}, [], [], []
+        for line in part.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addr, op = int(m.group(1), 16), m.group(2)
+            labels.update((lab_name, addr) for lab_name in pending)
+            pending = []
+            ins.append((addr, op))
+            b = re.search(r"\bBRA\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", op)
+            if b:
+                branches.append((addr, b.group(1) or int(b.group(2), 16)))
+        loops = []
+        for addr, target in branches:
+            target = labels.get(target) if isinstance(target, str) else target
+            if target is not None and target <= addr:
+                body = [op for a, op in ins if target <= a <= addr]
+                loops.append((target, addr, len(body), sum("MUFU.RSQ" in op for op in body),
+                              sum("MUFU" in op for op in body)))
+        for lo, hi, n_ins, rsq, mufu in loops:
+            inner = [x for x in loops if x[4] and lo <= x[0] and x[1] <= hi and x[:2] != (lo, hi)]
+            if rsq and not inner:
+                found.append((name, n_ins, rsq, mufu))
+    return sorted(found, key=lambda x: -x[2])
+
+
+def print_sass(label, lib_path, name_part, sass_dir):
+    for name, n_ins, rsq, mufu in sass_loops(lib_path, name_part, sass_dir):
+        print(f"{label} SASS {name[:60]}...: pair loop {n_ins} instructions, {rsq} MUFU.RSQ, "
+              f"{mufu} MUFU: {n_ins / rsq:.2f} instructions and {mufu / rsq:.2f} MUFU per pair")
+
+
+class FusedKernel:
+    """The fused group-walk kernel the two kernels replaced, built from its
+    source with the port's flags; ``probed`` splices in the clock probes."""
+
+    def __init__(self, source: Path, probed: bool):
+        if hashlib.sha256(source.read_bytes()).hexdigest() != FUSED_SHA256:
+            raise SystemExit(f"{source} is not csrc/tree_walk_group.cu of commit e0dd89f")
+        if probed:
+            text = source.read_text()
+            for old, new in PROBE_EDITS:
+                text = text.replace(old, new)
+            source = gcuda.BUILD_DIR / "tree_walk_group_fused_probed.cu"
+            source.parent.mkdir(parents=True, exist_ok=True)
+            source.write_text(text + PROBE_READ)
+        self.lib_path, self.log = cuda_build.compile_cu(
+            source, gcuda.BUILD_DIR / "fused", list(cuda_build.BASE_FLAGS))
+        self.lib = ctypes.CDLL(str(self.lib_path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.tree_walk_group_launch.argtypes = [p] * 13 + [i] * 4 + [f] * 3 + [i, p]
+        self.lib.tree_walk_group_launch.restype = i
+        if probed:
+            self.lib.group_walk_probe_read.argtypes = [p, i]
+            self.lib.group_walk_probe_read.restype = i
+
+    def __call__(self, pos_new, src_pos, src_mass, tree, tiles, params, tp):
+        dev = pos_new.device
+        out = torch.empty((pos_new.shape[0], 3), dtype=torch.float32, device=dev)
+        per_tile = torch.empty((3, tiles.t_cap), dtype=torch.int32, device=dev)
+        src = torch.cat([src_pos, src_mass[:, None]], 1)
+        err = self.lib.tree_walk_group_launch(
+            pos_new.data_ptr(), src.data_ptr(), tree.nodes_f32.data_ptr(), tree.skip.data_ptr(),
+            tree.first.data_ptr(), tree.count.data_ptr(), tree.num_nodes.data_ptr(),
+            tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), out.data_ptr(),
+            per_tile[0].data_ptr(), per_tile[1].data_ptr(), per_tile[2].data_ptr(),
+            tiles.t_cap, tiles.g, tiles.r_cap, 0, float(tp.theta), float(params.g * params.dt),
+            float(params.e), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the fused kernel did not launch: cudaError_t {err}")
+        return out, per_tile[0] != 0, per_tile[1], per_tile[2]
+
+    def probes(self, rows, dev):
+        buf = torch.empty((PROBE_ROWS, 8), dtype=torch.int64, device=dev)
+        err = self.lib.group_walk_probe_read(buf.data_ptr(), buf.numel() * 8)
+        if err != 0:
+            raise RuntimeError(f"reading the probes failed: cudaError_t {err}")
+        return buf[:rows].cpu().numpy()
+
+
+def study_fused(path, dev, smi, mhz, sass_dir):
+    """The fused kernel beside the new ones, and its probed phase split."""
+    old, probed = FusedKernel(path, False), FusedKernel(path, True)
+    print_sass("fused", old.lib_path, "group_walk_kernel", sass_dir)
+    for label, n, init, g_tile in (("uniform", N_TREE, uniform_init, None),
+                                   ("disc", N_DISC, disc_init, 256)):
+        tp = TreeParams(walk_tile=g_tile)
+        ss, tree, tiles, pos_new, params = scene(init, n, tp, dev)
+        args = (pos_new, ss.pos, ss.mass, tree, tiles, params, tp)
+        ms = {"fused": [], "new": []}
+        for who in ("fused", "new", "new", "fused"):
+            fn = old if who == "fused" else gcuda.group_walk_tiles_cuda
+            ms[who].append(time_ms(lambda: fn(*args), 5)[0])
+        o_acc, o_bad, o_steps, _ = old(*args)
+        n_acc, n_bad, n_steps, n_rows = gcuda.group_walk_tiles_cuda(*args)
+        if not (torch.equal(o_bad, n_bad) and torch.equal(o_steps, n_steps)):
+            raise SystemExit(f"{label}: the fused and the new kernels defer or step differently")
+        good = ~(tiles.deferred | n_bad[tiles.tile_id])
+        d = (n_acc[good] - o_acc[good]).double().norm(dim=1) / o_acc[good].double().norm(dim=1)
+        b = sfu_bound_ms(pairs_of(tiles, n_bad, n_rows), mhz)
+        mo, mn = float(np.mean(ms["fused"])), float(np.mean(ms["new"]))
+        print(f"{label} N={n} walk_tile {tiles.g}, in turns fused/new/new/fused: fused "
+              f"{ms['fused'][0]:.3f} / {ms['fused'][1]:.3f} ms, new {ms['new'][0]:.3f} / "
+              f"{ms['new'][1]:.3f} ms; SFU bound {b:.3f} ms at {mhz:.0f} MHz: fused at "
+              f"{b / mo:.2%}, new at {b / mn:.2%}; forces new vs fused per-row p99 "
+              f"{float(torch.quantile(d, 0.99)):.3e}; [{smi}]")
+
+        nt = int((tiles.piece_len > 0).sum())
+        ms_probed, (_, _, _, rows) = time_ms(lambda: probed(*args), 3)
+        pr = probed.probes(nt, dev).astype(np.float64)
+        a, w, b_, tot = pr[:, 0].sum(), pr[:, 1].sum(), pr[:, 2].sum(), pr[:, 3].sum()
+        ends, cyc = pr[:, 5] - pr[:, 4].min(), pr[:, 3]
+        print(f"fused probed {label} N={n} walk_tile {tiles.g}: {nt} tiles, {ms_probed:.3f} ms; "
+              f"warp 0 in phase A {a / tot:.2%} of the tiles' cycles, phase B {b_ / tot:.2%}; "
+              f"warp 1 at the barrier behind phase A {w / tot:.2%}, outside its phase B "
+              f"{pr[:, 7].sum() / tot:.2%}; per-tile cycles mean {cyc.mean():.0f} p50 "
+              f"{np.percentile(cyc, 50):.0f} p99 {np.percentile(cyc, 99):.0f} max "
+              f"{cyc.max():.0f}; list rows per tile mean {float(rows[:nt].float().mean()):.1f}; "
+              f"tile ends: mean {ends.mean() / 1e6:.3f} ms, last {ends.max() / 1e6:.3f} ms after "
+              f"the first start; [{smi}]")
+        del ss, tree, tiles, pos_new, args, o_acc, n_acc
+        torch.cuda.empty_cache()
+
+
+def variant_source(overrides: dict) -> Path:
+    """A copy of the kernels' source with other values of its launch
+    constants (each ``constexpr int kName = value;`` found exactly once)."""
+    if not overrides:
+        return gcuda.SOURCE
+    text = gcuda.SOURCE.read_text()
+    for name, value in overrides.items():
+        text, k = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
+        if k != 1:
+            raise SystemExit(f"{gcuda.SOURCE.name} defines {name} {k} times, not once")
+    tag = "_".join(f"{k}{v}" for k, v in overrides.items())
+    path = gcuda.BUILD_DIR / f"tree_walk_group_{tag}.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return path
+
+
+def sweep(dev, smi):
+    """The new kernels' launch constants on BASELINE's two tree configs:
+    N=4M uniform theta=0.75 (walk_tile 512, four receivers per thread) and
+    N=2M disc theta=0.5 (walk_tile 256, two per thread)."""
+    sources = [variant_source(v) for v in SWEEP]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        built = list(pool.map(
+            lambda s: cuda_build.compile_cu(s, gcuda.BUILD_DIR, gcuda.NVCC_FLAGS), sources))
+    scenes = {"uniform 4M": (uniform_init, N_TREE, TreeParams()),
+              "disc 2M theta=0.5": (disc_init, 2_000_000, TreeParams(theta=0.5))}
+    scenes = {k: (tp, *scene(init, n, tp, dev)) for k, (init, n, tp) in scenes.items()}
+    base, chunk = gcuda.SOURCE, twg.LIST_CHUNK
+    try:
+        for var, src, (_, log) in zip(SWEEP, sources, built):
+            gcuda.SOURCE, gcuda._lib = src, None
+            twg.LIST_CHUNK = gcuda.LIST_CHUNK = var.get("kChunk", chunk)
+            times = []
+            for label, (tp, ss, tree, tiles, pos_new, params) in scenes.items():
+                ms_walk, lists = time_ms(
+                    lambda: gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp), 5)
+                ms_eval, _ = time_ms(lambda: gcuda.group_eval_lists_cuda(
+                    pos_new, ss.pos, ss.mass, tree, tiles, lists, params), 5)
+                times.append(f"{label}: walk kernel {ms_walk:.3f} ms, evaluation kernel "
+                             f"{ms_eval:.3f} ms")
+            regs = re.findall(r"Used (\d+) registers", log)
+            spills = re.findall(r"(\d+) bytes spill stores", log)
+            print(f"sweep {var or 'as built'}: {'; '.join(times)}; registers {regs}, spill "
+                  f"stores {spills}; [{smi}]")
+    finally:
+        gcuda.SOURCE, gcuda._lib = base, None
+        twg.LIST_CHUNK = gcuda.LIST_CHUNK = chunk
+    tp, ss, tree, tiles, pos_new, params = scenes["uniform 4M"]
+    # latency or issue: the walk kernel over the first half and quarter of
+    # the tiles (one wave either way)
+    nt = int((tiles.piece_len > 0).sum())
+    for part in (1, 2, 4):
+        sub = tiles._replace(t_cap=nt // part, piece_start=tiles.piece_start[: nt // part],
+                             piece_len=tiles.piece_len[: nt // part])
+        ms_walk, _ = time_ms(lambda: gcuda.group_walk_lists_cuda(pos_new, tree, sub, tp), 5)
+        print(f"sweep walk kernel over {nt // part} of {nt} tiles: {ms_walk:.3f} ms; [{smi}]")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="group_walk_study")
+    parser.add_argument("--fused", type=Path, help="source of the fused kernel (e0dd89f)")
+    parser.add_argument("--sweep", action="store_true", help="sweep the launch constants")
+    parser.add_argument("--sass-dir", help="write the SASS listings here")
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    if not torch.cuda.is_available():
+        print("group_walk_study needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = _smi("name,power.limit")
+    mhz = float(_smi("clocks.max.sm"))
+    print(f"{smi}; maximum SM clock {mhz:.0f} MHz")
+    lib, log = gcuda.build()
+    print("\n".join(f"ptxas: {x.strip()}" for x in log.splitlines()
+                    if re.search(r"registers|spill", x)))
+    print_sass("new", lib, "group_eval_kernel", args.sass_dir)
+    if args.fused:
+        study_fused(args.fused, dev, smi, mhz, args.sass_dir)
+    if args.sweep:
+        sweep(dev, smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

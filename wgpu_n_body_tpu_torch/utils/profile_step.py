@@ -9,11 +9,12 @@ step. Prints:
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
   the GPU timeline, each kernel attributed to the innermost range that holds
   it (``morton_sort``, ``tree_build`` and ``theta_walk`` from ``TreeSim``;
-  inside the group walk ``group_tiles``, ``group_kernel`` (B4) and
-  ``group_fallback`` (B3 over the deferred mask, and the merge) from
-  ``group_tree_forces_cuda``; the rest is the leapfrog), busy time as the
-  union of kernel intervals, the idle share of the window, the top kernels,
-  and the peak device memory;
+  inside the group walk ``group_tiles``, ``group_kernel`` (B4: the walk
+  kernel in ``group_walk``, the source table and the evaluation kernel in
+  ``group_eval``) and ``group_fallback`` (B3 over the deferred mask, and
+  the merge) from ``group_tree_forces_cuda``; the rest is the leapfrog),
+  busy time as the union of kernel intervals, the idle share of the
+  window, the top kernels, and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
 Needs a CUDA device; exits non-zero without one.
 """
@@ -36,7 +37,7 @@ from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
 STEPS = 3  # in the profiler window
 RANGES = ("morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
-          "group_fallback")  # outer to inner
+          "group_walk", "group_eval", "group_fallback")  # outer to inner
 
 
 def _smi(query: str) -> str:
