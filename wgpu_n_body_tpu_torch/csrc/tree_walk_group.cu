@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "pair_term.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -235,26 +237,8 @@ __global__ void __launch_bounds__(kWalkWarps * 32) group_lists_kernel(
 
 // ---- (b) the evaluation ----
 
-// One receiver-row pair: w = m*g*dt * inv_r / (r2 * r + e), acc += w * d.
-// With SELF, a self pair (r2 == 0) is evaluated at r2 = 1 and weighted 0.
-template <bool SELF>
-__device__ __forceinline__ void pair_term(const float4 s, const float px, const float py,
-                                          const float pz, const bool self, const float e,
-                                          float& ax, float& ay, float& az) {
-  const float dx = s.x - px;
-  const float dy = s.y - py;
-  const float dz = s.z - pz;
-  const float r2 = dx * dx + dy * dy + dz * dz;
-  const float r2s = SELF && self ? 1.0f : r2;
-  float inv_r, w;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv_r) : "f"(r2s));
-  asm("div.approx.ftz.f32 %0, %1, %2;" : "=f"(w) : "f"(s.w * inv_r), "f"(r2s * (r2s * inv_r) + e));
-  if (SELF) w = self ? 0.0f : w;
-  ax += w * dx;
-  ay += w * dy;
-  az += w * dz;
-}
-
+// One receiver-row pair is pair_term (csrc/pair_term.cuh, shared with the
+// all-pairs kernels).
 constexpr int kGroups = kChunk / 32;
 
 template <int PER>

@@ -8,16 +8,19 @@ Counterpart of ``wgpu_n_body_tpu/ops/naive_ref.py`` (naive.wgsl:23-48):
 written in the order of operations of the all-pairs kernel
 (``wgpu_n_body_tpu/ops/naive_pallas.py::_kernel`` and its CUDA port
 ``csrc/naive_forces.cu``), so that the kernel and this function differ
-only in summation order. Only the self pair (global i == j) is skipped;
-two *distinct* coincident particles give NaN, as WGSL's normalize(0).
+only in summation order, FMA contraction and the kernel's approximate
+(flush-to-zero) rsqrt and divide. Only the self pair (global i == j) is
+skipped; two *distinct* coincident particles give NaN, as WGSL's
+normalize(0).
 
 ``row_offset`` is the global index of receiver row 0, for receivers that
 are a slice of the sources (the kernel's shard case), or a (N_recv,)
 tensor of each receiver's global index (a sample of the sources).
 
 ``naive_forces_mxu_ref`` is the plain version of the factored kernel
-(``naive_pallas.py::_kernel_mxu``, port ``csrc/naive_forces_mxu.cu``): the
-same weights, accumulated as Σw·p_old_j − p_new_i·Σw. The sums are
+(``naive_pallas.py::_kernel_mxu``; the factored form of
+``csrc/naive_forces.cu``): the same weights, accumulated as
+Σw·p_old_j − p_new_i·Σw. The sums are
 elementwise products reduced by ``torch.sum``, not a matrix product, so no
 TF32 setting can touch them (the TPU kernel's dot runs at
 ``Precision.HIGHEST``).

@@ -44,15 +44,17 @@ class NaiveParams:
     """Extra params for the naive O(N^2) backend.
 
     Attributes:
-      tile_i: receivers per thread block of the all-pairs kernel (one
-        thread each; a multiple of 32, at most 1024).
-      tile_j: sources per shared-memory tile of the kernel (16 bytes each;
-        at most 3072, the 48 KB a block gets without opting in).
+      tile_i: receivers per thread block of the all-pairs kernel (a
+        multiple of 32, at most 1024; up to 128 threads hold one, two,
+        four or eight receivers each).
+      tile_j: sources summed into one partial before it joins a
+        receiver's total (the two-level summation that keeps the f32
+        error near the TPU kernel's; at most 3072).
       use_pallas: True selects the hand-written kernel for CUDA tensors
         (the name is kept so checkpoints of both packages agree); False
         uses the plain torch force on every device.
-      mxu: opt-in factored-accumulation kernel (``csrc/naive_forces_mxu.cu``,
-        port of ``naive_pallas._kernel_mxu``): the same per-pair weights,
+      mxu: opt-in factored accumulation (``csrc/naive_forces.cu``'s
+        factored form, port of ``naive_pallas._kernel_mxu``): the same per-pair weights,
         summed as Σw·p_j − p_i·Σw. Less accurate than the dx-form default
         (the JAX package documents ~2e-4 vs ~2e-5 p99 relative error in
         f32). Only read when ``use_pallas`` is True.

@@ -298,18 +298,21 @@ def study_fused(path, dev, smi, mhz, sass_dir):
         torch.cuda.empty_cache()
 
 
-def variant_source(overrides: dict) -> Path:
-    """A copy of the kernels' source with other values of its launch
-    constants (each ``constexpr int kName = value;`` found exactly once)."""
+def variant_source(overrides: dict, source: Path | None = None) -> Path:
+    """A copy of a kernel source (the group walk's by default) with other
+    values of its launch constants (each ``constexpr int kName = value;``
+    found exactly once), in the build directory; the headers it includes
+    stay on nvcc's include path (``cuda_build.CSRC``)."""
+    source = gcuda.SOURCE if source is None else source
     if not overrides:
-        return gcuda.SOURCE
-    text = gcuda.SOURCE.read_text()
+        return source
+    text = source.read_text()
     for name, value in overrides.items():
         text, k = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
         if k != 1:
-            raise SystemExit(f"{gcuda.SOURCE.name} defines {name} {k} times, not once")
+            raise SystemExit(f"{source.name} defines {name} {k} times, not once")
     tag = "_".join(f"{k}{v}" for k, v in overrides.items())
-    path = gcuda.BUILD_DIR / f"tree_walk_group_{tag}.cu"
+    path = gcuda.BUILD_DIR / f"{source.stem}_{tag}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(text)
     return path

@@ -1,10 +1,12 @@
-"""Where the time goes in one TreeSim step on a CUDA card.
+"""Where the time goes in one TreeSim (or NaiveSim) step on a CUDA card.
 
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] [--walk per_particle]
+    python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim naive
 
 N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
-defaults (uniform scene, θ=0.75). Every number comes from ``TreeSim``'s own
-step. Prints:
+defaults (uniform scene, θ=0.75); with ``--sim naive`` to 262144, the naive
+headless size (the all-pairs kernel B1). Every number comes from the
+simulator's own step. Prints:
 - the wall of 5 synchronised steps, with the SM clock and power;
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
   the GPU timeline, each kernel attributed to the innermost range that holds
@@ -16,6 +18,7 @@ step. Prints:
   busy time as the union of kernel intervals, the idle share of the
   window, the top kernels, and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
+A naive step's kernels all count to its ``naive_step`` range.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -32,11 +35,11 @@ import time
 import torch
 
 from wgpu_n_body_tpu_torch.inits import uniform_init
-from wgpu_n_body_tpu_torch.models import TreeSim
+from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
 STEPS = 3  # in the profiler window
-RANGES = ("morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
+RANGES = ("naive_step", "morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
           "group_walk", "group_eval", "group_fallback")  # outer to inner
 
 
@@ -73,7 +76,8 @@ def kernel_breakdown(trace_events):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="profile_step")
-    parser.add_argument("n", type=int, nargs="?", default=4_000_000)
+    parser.add_argument("n", type=int, nargs="?")
+    parser.add_argument("--sim", choices=["tree", "naive"], default="tree")
     parser.add_argument("--walk", choices=["group", "per_particle"], default="group")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -81,10 +85,15 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(_smi("name,power.limit"))
-    params = SimParams(particle_num=args.n)
-    tp = TreeParams(walk=args.walk)
-    print(f"TreeSim N={args.n} theta={tp.theta} walk={tp.walk}")
-    sim = TreeSim(params, tp)
+    n = args.n or (262144 if args.sim == "naive" else 4_000_000)
+    params = SimParams(particle_num=n)
+    if args.sim == "naive":
+        print(f"NaiveSim N={n}")
+        sim = NaiveSim(params)
+    else:
+        tp = TreeParams(walk=args.walk)
+        print(f"TreeSim N={n} theta={tp.theta} walk={tp.walk}")
+        sim = TreeSim(params, tp)
     step = sim.make_step()
     state = step(uniform_init(torch.Generator().manual_seed(0), params, dev))  # warm
     torch.cuda.synchronize()
@@ -95,7 +104,7 @@ def main(argv=None) -> int:
         state = step(state)
         torch.cuda.synchronize()
         walls.append(round((time.perf_counter() - t0) * 1e3, 3))
-    print("TreeSim step wall ms", walls, _smi("clocks.sm,power.draw,power.limit"))
+    print(f"{type(sim).__name__} step wall ms", walls, _smi("clocks.sm,power.draw,power.limit"))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -118,7 +127,8 @@ def main(argv=None) -> int:
     for (where, name), us in sorted(by_kernel.items(), key=lambda x: -x[1])[:15]:
         print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    print("diagnose", sim.diagnose(state))
+    if args.sim == "tree":
+        print("diagnose", sim.diagnose(state))
     return 0
 
 
