@@ -23,20 +23,29 @@ Phases (any failure exits non-zero):
  5. run ``cli headless --sim naive --n 262144 --steps 10`` in-process and
     check that each step launched B1 once and the state is sane;
  6. three NaiveSim steps at N=16384, kernel vs plain version;
- 7. report the tree walks' builds (B3, B4): registers and spills;
+ 7. report the tree kernels' builds (B3, B4, B5): registers and spills;
  8. B2 against its plain factored version: small ragged inputs and
     shards, N=262144 against float64 (as 3), timed beside the plain version, and
     ``NaiveSim(mxu=True)`` through ``OfflineHeadless`` at N=262144;
     two launches bit-equal;
- 9. the Morton sort and octree build on the card against the same build
-    on the CPU at N=262144 (keys, permutation and arena integers equal);
+ 9. the Morton sort and the plain octree build on the card against the same
+    build on the CPU at N=262144 (keys, permutation and arena integers
+    equal), and the build kernels (B5) against the plain build on the card
+    (integers equal, ``nodes_f32`` within rtol 1e-6 on every row): that scene
+    at buckets 1, 16, 32 and with an overflowing arena, the small and odd
+    inputs of ``ops/tree_build_cases.py``, the main path's N=4,000,000
+    uniform state (timed beside the plain version and the bytes bound, two
+    builds bit-equal) and the N=2,000,000 disc scene. The plain version is
+    held both on the kernels' float64 prefix sums and on its own; the
+    kernels' sums against ``torch.cumsum``'s;
 10. B3 against the plain walk on 4096 sampled receivers of the N=4M tree,
     both against float64 all-pairs, theta=0 against B1, the overfull-cell
     and overflow cases, and the full N=4M walk timed;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
-    launched B3 once (and the diagnostics' group walk B4 and B3 once), the
-    state is sane and the checkpoint reloads;
+    launched the build (B5) and B3 once (and the diagnostics one build more
+    and its group walk, B4 and B3 once), the state is sane and the
+    checkpoint reloads;
 12. the group walk kernels (B4: a walk kernel writing each tile's list of
     ids, an evaluation kernel summing them) against their plain versions on
     every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
@@ -48,14 +57,14 @@ Phases (any failure exits non-zero):
     the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
     measurement config), where no tile may find the pool empty (12f);
 13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
-    group walk, N=4,000,000) and check that each step launched both B4
-    kernels once and B3 once (its fallback over the deferred mask), the
-    diagnostics (nothing deferred, none for the pool), the checkpoint and
-    the mass multiset.
+    group walk, N=4,000,000) and check that each step launched the build
+    (B5: its four kernels, one launcher call) once, both B4 kernels once and
+    B3 once (its fallback over the deferred mask), the diagnostics (nothing
+    deferred, none for the pool), the checkpoint and the mass multiset.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
-3.35 TB/s. ``utils/group_walk_study.py`` holds B4's development
+3.35 TB/s (the bytes bind B5, the special-function ops the others). ``utils/group_walk_study.py`` holds B4's development
 measurements (the replaced fused kernel beside the new ones, its phase
 split, SASS counts, a launch-shape sweep); this script does not run them.
 The last two lines are a JSON record of the kernels and ``{"ok": true, ...}``.
@@ -202,11 +211,13 @@ def bound(count, mufu_each, flops_each, nbytes, mhz):
 
 
 def sorted_scene(state, params, tp):
-    """(sorted state, tree, keys, drifted positions) of one tree step."""
-    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
+    """(sorted state, tree, keys, drifted positions) of one tree step, built
+    as TreeSim builds it on the card (the kernels of B5)."""
+    from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 
     ss, bound_, keys = morton_sort(state, tp.max_depth)
-    tree = build_tree(ss, keys, bound_, tp)
+    tree = build_tree_cuda(ss, keys, bound_, tp)
     pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
     return ss, tree, keys, pos_new
 
@@ -223,18 +234,31 @@ def pool_of(gcuda, n_chunks):
 
 
 def zero_launch_counts():
-    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
+    from wgpu_n_body_tpu_torch.ops import (
+        naive_cuda,
+        tree_build_cuda,
+        tree_walk_cuda,
+        tree_walk_group_cuda,
+    )
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
+    tree_build_cuda.LAUNCHES = 0
 
 
 def launch_counts():
-    from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
+    """Launches since ``zero_launch_counts``; B5 counts builds, each of which
+    enqueues its three kernels once."""
+    from wgpu_n_body_tpu_torch.ops import (
+        naive_cuda,
+        tree_build_cuda,
+        tree_walk_cuda,
+        tree_walk_group_cuda,
+    )
 
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
-            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL}
+            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES}
 
 
 #: The all-pairs kernels' smaller sizes: the visualize scene and the size
@@ -444,7 +468,7 @@ def phase_b2(dev, smi, mhz):
     zero_launch_counts()
     runner.run(steps=STEPS_MXU, log_fn=lambda line: None)
     counts = launch_counts()
-    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0, "B4 eval": 0}:
+    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0, "B4 eval": 0, "B5": 0}:
         fail(f"NaiveSim(mxu=True) {STEPS_MXU} steps launched {counts}")
     plan = naive_cuda.LAST_PLAN_MXU  # the plan of the run's last launch
     if not all(torch.isfinite(t).all() for t in runner.state[:3]):
@@ -470,11 +494,76 @@ def phase_b2(dev, smi, mhz):
     }
 
 
-def phase_build(dev):
-    """9. Morton sort and octree build on the card against the CPU."""
-    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_order, morton_sort
-    from wgpu_n_body_tpu_torch.params import TreeParams, state_from_numpy
+def compare_builds(what, k, p):
+    """The kernels' arena ``k`` against the plain version's ``p`` of the same
+    input on the card: integers and scalars equal, ``nodes_f32`` within rtol
+    1e-6 on every row (the unused tail and the sentinel included). Returns
+    (max |k - p| over nodes_f32, rows of nodes_f32 that are not bit-equal)."""
+    for name in ("skip", "first", "count", "num_nodes", "overflowed", "root_width"):
+        a, b = getattr(k, name), getattr(p, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            fail(f"9 {what}: the kernels' {name} differs from the plain version's "
+                 f"({a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)})")
+    if k.nodes_f32.shape != p.nodes_f32.shape or k.octets is not None:
+        fail(f"9 {what}: the kernels' arena has another shape than the plain version's")
+    torch.testing.assert_close(k.nodes_f32, p.nodes_f32, rtol=1e-6, atol=0,
+                               msg=lambda m: f"9 {what}: nodes_f32 kernels vs plain\n{m}")
+    differ = int((k.nodes_f32 != p.nodes_f32).any(1).sum())
+    return float((k.nodes_f32 - p.nodes_f32).abs().max()), differ
 
+
+def held_build(what, ss, keys, bound_, tp, own_scan=True):
+    """One input through the kernels and the plain version on the card.
+
+    The plain version is held twice: given the kernels' float64 prefix sums
+    (so only the scans' summation order is shared: every hand-written search,
+    count and total is compared, and the arenas should come out bit-equal),
+    and, with ``own_scan``, with its own ``torch.cumsum`` sums. Both at
+    integers equal and nodes_f32 within rtol 1e-6. The kernels' sums are
+    held against the library's within 1e-12 of each column's sum of
+    magnitudes (float64 sums in another order). Returns (the kernels' arena,
+    a line for the log, max |k - p| against the plain version's own scan,
+    the largest difference of the two scans)."""
+    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, prefix_sums
+    from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda_with_sums
+
+    k, sums = build_tree_cuda_with_sums(ss, keys, bound_, tp)
+    p_same = build_tree(ss, keys, bound_, tp, sums=sums)
+    torch.cuda.synchronize()
+    err_same, differ_same = compare_builds(f"{what}, the kernels' sums", k, p_same)
+    lib = prefix_sums(ss)
+    scan_err = (sums - lib).abs().amax(1)
+    scan_gate = 1e-12 * lib.diff(dim=1).abs().sum(1)
+    if not bool((scan_err <= scan_gate).all()):
+        fail(f"9 {what}: the kernels' prefix sums are {scan_err.tolist()} from torch.cumsum's "
+             f"(gates {scan_gate.tolist()})")
+    line = (f"kernels == plain on the kernels' sums for skip/first/count/num_nodes "
+            f"{int(k.num_nodes)} of cap {k.skip.shape[0] - 1}, overflowed {bool(k.overflowed)}, "
+            f"nodes_f32 within rtol 1e-6 (max|k-p| {err_same:.3e}, {differ_same} rows not "
+            f"bit-equal); the kernels' float64 sums within {float(scan_err.max()):.3e} of "
+            f"torch.cumsum's")
+    err = None
+    if own_scan:
+        p = build_tree(ss, keys, bound_, tp)
+        torch.cuda.synchronize()
+        err, differ = compare_builds(f"{what}, the plain version's own sums", k, p)
+        line += (f"; against the plain version on its own sums the same gates hold "
+                 f"(max|k-p| {err:.3e}, {differ} rows not bit-equal)")
+    return k, line, err, float(scan_err.max())
+
+
+def phase_build(dev, smi, mhz):
+    """9. The Morton sort and the plain build on the card against the CPU,
+    and the build kernels (B5) against the plain build on the card."""
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.ops import tree_build_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_order, morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_build_cases import build_cases
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
+
+    build_k = tree_build_cuda.build_tree_cuda
+
+    # -- 9a. the plain version: card against CPU at N=262144 -------------------
     rng = np.random.default_rng(21)
     n = N_MAIN
     pos = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
@@ -485,9 +574,9 @@ def phase_build(dev):
     res = []
     for where in ("cpu", dev):
         st = state_from_numpy(pos, zeros, zeros, mass, where)
-        perm, bound, keys = morton_order(st.pos, tp.max_depth)
+        perm, bound_, keys = morton_order(st.pos, tp.max_depth)
         ss, _, _ = morton_sort(st, tp.max_depth)
-        res.append((perm, bound, keys, build_tree(ss, keys, bound, tp)))
+        res.append((perm, bound_, keys, build_tree(ss, keys, bound_, tp)))
     (c_perm, c_bound, c_keys, c_tree), (g_perm, g_bound, g_keys, g_tree) = res
     for name, a, b in (("bound", c_bound, g_bound), ("hi", c_keys[0], g_keys[0]),
                        ("lo", c_keys[1], g_keys[1]), ("perm", c_perm, g_perm),
@@ -499,12 +588,138 @@ def phase_build(dev):
             fail(f"tree build on the card differs from the CPU in {name}")
     torch.testing.assert_close(g_tree.nodes_f32.cpu(), c_tree.nodes_f32, rtol=1e-6, atol=0)
     st = state_from_numpy(pos, zeros, zeros, mass, dev)
-    ms_sort, (ss, bound, keys) = time_ms(lambda: morton_sort(st, tp.max_depth), 3)
-    ms_build, _ = time_ms(lambda: build_tree(ss, keys, bound, tp), 3)
-    print(f"9 tree build N={n} (1% duplicate positions): card == CPU for keys, permutation, "
+    ms_sort, (ss, bound_, keys) = time_ms(lambda: morton_sort(st, tp.max_depth), 3)
+    ms_build, _ = time_ms(lambda: build_tree(ss, keys, bound_, tp), 3)
+    print(f"9a plain build N={n} (1% duplicate positions): card == CPU for keys, permutation, "
           f"skip/first/count, num_nodes {int(g_tree.num_nodes)} of cap "
           f"{g_tree.nodes_f32.shape[0] - 1}; nodes_f32 within rtol 1e-6; "
-          f"card sort {ms_sort:.3f} ms, build {ms_build:.3f} ms")
+          f"card sort {ms_sort:.3f} ms, plain build {ms_build:.3f} ms")
+
+    # -- 9b. the kernels against the plain version on that scene ---------------
+    # buckets 1, 16, 32, and an arena a twentieth of N that overflows
+    for kw in ({"leaf_bucket": 1}, {"leaf_bucket": 16}, {"leaf_bucket": 32},
+               {"leaf_bucket": 16, "node_capacity_factor": 0.05}):
+        tpb = TreeParams(walk="per_particle", **kw)
+        k, line, _, _ = held_build(f"N={n} {kw}", ss, keys, bound_, tpb)
+        if bool(k.overflowed) != ("node_capacity_factor" in kw):
+            fail(f"9b {kw}: overflowed is {bool(k.overflowed)}")
+        print(f"9b B5 N={n} {kw}: {line}")
+    del st, ss, keys, k, res, c_tree, g_tree
+
+    # -- 9c. the small and odd inputs of the CPU tests --------------------------
+    for case in build_cases():
+        tpc = TreeParams(walk="per_particle", **case.tree_kw)
+        ssc, bound_c, keys_c = morton_sort(state_from_numpy(**case.state, device=dev),
+                                           tpc.max_depth)
+        k, line, _, _ = held_build(case.name, ssc, keys_c, bound_c, tpc)
+        m = int(k.num_nodes)
+        print(f"9c B5 {case.name} (n={ssc.pos.shape[0]}, {case.tree_kw}): "
+              f"{int((k.nodes_f32[:m, NO_CHILD] == 2).sum())} overfull cells; {line}")
+
+    def twice(what, ss, keys, bound_, tp, k):
+        again = build_k(ss, keys, bound_, tp)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k[:7], again[:7]))
+        if not same or not torch.equal(k.nodes_f32.view(torch.int32),
+                                       again.nodes_f32.view(torch.int32)):
+            fail(f"9 {what}: two builds of the same input differ")
+
+    # -- 9d. the main path's N=4M uniform state, timed --------------------------
+    params, tp4 = SimParams(particle_num=N_TREE), TreeParams()  # depth 16, bucket 16
+    state = uniform_init(torch.Generator().manual_seed(0), params, dev)
+    ss, bound_, keys = morton_sort(state, tp4.max_depth)
+    del state
+    k, line, max_abs, _ = held_build(f"N={N_TREE}", ss, keys, bound_, tp4)
+    twice(f"N={N_TREE}", ss, keys, bound_, tp4, k)
+    del k
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms_k, k = time_ms(lambda: build_k(ss, keys, bound_, tp4), 10)
+    peak_k = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    for _ in range(10):
+        build_k(ss, keys, bound_, tp4)
+    host_ms = (time.perf_counter() - t0) * 100  # the wrapper's enqueue alone, per build
+    torch.cuda.synchronize()
+    m, cap = int(k.num_nodes), k.skip.shape[0] - 1
+    del k
+    torch.cuda.reset_peak_memory_stats()
+    ms_p, p = time_ms(lambda: build_tree(ss, keys, bound_, tp4), 3)
+    peak_p = torch.cuda.max_memory_allocated() - base
+    del p
+    nbytes = tree_build_cuda.build_bytes(N_TREE, cap)
+    # the operations are a few dozen per live row (the totals' float64
+    # differences, three divides): far below the bytes' time
+    b5_bound = bound(float(m), 0, 40, nbytes, mhz)
+    print(f"9d B5 N={N_TREE} uniform, depth {tp4.max_depth}, bucket {tp4.leaf_bucket}: {line}; "
+          f"two builds bit-equal; kernels {ms_k:.3f} ms per build by CUDA events over 10 builds "
+          f"(the wrapper's host time to enqueue one: {host_ms:.3f} ms), plain {ms_p:.3f} ms; bound "
+          f"{b5_bound['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s): kernels at "
+          f"{b5_bound['bound_ms'] / ms_k:.2%}, plain at {b5_bound['bound_ms'] / ms_p:.2%}; peak "
+          f"device memory above the sorted state {peak_k / 1e9:.3f} GB (plain "
+          f"{peak_p / 1e9:.3f} GB); [{smi}]")
+    del ss, keys
+    torch.cuda.empty_cache()
+
+    # -- 9e. the N=2M disc scene of phase 12f ------------------------------------
+    # Half its bodies lie in the plane z = 0, so whole cells have a z total
+    # of exactly 0 and every scan leaves its own rounding there: no relative
+    # tolerance holds between two scans (torch.cumsum's own sums differ from
+    # call to call here). The kernels are held to the plain version on the
+    # kernels' sums, their sums to the library's, and the plain version on
+    # its own sums to what the two scans' difference allows.
+    n2 = 2_000_000
+    tp5 = TreeParams(theta=0.5)
+    ss, bound_, keys = morton_sort(
+        disc_init(torch.Generator().manual_seed(0), SimParams(particle_num=n2), dev),
+        tp5.max_depth)
+    k, line, _, scan_err = held_build(f"N={n2} disc", ss, keys, bound_, tp5, own_scan=False)
+    twice(f"N={n2} disc", ss, keys, bound_, tp5, k)
+    p = build_tree(ss, keys, bound_, tp5)
+    p2 = build_tree(ss, keys, bound_, tp5)
+    torch.cuda.synchronize()
+    for name in ("skip", "first", "count", "num_nodes", "overflowed"):
+        if not torch.equal(getattr(k, name), getattr(p, name)):
+            fail(f"9e the kernels' {name} differs from the plain version's")
+    atol = 4.0 * scan_err / float(ss.mass.min())
+    torch.testing.assert_close(k.nodes_f32, p.nodes_f32, rtol=1e-6, atol=atol)
+    outside = int(((k.nodes_f32 - p.nodes_f32).abs() > 1e-6 * p.nodes_f32.abs()).sum())
+    plain_rows = int((p.nodes_f32 != p2.nodes_f32).any(1).sum())
+    ms_k2, _ = time_ms(lambda: build_k(ss, keys, bound_, tp5), 5)
+    ms_p2, _ = time_ms(lambda: build_tree(ss, keys, bound_, tp5), 2)
+    print(f"9e B5 N={n2} disc: {int((k.nodes_f32[:, NO_CHILD] == 2).sum())} overfull cells; "
+          f"{line}; two builds bit-equal (two plain builds differ in {plain_rows} rows); "
+          f"against the plain version on its own sums integers equal, nodes_f32 within rtol "
+          f"1e-6 + atol {atol:.3e} (four times the scans' difference over the least mass; "
+          f"{outside} elements outside rtol 1e-6 alone, max|k-p| "
+          f"{float((k.nodes_f32 - p.nodes_f32).abs().max()):.3e}); kernels {ms_k2:.3f} ms, "
+          f"plain {ms_p2:.3f} ms; [{smi}]")
+    del ss, keys, k, p, p2
+    torch.cuda.empty_cache()
+    return {
+        "name": "tree_build",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/tree_build.cu",
+        "replaces": "wgpu_n_body_tpu/ops/tree_build.py:175",
+        "launches": 0,  # set from the main path's run (phase 13)
+        "max_abs_err": max_abs,
+        "ms": ms_k,
+        "plain_ms": ms_p,
+        **b5_bound,
+        "bound_count": nbytes,
+        "bound_count_unit": "bytes",
+        "library_ms": None,
+        "library": "none: no single PyTorch call builds an octree",
+        "n": N_TREE,
+        "nodes": m,
+        "host_enqueue_ms": host_ms,
+        "peak_bytes": peak_k,
+        "plain_peak_bytes": peak_p,
+        "disc_2m_ms": ms_k2,
+        "disc_2m_plain_ms": ms_p2,
+    }
 
 
 def walk_interactions(pos, tree, tp):
@@ -680,9 +895,11 @@ def phase_tree_cli(dev, smi):
         zero_launch_counts()
         out = run_cli(cli, argv)
         counts = launch_counts()
-        # one B3 launch per step; the diagnostics line at the last step runs
-        # one group walk (B4, then B3 over its deferred mask), as in JAX
-        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1, "B4 eval": 1}:
+        # one build (B5) and one B3 launch per step; the diagnostics line at
+        # the last step builds once more and runs one group walk (B4, then B3
+        # over its deferred mask), as in JAX
+        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1, "B4 eval": 1,
+                      "B5": STEPS + 1}:
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -697,7 +914,8 @@ def phase_tree_cli(dev, smi):
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the tree run changed the mass multiset")
     print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches "
-          f"in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; [{smi}]")
+          f"and {counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; "
+          f"[{smi}]")
     return counts["B3"]
 
 
@@ -989,11 +1207,11 @@ def phase_group_cli(dev, smi):
         out = run_cli(cli, argv)
         counts = launch_counts()
         diags = re.findall(r"'walk_deferred': (\d+)", out)
-        # each step walks once (B4, then B3 over its deferred mask), and so
-        # does each diagnostics line
+        # each step builds once (B5) and walks once (B4, then B3 over its
+        # deferred mask), and so does each diagnostics line
         walks = STEPS + len(diags)
         if len(diags) != 1 or counts != {"B1": 0, "B2": 0, "B3": walks, "B4": walks,
-                                         "B4 eval": walks}:
+                                         "B4 eval": walks, "B5": walks}:
             fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1011,11 +1229,11 @@ def phase_group_cli(dev, smi):
     pool = re.findall(r"'walk_pool_deferred': (\d+)", out)
     if pool != ["0"]:
         fail(f"the N=4M diagnostics report pool deferrals {pool}")
-    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B4 walk "
-          f"{counts['B4']} and evaluation {counts['B4 eval']}, B3 {counts['B3']} launches in "
-          f"{STEPS} steps + {len(diags)} diagnostics (walk_deferred {diags[0]}, "
-          f"walk_pool_deferred {pool[0]}), {us:.1f} us/step; [{smi}]")
-    return counts["B4"], counts["B4 eval"]
+    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B5 builds "
+          f"{counts['B5']}, B4 walk {counts['B4']} and evaluation {counts['B4 eval']}, B3 "
+          f"{counts['B3']} launches in {STEPS} steps + {len(diags)} diagnostics (walk_deferred "
+          f"{diags[0]}, walk_pool_deferred {pool[0]}), {us:.1f} us/step; [{smi}]")
+    return counts["B4"], counts["B4 eval"], counts["B5"]
 
 
 def main() -> None:
@@ -1027,7 +1245,12 @@ def main() -> None:
         from wgpu_n_body_tpu_torch import cli
         from wgpu_n_body_tpu_torch.inits import uniform_init
         from wgpu_n_body_tpu_torch.models import NaiveSim
-        from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda, tree_walk_group_cuda
+        from wgpu_n_body_tpu_torch.ops import (
+            naive_cuda,
+            tree_build_cuda,
+            tree_walk_cuda,
+            tree_walk_group_cuda,
+        )
         from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
         from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
         from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
@@ -1048,11 +1271,12 @@ def main() -> None:
 
     # -- 2. build every kernel, one nvcc per source, all at once ------------
     t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
     builds = {
         "B1/B2": pool.submit(naive_cuda.build),
         "B3": pool.submit(tree_walk_cuda.build),
         "B4": pool.submit(tree_walk_group_cuda.build),
+        "B5": pool.submit(tree_build_cuda.build),
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -1163,7 +1387,7 @@ def main() -> None:
         counts = launch_counts()
         launches = counts["B1"]
         plan = naive_cuda.LAST_PLAN  # the plan of the run's last launch
-        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0, "B4 eval": 0}:
+        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0, "B4 eval": 0, "B5": 0}:
             fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
@@ -1211,22 +1435,33 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
-    for key in ("B3", "B4"):
+    tree_ptxas = {}
+    for key in ("B3", "B4", "B5"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
+        tree_ptxas[key] = ptxas_kernels(blog)
+    for name, regs, stores, loads in tree_ptxas["B5"]:
+        print(f"7 B5 ptxas {re.search(r'tree_[a-z]+_kernel', name).group(0)}: {regs} registers, "
+              f"{stores} bytes spill stores, {loads} bytes spill loads")
 
     b2 = phase_b2(dev, smi, mhz)
     b2["registers"], b2["spill_store_bytes"] = regs_b2
     b2["small_n"] = [r for r in small_n if r["kernel"] == "B2"]
-    phase_build(dev)
+    b5 = phase_build(dev, smi, mhz)
+    # registers and spills of each of B5's kernels, by entry function (empty
+    # when the library was already built: no compiler output)
+    short = [(re.search(r"tree_[a-z]+_kernel", name).group(0), regs, stores)
+             for name, regs, stores, _ in tree_ptxas["B5"]]
+    b5["registers"] = {name: regs for name, regs, _ in short}
+    b5["spill_store_bytes"] = {name: stores for name, _, stores in short}
     b3 = phase_b3(dev, smi, mhz)
     b3["launches"] = phase_tree_cli(dev, smi)
     b4 = phase_b4(dev, smi, mhz)
-    b4["launches"], b4["launches_eval"] = phase_group_cli(dev, smi)
+    b4["launches"], b4["launches_eval"], b5["launches"] = phase_group_cli(dev, smi)
 
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
-    print(json.dumps({"kernels": [b1, b2, b3, b4]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

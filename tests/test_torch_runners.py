@@ -1,6 +1,7 @@
 """PyTorch port, runner layer: energy, step loop, trajectory, checkpoints
 (within the port and across packages) and the CLI, on the CPU."""
 
+import argparse
 import dataclasses
 import json
 import os
@@ -222,10 +223,51 @@ def test_cli_headless_tree_defaults_on_cpu(tmp_path, capsys):
 
 
 def test_cli_bench_on_cpu(capsys):
+    # no --sim: naive, then tree, at each size (the JAX CLI's default)
     assert cli.main(["bench", "--sizes", "64", "128", "--reps", "2", "--device", "cpu"]) == 0
     recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["n"] for r in recs] == [64, 128]
-    assert all(r["sim"] == "naive" and r["device"] == "cpu" and r["pairs_per_sec"] > 0 for r in recs)
+    assert [(r["sim"], r["n"]) for r in recs] == [
+        ("naive", 64), ("naive", 128), ("tree", 64), ("tree", 128)]
+    assert all(r["device"] == "cpu" and r["s_per_step"] > 0 for r in recs)
+    assert all((r["pairs_per_sec"] is None) == (r["sim"] == "tree") for r in recs)
+
+
+def test_cli_bench_returns_1_without_a_record(capsys):
+    parser_defaults = dict(sim="", n=8192, g=1e-6, e=1e-4, dt=0.016, init=None, theta=0.75,
+                           seed=0, no_pallas=False, tree_kw=[], devices=0, device="cpu", reps=1)
+    # an empty sweep (truthy, so the default sizes do not replace it)
+    args = argparse.Namespace(**parser_defaults, sizes=iter(()))
+    assert cli.cmd_bench(args) == 1
+    assert capsys.readouterr().out == ""
+    args = argparse.Namespace(**parser_defaults, sizes=[64])
+    assert cli.cmd_bench(args) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 2
+
+
+@pytest.mark.parametrize("walk", ["group", "per_particle"])
+def test_cli_walk_tile_above_512_on_cuda_exits_2(walk, capsys):
+    # rejected from the device's name alone, before any state is made or
+    # stepped: no GPU is needed to see it. Either walk: the diagnostics run
+    # the group walk whatever ``walk`` is.
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["headless", "--sim", "tree", "--n", "64", "--tree-kw", "walk_tile=1024",
+                  "--tree-kw", f"walk={walk!r}", "--device", "cuda"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "walk_tile must be at most 512 on a CUDA device, got 1024" in err
+
+
+def test_walk_tile_above_512_runs_on_cpu(capsys):
+    sim = TreeSim(SimParams(particle_num=64), TreeParams(walk_tile=1024))
+    with pytest.raises(ValueError, match="walk_tile must be at most 512"):
+        sim.init_state(torch.Generator().manual_seed(0), uniform_init, "cuda")
+    sim.check_device(torch.device("cpu"))
+    TreeSim(SimParams(particle_num=64), TreeParams(walk_tile=512)).check_device(
+        torch.device("cuda"))
+    argv = ["headless", "--sim", "tree", "--n", "600", "--steps", "1", "--device", "cpu",
+            "--tree-kw", "walk_tile=1024"]
+    assert cli.main(argv) == 0
+    assert "us/step over 1 steps" in capsys.readouterr().out
 
 
 def test_port_imports_without_jax():

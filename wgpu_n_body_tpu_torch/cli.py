@@ -3,13 +3,14 @@
 
     python -m wgpu_n_body_tpu_torch.cli headless --sim naive --n 262144
     python -m wgpu_n_body_tpu_torch.cli headless          # TreeSim, N=4M, group walk
-    python -m wgpu_n_body_tpu_torch.cli bench --sim naive,tree
+    python -m wgpu_n_body_tpu_torch.cli bench             # naive, then tree, at each size
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``
 and ``--sim tree`` (either walk), on one device. ``--sim tree-host``
 (ROADMAP A11) and ``--devices > 1`` (A13) exit with code 2, as does a
-malformed ``--tree-kw``.
+malformed ``--tree-kw`` or a ``TreeParams`` value the chosen device does
+not take (``walk_tile`` above 512 on CUDA).
 """
 
 from __future__ import annotations
@@ -83,9 +84,12 @@ def _build_sim(args) -> Simulator:
     except TypeError as exc:
         _usage_error(f"--tree-kw: {exc}")
     try:
-        return TreeSim(params, tp)
+        sim = TreeSim(params, tp)
+        # torch.device parses the name without touching a GPU
+        sim.check_device(torch.device(args.device))
     except ValueError as exc:
         _usage_error(f"--sim tree: {exc}")
+    return sim
 
 
 def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
@@ -146,14 +150,17 @@ def cmd_headless(args) -> int:
 
 def cmd_bench(args) -> int:
     """benches/benchmark.rs analog: sweep N in 8192*{1,2,4,8,16}, report
-    bodies/sec and pairs/sec, one JSON line per point. Each point times
-    ``reps`` steps queued back to back, closed by a device synchronise."""
+    bodies/sec and pairs/sec, one JSON line per point, for each backend
+    of ``--sim`` (a comma-separated list; empty, the default, means naive
+    then tree). Each point times ``reps`` steps queued back to back, closed
+    by a device synchronise. Returns 1 when no record was made."""
     device = _device(args.device)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     sizes = args.sizes or [8192 * k for k in (1, 2, 4, 8, 16)]
-    sims = args.sim.split(",")
+    sims = args.sim.split(",") if args.sim else ["naive", "tree"]
     if args.tree_kw and "tree" not in sims:
         _usage_error(f"--tree-kw applies to --sim tree only (got --sim {args.sim})")
+    made = 0
     for sim_name in sims:
         for n in sizes:
             a = argparse.Namespace(**vars(args))
@@ -178,7 +185,8 @@ def cmd_bench(args) -> int:
                 "bodies_per_sec": n / dt,
                 "pairs_per_sec": n * n / dt if sim_name == "naive" else None,
             }))
-    return 0
+            made += 1
+    return 0 if made else 1
 
 
 def main(argv=None) -> int:
@@ -209,7 +217,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_headless)
 
     p = sub.add_parser("bench", help="criterion-style sweep")
-    _add_sim_flags(p, n=8192, g=1e-6, e=1e-4, dt=0.016, sim="naive", sim_list=True)
+    _add_sim_flags(p, n=8192, g=1e-6, e=1e-4, dt=0.016, sim="", sim_list=True)
     p.add_argument("--sizes", type=int, nargs="*", default=None)
     p.add_argument("--reps", type=int, default=10)
     p.set_defaults(fn=cmd_bench)

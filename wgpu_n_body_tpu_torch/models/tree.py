@@ -4,7 +4,8 @@
 One step, all on the state's device:
 
     morton sort (== the reference's DFS particle reorder)
-    -> arena build (ops/tree_build.py)
+    -> arena build (ops/tree_build_cuda.py: the kernels of
+       csrc/tree_build.cu, or the plain ops/tree_build.py for a CPU state)
     -> leapfrog with the theta walk as the force
 
 Like the reference, TreeSim reorders particles every step and returns the
@@ -26,9 +27,10 @@ import torch
 
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
-from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
+from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
+from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
-from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import group_tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
 
@@ -51,12 +53,31 @@ class TreeSim(Simulator):
             raise ValueError(f"theta must be a number >= 0, got {tp.theta!r}")
         self._overflowed: torch.Tensor | None = None
 
+    def check_device(self, device: torch.device) -> None:
+        """Raise ValueError for parameters that ``device`` does not take.
+
+        The group walk's evaluation kernel holds a tile in one CTA, at most
+        ``MAX_TILE`` receivers, so a larger ``walk_tile`` is rejected for a
+        CUDA device here, before any state is made or stepped (``diagnose``
+        runs the group walk whatever ``walk`` is). The CPU path takes any
+        tile."""
+        tile = self.add_params.effective_walk_tile(self.sim_params.particle_num)
+        if device.type == "cuda" and tile > MAX_TILE:
+            raise ValueError(
+                f"walk_tile must be at most {MAX_TILE} on a CUDA device, got {tile} "
+                "(larger tiles run with --device cpu only)"
+            )
+
+    def init_state(self, generator, init_fn, device) -> ParticleState:
+        self.check_device(torch.device(device))
+        return super().init_state(generator, init_fn, device)
+
     def _sort_build(self, state: ParticleState):
         tp = self.add_params
         with trace_scope("morton_sort"):
             state_sorted, bound, keys = morton_sort(state, tp.max_depth)
         with trace_scope("tree_build"):
-            tree = build_tree(state_sorted, keys, bound, tp)
+            tree = build_tree_cuda(state_sorted, keys, bound, tp)
         return state_sorted, tree, keys
 
     def step_fn(self) -> StepFn:

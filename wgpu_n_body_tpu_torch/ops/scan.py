@@ -36,6 +36,24 @@ def cummin_last(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x, dim=-1).values
 
 
+def cumsum_ext(x: torch.Tensor) -> torch.Tensor:
+    """(n+1, c) float64 prefix sums of ``x`` (n, c) float32 along axis 0:
+    row j holds sum(x[:j]), row 0 is zero. Column by column, each a 1-D
+    device-wide scan."""
+    x64 = x.to(torch.float64).T.contiguous()  # one contiguous row per column
+    cs = torch.stack([torch.cumsum(col, 0) for col in x64], 1)
+    zero = torch.zeros((1, x.shape[1]), dtype=torch.float64, device=x.device)
+    return torch.cat([zero, cs])
+
+
+def ff_split(cs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 ``cs`` as (hi, lo) float32 with hi + lo = cs to about 2^-48:
+    the float32 rounding and the float32 rounding of the remainder."""
+    hi = cs.to(torch.float32)
+    lo = (cs - hi.to(torch.float64)).to(torch.float32)
+    return hi, lo
+
+
 def ff_cumsum_ext(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Prefix sums of ``x`` (n, c) float32 along axis 0 as (hi, lo).
 
@@ -45,10 +63,4 @@ def ff_cumsum_ext(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     (about 2^-53 relative to the running total per step, against the JAX
     float-float scan's ~2^-48).
     """
-    x64 = x.to(torch.float64).T.contiguous()  # one contiguous row per column
-    cs = torch.stack([torch.cumsum(col, 0) for col in x64], 1)
-    zero = torch.zeros((1, x.shape[1]), dtype=torch.float64, device=x.device)
-    cs = torch.cat([zero, cs])
-    hi = cs.to(torch.float32)
-    lo = (cs - hi.to(torch.float64)).to(torch.float32)
-    return hi, lo
+    return ff_split(cumsum_ext(x))

@@ -2,7 +2,9 @@
 ``wgpu_n_body_tpu/ops/tree_build.py`` (reference src/sims/tree.rs:417-602).
 
 The same construction as the JAX package, in torch ops (sort, scans,
-gathers), with results equal to it:
+gathers), with results equal to it. ``build_tree`` is the plain version of
+the build kernels (``ops/tree_build_cuda.py``, ``csrc/tree_build.cu``),
+which build a CUDA state's arena; the Morton sort here serves both:
 
 - After the Morton sort, the cell of a node at level L is a run of equal
   3L-bit key prefixes. A node is real iff it is the root or its parent run
@@ -101,13 +103,28 @@ def morton_sort(state: ParticleState, depth: int):
     return sorted_state, bound, keys
 
 
+def prefix_sums(state_sorted: ParticleState) -> torch.Tensor:
+    """(4, n+1) float64 prefix sums of mass, m*x, m*y, m*z (products in
+    float32): column j holds the sum over particles [0, j). Four 1-D
+    cumsums; on the card ``torch.cumsum`` does not return the same last
+    bits from call to call."""
+    pos, mass = state_sorted.pos, state_sorted.mass
+    return scan.cumsum_ext(torch.cat([mass[:, None], mass[:, None] * pos], 1)).T.contiguous()
+
+
 def build_tree(
     state_sorted: ParticleState,
     keys: tuple[torch.Tensor, torch.Tensor],
     bound: torch.Tensor,
     params: TreeParams,
+    sums: torch.Tensor | None = None,
 ) -> TreeArrays:
     """Build the DFS node arena from Morton-sorted particles.
+
+    ``sums``: the float64 prefix sums the node totals are differenced from,
+    as ``prefix_sums`` returns them (the default computes them so). A caller
+    that holds another build against this one passes that build's sums, so
+    the two do not differ by the scans' summation order.
 
     Run structure at all levels comes from one split-level pass (run
     starts nest across levels) and one flat scan of the (depth+1, n) run
@@ -175,7 +192,9 @@ def build_tree(
     del re_all
     count_k = re_k - pon
 
-    cs_hi, cs_lo = scan.ff_cumsum_ext(torch.cat([mass[:, None], mass[:, None] * pos], 1))
+    if sums is None:
+        sums = prefix_sums(state_sorted)
+    cs_hi, cs_lo = scan.ff_split(sums.T)
     tot = (cs_hi[re_k] - cs_hi[pon]) + (cs_lo[re_k] - cs_lo[pon])  # (cap, 4)
     del cs_hi, cs_lo
     is_single = count_k == 1

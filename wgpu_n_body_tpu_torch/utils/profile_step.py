@@ -16,7 +16,8 @@ simulator's own step. Prints:
   ``group_eval``) and ``group_fallback`` (B3 over the deferred mask, and
   the merge) from ``group_tree_forces_cuda``; the rest is the leapfrog),
   busy time as the union of kernel intervals, the idle share of the
-  window, the top kernels, and the peak device memory;
+  window, the top kernels and every kernel of ``tree_build`` (the four of
+  ``csrc/tree_build.cu``), and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
 A naive step's kernels all count to its ``naive_step`` range.
 Needs a CUDA device; exits non-zero without one.
@@ -124,8 +125,12 @@ def main(argv=None) -> int:
           f"window {1 - busy / wall_us:.4f}, of the kernel span {1 - busy / span:.4f}")
     for where, us in sorted(by_range.items(), key=lambda x: -x[1]):
         print(f"  {where}: {us / STEPS:.1f} us/step ({us / total:.2%})")
-    for (where, name), us in sorted(by_kernel.items(), key=lambda x: -x[1])[:15]:
+    ranked = sorted(by_kernel.items(), key=lambda x: -x[1])
+    for (where, name), us in ranked[:15]:
         print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
+    for (where, name), us in ranked[15:]:  # the build's kernels, whatever their rank
+        if where == "tree_build":
+            print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     if args.sim == "tree":
         print("diagnose", sim.diagnose(state))
