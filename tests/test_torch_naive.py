@@ -255,9 +255,11 @@ def test_kernel_build_flags_and_missing_nvcc(monkeypatch, tmp_path):
         flags = " ".join(module.NVCC_FLAGS)
         assert "arch=compute_90a,code=sm_90a" in flags
         assert "fast_math" not in flags and "fast-math" not in flags
-    # the walk's theta test must round as the plain version does
-    assert "-fmad=false" in tree_walk_cuda.NVCC_FLAGS
+    # no kernel turns contraction off for its whole file: the walks' theta
+    # tests round as the plain versions by intrinsics nvcc never contracts
+    assert "-fmad=false" not in tree_walk_cuda.NVCC_FLAGS
     assert "-fmad=false" not in naive_cuda.NVCC_FLAGS
+    assert "__fsqrt_rn" in tree_walk_cuda.SOURCE.read_text()
     monkeypatch.setattr(naive_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(tree_walk_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)

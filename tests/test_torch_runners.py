@@ -197,7 +197,7 @@ def test_cli_headless_on_cpu(tmp_path, capsys):
     assert TrajectoryReader(traj).steps == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("extra", [["--sim", "tree-host"], ["--sim", "naive", "--devices", "2"]])
+@pytest.mark.parametrize("extra", [["--sim", "naive", "--devices", "2"]])
 def test_cli_not_ported_exits_2(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["headless", "--n", "64", "--device", "cpu", *extra])

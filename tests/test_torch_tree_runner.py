@@ -105,7 +105,7 @@ def test_cli_headless_tree_on_cpu(tmp_path, capsys):
         (["--tree-kw", "bucket=4"], "NAME one of"),
         (["--tree-kw", 'leaf_bucket="x"', *PER_PARTICLE], "leaf_bucket"),
         (["--tree-kw", 'walk="stack"'], "unknown walk"),
-        (["--sim", "naive", *PER_PARTICLE], "--sim tree only"),
+        (["--sim", "naive", *PER_PARTICLE], "--sim tree|tree-host only"),
     ],
 )
 def test_cli_tree_usage_errors_exit_2(extra, says, capsys):

@@ -6,11 +6,13 @@
     python -m wgpu_n_body_tpu_torch.cli bench             # naive, then tree, at each size
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
-``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``
-and ``--sim tree`` (either walk), on one device. ``--sim tree-host``
-(ROADMAP A11) and ``--devices > 1`` (A13) exit with code 2, as does a
-malformed ``--tree-kw`` or a ``TreeParams`` value the chosen device does
-not take (``walk_tile`` above 512 on CUDA).
+``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``,
+``--sim tree`` (either walk) and ``--sim tree-host`` (host C++ build,
+device walk; needs ``g++``), on one device. ``--devices > 1`` (ROADMAP
+A13) exits with code 2, as does a malformed ``--tree-kw``, a ``TreeParams``
+value the chosen device does not take (``walk_tile`` above 512 on CUDA) or
+one the backend does not take (``leaf_bucket`` other than 1 with
+``--sim tree-host``).
 """
 
 from __future__ import annotations
@@ -25,12 +27,16 @@ import time
 import torch
 
 from wgpu_n_body_tpu_torch.inits import INITS, uniform_init
-from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
+from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.models.base import Simulator
 from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
 from wgpu_n_body_tpu_torch.utils.profiling import sync
+
+
+SIMS = ("naive", "tree", "tree-host")
+TREE_SIMS = ("tree", "tree-host")  # the backends --tree-kw applies to
 
 
 def _device(name: str) -> torch.device:
@@ -68,21 +74,29 @@ def _tree_kw(specs: list[str]) -> dict:
 
 
 def _build_sim(args) -> Simulator:
-    if args.sim == "tree-host" or args.devices > 1:
+    if args.devices > 1:
         _usage_error(
             f"--sim {args.sim} --devices {args.devices}: not yet ported "
-            "(ROADMAP A11, A13); the port runs --sim naive|tree on one device"
+            "(ROADMAP A13); the port runs --sim naive|tree|tree-host on one device"
         )
-    if args.sim not in ("naive", "tree"):
-        _usage_error(f"--sim {args.sim!r}: choose naive or tree")
+    if args.sim not in SIMS:
+        _usage_error(f"--sim {args.sim!r}: choose one of {', '.join(SIMS)}")
     params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
     if args.sim == "naive":
         return NaiveSim(params, NaiveParams(use_pallas=not args.no_pallas))
     tkw = _tree_kw(args.tree_kw)
+    if args.sim == "tree-host":
+        # reference-architecture hybrid: host C++ build + device walk
+        tkw = {"leaf_bucket": 1, **tkw}
     try:
         tp = TreeParams(**{"theta": args.theta, **tkw})
     except TypeError as exc:
         _usage_error(f"--tree-kw: {exc}")
+    if args.sim == "tree-host":
+        try:
+            return TreeSimHost(params, tp)
+        except (ValueError, RuntimeError) as exc:
+            _usage_error(f"--sim tree-host: {exc}")
     try:
         sim = TreeSim(params, tp)
         # torch.device parses the name without touching a GPU
@@ -96,7 +110,7 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
     if sim_list:  # bench: comma-separated list of backends
         p.add_argument("--sim", default=sim)
     else:
-        p.add_argument("--sim", choices=["naive", "tree", "tree-host"], default=sim)
+        p.add_argument("--sim", choices=list(SIMS), default=sim)
     p.add_argument("--n", type=int, default=n)
     p.add_argument("--g", type=float, default=g)
     p.add_argument("--e", type=float, default=e)
@@ -120,8 +134,8 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
 def cmd_headless(args) -> int:
     """bin/headless.rs analog: per-step microseconds printed
     (headless.rs:12-34)."""
-    if args.tree_kw and args.sim != "tree":
-        _usage_error(f"--tree-kw applies to --sim tree only (got --sim {args.sim})")
+    if args.tree_kw and args.sim not in TREE_SIMS:
+        _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
     sim = _build_sim(args)
     runner = OfflineHeadless(
         sim, INITS[args.init or "uniform"], seed=args.seed, device=_device(args.device)
@@ -158,8 +172,8 @@ def cmd_bench(args) -> int:
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     sizes = args.sizes or [8192 * k for k in (1, 2, 4, 8, 16)]
     sims = args.sim.split(",") if args.sim else ["naive", "tree"]
-    if args.tree_kw and "tree" not in sims:
-        _usage_error(f"--tree-kw applies to --sim tree only (got --sim {args.sim})")
+    if args.tree_kw and not set(sims) & set(TREE_SIMS):
+        _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
     made = 0
     for sim_name in sims:
         for n in sizes:

@@ -1,6 +1,7 @@
 // The softened-gravity pair term shared by the all-pairs kernels
-// (csrc/naive_forces.cu, B1 and B2) and the group walk's evaluation kernel
-// (csrc/tree_walk_group.cu, B4):
+// (csrc/naive_forces.cu, B1 and B2), the group walk's evaluation kernel
+// (csrc/tree_walk_group.cu, B4) and the per-particle walk (csrc/tree_walk.cu,
+// B3, which also takes its theta test's first guess from the same rsqrt):
 //
 //     d = p_j - p_i,  r2 = |d|^2,  inv_r = rsqrt(r2),
 //     w = mgdt_j * inv_r / (r2 * (r2 * inv_r) + e)        mgdt_j = m_j * g * dt
@@ -14,6 +15,22 @@
 // approximate. 15 SASS instructions per pair with the dx-form sum below.
 #pragma once
 
+// 1 / sqrt(x), one MUFU (relative error at most 2^-22.9, subnormals flushed).
+__device__ __forceinline__ float rsqrt_ftz(const float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The weight of a pair at squared distance r2 whose inv_r = rsqrt_ftz(r2)
+// is at hand: mgdt * inv_r / (r2 * r + e).
+__device__ __forceinline__ float weight_from(const float mgdt, const float r2, const float inv_r,
+                                             const float e) {
+  float w;
+  asm("div.approx.ftz.f32 %0, %1, %2;" : "=f"(w) : "f"(mgdt * inv_r), "f"(r2 * (r2 * inv_r) + e));
+  return w;
+}
+
 // The weight w of one pair with offset (dx, dy, dz) to source s (xyz,
 // mgdt). With SELF, a self pair (r2 == 0) is evaluated at r2 = 1 and
 // weighted 0.
@@ -22,9 +39,7 @@ __device__ __forceinline__ float pair_weight(const float4 s, const float dx, con
                                              const float dz, const bool self, const float e) {
   const float r2 = dx * dx + dy * dy + dz * dz;
   const float r2s = SELF && self ? 1.0f : r2;
-  float inv_r, w;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(inv_r) : "f"(r2s));
-  asm("div.approx.ftz.f32 %0, %1, %2;" : "=f"(w) : "f"(s.w * inv_r), "f"(r2s * (r2s * inv_r) + e));
+  float w = weight_from(s.w, r2s, rsqrt_ftz(r2s), e);
   if (SELF) w = self ? 0.0f : w;
   return w;
 }

@@ -130,3 +130,46 @@ def tree_forces(
         nxt = torch.where(more, cur, torch.where(far | near, nskip, cur + 1))
         cur = torch.where(done, cur, nxt)
     return acc
+
+
+def walk_counts(
+    pos_new: torch.Tensor,
+    tree: TreeArrays,
+    tree_params: TreeParams,
+) -> torch.Tensor:
+    """What the walk of ``tree_forces`` visits, counting only: (B, 4) int64
+    per receiver [nodes accepted, members of the terminal cells it opened
+    (the receiver itself included where the cell is its own), nodes
+    visited, the narrowest node it accepted (the first of them) or -1], by
+    the same rules and the same rounding of the theta test.
+    """
+    dev = pos_new.device
+    b = pos_new.shape[0]
+    cap = tree.nodes_f32.shape[0] - 1
+    i64 = torch.int64
+    px, py, pz = pos_new[:, 0], pos_new[:, 1], pos_new[:, 2]
+    skip, count = tree.skip.to(i64), tree.count.to(i64)
+    num_nodes = tree.num_nodes.to(i64)
+    cur = torch.zeros(b, dtype=i64, device=dev)
+    out = torch.zeros((b, 4), dtype=i64, device=dev)
+    out[:, 3] = -1
+    narrowest = torch.full((b,), float("inf"), dtype=torch.float32, device=dev)
+    while bool((cur < num_nodes).any()):
+        done = cur >= num_nodes
+        at = torch.clamp(cur, max=cap)
+        row = tree.nodes_f32[at]
+        dx = row[:, 0] - px
+        dy = row[:, 1] - py
+        dz = row[:, 2] - pz
+        r2 = dx * dx + dy * dy + dz * dz
+        theta_ok = row[:, WIDTH] < tree_params.theta * torch.sqrt(r2)
+        far = theta_ok & ~done
+        near = ~theta_ok & (row[:, NO_CHILD] > 0.0) & ~done
+        out[:, 0] += far
+        out[:, 1] += near * count[at]
+        out[:, 2] += ~done
+        better = far & (row[:, WIDTH] < narrowest)
+        out[:, 3] = torch.where(better, at, out[:, 3])
+        narrowest = torch.where(better, row[:, WIDTH], narrowest)
+        cur = torch.where(done, cur, torch.where(far | near, skip[at], cur + 1))
+    return out

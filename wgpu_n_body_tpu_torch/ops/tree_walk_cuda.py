@@ -1,14 +1,18 @@
 """Wrapper of the hand-written per-particle walk kernel (``csrc/tree_walk.cu``).
 
 ``tree_forces_cuda`` has the signature of ``ops/tree_walk.py::tree_forces``
-(the JAX package's ``tree_forces``). For CUDA tensors it launches the
-kernel, one thread per receiver; for CPU tensors it returns the plain
-version; every other device raises. A CUDA tensor never falls back to the
-plain version.
+(the JAX package's ``tree_forces``), plus ``table``: a caller that already
+holds the ``[node | source]`` table of this tree and these sources
+(``ops/tree_walk_group.py::source_table``, as the group walk does) hands it
+over and the walk reads its source rows; otherwise the pack kernel writes
+them. For CUDA tensors it launches the pack kernel (the arena as one 32-byte
+record per node) and then the walk, one warp per 32 consecutive receivers;
+for CPU tensors it returns the plain version; every other device raises. A
+CUDA tensor never falls back to the plain version.
 
-The kernel is built like the all-pairs kernels (``ops/cuda_build.py``),
-plus ``-fmad=false``: the walk's theta test must see the plain version's
-rounding, not a fused multiply-add's (see the source's note).
+The kernel is built like the other kernels (``ops/cuda_build.py``), with
+their flags: its theta test rounds as the plain version by intrinsics that
+nvcc never contracts, so the file needs no ``-fmad=false``.
 """
 
 from __future__ import annotations
@@ -26,8 +30,7 @@ from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tree_walk.cu"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [*cuda_build.BASE_FLAGS, "-fmad=false"]
-BLOCK = 128  # threads per block: 4 warps, many blocks per SM
+NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the theta test rounds by intrinsics
 
 #: Kernel launches since import (or since a caller set it to 0).
 LAUNCHES = 0
@@ -45,16 +48,16 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        fn = lib.tree_walk_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,  # pos_new, src
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # nodes, skip, first, count
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # num_nodes, self_idx, active
-            ctypes.c_void_p, ctypes.c_int,  # out, b
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,  # theta, gdt, e, bucket
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # block, device, stream
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tree_walk_pack_launch.argtypes = [
+            p, p, p, p, p, i, f,  # nodes, skip, first, count, rec, rows, gdt
+            p, p, p, i, i, p,  # src_pos, src_mass, src, n, device, stream
         ]
-        fn.restype = ctypes.c_int
+        lib.tree_walk_launch.argtypes = [
+            p, p, p, p, p, p, p, p,  # pos_new, rec, src, num_nodes, self_idx, active, out, counts
+            i, i, i, f, f, i, p,  # b, n, rows, theta, e, device, stream
+        ]
+        lib.tree_walk_pack_launch.restype = lib.tree_walk_launch.restype = i
         _lib = lib
     return _lib
 
@@ -77,25 +80,60 @@ def tree_forces_cuda(
     tree_params: TreeParams,
     active: torch.Tensor | None = None,
     self_idx: torch.Tensor | None = None,
+    table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, 3) acc*dt of receivers ``pos_new`` from the tree over the
     sorted sources ``src_pos``/``src_mass`` (see ``tree_walk.tree_forces``).
 
     CUDA tensors go through the kernel; CPU tensors through the plain
-    version; anything else raises.
+    version; anything else raises. ``table`` (CUDA only) is
+    ``tree_walk_group.source_table(tree, src_pos, src_mass, g * dt)`` where
+    the caller has it already: its source rows are read in place.
     """
-    global LAUNCHES
-    tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
-               tree.count, tree.num_nodes]
-    tensors += [t for t in (active, self_idx) if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    device = pos_new.device
-    if device.type == "cpu":
+    if pos_new.device.type == "cpu":
+        _one_device(pos_new, src_pos, src_mass, tree, active, self_idx)
         return tree_forces(
             pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx
         )
+    return _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
+                   table, None)
+
+
+def tree_forces_counts_cuda(
+    pos_new: torch.Tensor,
+    src_pos: torch.Tensor,
+    src_mass: torch.Tensor,
+    tree: TreeArrays,
+    params: SimParams,
+    tree_params: TreeParams,
+    active: torch.Tensor | None = None,
+    self_idx: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's counting instantiation, CUDA tensors only: ((B, 3)
+    acc*dt, (B, 4) int32 per receiver: nodes accepted, members summed,
+    visits at which the receiver was live, visits of its warp). For
+    ``chip_smoke.py`` and ``utils/tree_walk_study.py``; no step calls it."""
+    b = pos_new.shape[0]
+    counts = torch.zeros((b, 4), dtype=torch.int32, device=pos_new.device)
+    out = _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
+                  None, counts)
+    return out, counts
+
+
+def _one_device(pos_new, src_pos, src_mass, tree, *optional) -> None:
+    tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
+               tree.count, tree.num_nodes]
+    tensors += [t for t in optional if t is not None]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+
+
+def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx, table,
+            counts) -> torch.Tensor:
+    global LAUNCHES
+    _one_device(pos_new, src_pos, src_mass, tree, active, self_idx, table)
+    device = pos_new.device
     if device.type != "cuda":
         raise ValueError(f"tree_forces_cuda takes CUDA or CPU tensors, got {device}")
     b, n = pos_new.shape[0], src_pos.shape[0]
@@ -107,30 +145,41 @@ def tree_forces_cuda(
     for name in ("skip", "first", "count"):
         _check(name, getattr(tree, name), torch.int32, (rows,))
     _check("num_nodes", tree.num_nodes, torch.int32, ())
-    if self_idx is None:
-        self_idx = torch.arange(b, dtype=torch.int32, device=device)
-    _check("self_idx", self_idx, torch.int32, (b,))
+    if self_idx is not None:  # None: receiver i is source i, the kernel's default
+        _check("self_idx", self_idx, torch.int32, (b,))
     if active is not None:
         _check("active", active, torch.bool, (b,))
-    bucket = tree_params.leaf_bucket
-    if not isinstance(bucket, int) or bucket < 1:
-        raise ValueError(f"leaf_bucket must be an int >= 1, got {bucket!r}")
+    if rows < 1 or rows + n >= 2**31 or n >= 2**29:
+        raise ValueError(f"the arena's {rows} rows and the {n} sources do not fit the kernel")
 
     out = torch.empty((b, 3), dtype=torch.float32, device=device)
     if b == 0:
         return out
-    src = torch.cat([src_pos, src_mass[:, None]], 1)  # (n, 4): one 16-byte load
+    # the arena as one 32-byte record per node; the sources as (position,
+    # mass * g * dt) rows, the table's where the caller has them
+    rec = torch.empty((rows, NODE_F32_COLS), dtype=torch.float32, device=device)
+    if table is None:
+        src = torch.empty((n, 4), dtype=torch.float32, device=device)
+        src_ptr, packed_src = src.data_ptr(), src.data_ptr()
+    else:
+        _check("table", table, torch.float32, (rows + n, 4))
+        src_ptr, packed_src = table.data_ptr() + rows * 16, None
+    index = device.index if device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().tree_walk_launch(
-        pos_new.data_ptr(), src.data_ptr(),
+    lib = _library()
+    err = lib.tree_walk_pack_launch(
         tree.nodes_f32.data_ptr(), tree.skip.data_ptr(), tree.first.data_ptr(),
-        tree.count.data_ptr(), tree.num_nodes.data_ptr(), self_idx.data_ptr(),
+        tree.count.data_ptr(), rec.data_ptr(), rows, float(params.g * params.dt),
+        src_pos.data_ptr(), src_mass.data_ptr(), packed_src, n, index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"tree_walk pack kernel launch failed: cudaError_t {err}")
+    err = lib.tree_walk_launch(
+        pos_new.data_ptr(), rec.data_ptr(), src_ptr, tree.num_nodes.data_ptr(),
+        self_idx.data_ptr() if self_idx is not None else None,
         active.data_ptr() if active is not None else None,
-        out.data_ptr(), b,
-        float(tree_params.theta), float(params.g * params.dt), float(params.e), bucket,
-        BLOCK,
-        device.index if device.index is not None else torch.cuda.current_device(),
-        stream,
+        out.data_ptr(), counts.data_ptr() if counts is not None else None,
+        b, n, rows, float(tree_params.theta), float(params.e), index, stream,
     )
     if err != 0:
         raise RuntimeError(f"tree_walk kernel launch failed: cudaError_t {err}")

@@ -139,10 +139,13 @@ def group_eval_lists_cuda(
     lists: GroupLists,
     params: SimParams,
     gid_offset: int = 0,
+    table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The evaluation kernel's counterpart of
     ``tree_walk_group.group_eval_lists``, CUDA tensors only: (n, 3) acc*dt;
-    rows of receivers in deferred tiles are not written."""
+    rows of receivers in deferred tiles are not written. ``table`` is
+    ``source_table(tree, src_pos, src_mass, g * dt)`` where the caller has
+    it already; otherwise it is built here."""
     global LAUNCHES_EVAL
     device = pos_new.device
     if device.type != "cuda":
@@ -166,7 +169,9 @@ def group_eval_lists_cuda(
         raise ValueError(f"receivers [{gid_offset}, {gid_offset + n}) are not in the {n_src} sources")
 
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
-    table = source_table(tree, src_pos, src_mass, params.g * params.dt)  # one 16-byte row per id
+    if table is None:  # one 16-byte row per id
+        table = source_table(tree, src_pos, src_mass, params.g * params.dt)
+    _check("table", table, torch.float32, (cap + 1 + n_src, 4))
     skip = (lists.bad | lists.pool_full).to(torch.int32)
     err = _library().group_eval_launch(
         pos_new.data_ptr(), table.data_ptr(), lists.ids.data_ptr(), lists.chunks.data_ptr(), mc,
@@ -241,19 +246,23 @@ def group_tree_forces_cuda(
         with trace_scope("group_walk"):
             lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)
         with trace_scope("group_eval"):
+            # the [node | source] table, shared with the fallback's walk
+            table = source_table(tree, src_pos, src_mass, params.g * params.dt)
             acc = group_eval_lists_cuda(
-                pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset
+                pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset, table
             )
     with trace_scope("group_fallback"):
         bad = tiles.deferred | lists.bad[tiles.tile_id]
         full = lists.pool_full[tiles.tile_id] & ~bad
         deferred = bad | full
-        self_idx = torch.arange(
-            int(gid_offset), int(gid_offset) + n, dtype=torch.int32, device=device
-        )
+        self_idx = None  # receiver i is source i, unless the receivers are a later slice
+        if int(gid_offset):
+            self_idx = torch.arange(
+                int(gid_offset), int(gid_offset) + n, dtype=torch.int32, device=device
+            )
         fallback = tree_forces_cuda(
             pos_new, src_pos, src_mass, tree, params, tree_params, active=deferred,
-            self_idx=self_idx,
+            self_idx=self_idx, table=table,
         )
         acc = torch.where(deferred[:, None], fallback, acc)
     return acc, GroupWalkStats(

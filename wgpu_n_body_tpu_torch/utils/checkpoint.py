@@ -4,9 +4,10 @@ The same format: one atomic .npz holding the SoA state arrays and a
 format-versioned JSON meta record (step, SimParams, the backend's
 add-params, the multi-chip schedule). A checkpoint written by the JAX
 package loads here, and one written here loads in the JAX package.
-Add-params of a backend the port does not have yet (``"tree"``) and
-sharded schedules load as their recorded dicts; ``make_sim`` raises for
-them until those backends are ported.
+A ``TreeSimHost`` run records ``kind: "tree"`` with its ``TreeParams``
+(``leaf_bucket=1``), as the JAX package does, and so reloads as a
+``TreeSim`` with singleton leaves. Sharded schedules load as their recorded
+dicts; ``make_sim`` raises for them until those backends are ported.
 """
 
 from __future__ import annotations

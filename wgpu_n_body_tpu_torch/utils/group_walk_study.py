@@ -153,11 +153,11 @@ def pairs_of(tiles, bad, rows):
     return float((rows[:nt][fin].double() * tiles.piece_len[:nt][fin].double()).sum())
 
 
-def sass_loops(lib_path, name_part, sass_dir):
-    """Innermost SASS loops that evaluate pairs (hold MUFU.RSQ) in the
-    kernels whose mangled name holds ``name_part``: (kernel, instructions,
-    MUFU.RSQ, all MUFU) each. One MUFU.RSQ per pair, so instructions per
-    pair is the ratio."""
+def sass_all_loops(lib_path, name_part, sass_dir):
+    """Every SASS loop (a backward branch and its target) of the kernels
+    whose mangled name holds ``name_part``: (kernel, [(first address, last
+    address, instructions, MUFU.RSQ, all MUFU), ...]) each, from
+    ``cuobjdump -sass`` (the listing also goes to ``sass_dir``)."""
     exe = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -193,6 +193,17 @@ def sass_loops(lib_path, name_part, sass_dir):
                 body = [op for a, op in ins if target <= a <= addr]
                 loops.append((target, addr, len(body), sum("MUFU.RSQ" in op for op in body),
                               sum("MUFU" in op for op in body)))
+        found.append((name, loops))
+    return found
+
+
+def sass_loops(lib_path, name_part, sass_dir):
+    """Innermost SASS loops that evaluate pairs (hold MUFU.RSQ) in the
+    kernels whose mangled name holds ``name_part``: (kernel, instructions,
+    MUFU.RSQ, all MUFU) each. One MUFU.RSQ per pair, so instructions per
+    pair is the ratio."""
+    found = []
+    for name, loops in sass_all_loops(lib_path, name_part, sass_dir):
         for lo, hi, n_ins, rsq, mufu in loops:
             inner = [x for x in loops if x[4] and lo <= x[0] and x[1] <= hi and x[:2] != (lo, hi)]
             if rsq and not inner:

@@ -1,13 +1,16 @@
-"""Where the time goes in one TreeSim (or NaiveSim) step on a CUDA card.
+"""Where the time goes in one TreeSim (or TreeSimHost, or NaiveSim) step on a
+CUDA card.
 
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] [--walk per_particle]
+    python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim tree-host
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim naive
 
 N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
 defaults (uniform scene, θ=0.75); with ``--sim naive`` to 262144, the naive
 headless size (the all-pairs kernel B1). Every number comes from the
 simulator's own step. Prints:
-- the wall of 5 synchronised steps, with the SM clock and power;
+- the wall of 5 synchronised steps (2 with ``--sim tree-host``), with the SM
+  clock and power;
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
   the GPU timeline, each kernel attributed to the innermost range that holds
   it (``morton_sort``, ``tree_build`` and ``theta_walk`` from ``TreeSim``;
@@ -19,7 +22,14 @@ simulator's own step. Prints:
   window, the top kernels and every kernel of ``tree_build`` (the four of
   ``csrc/tree_build.cu``), and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
-A naive step's kernels all count to its ``naive_step`` range.
+A naive step's kernels all count to its ``naive_step`` range. With ``--sim
+tree-host`` (N defaults to 4,000,000, singleton leaves) the step's host side
+is printed too: the host time of the ranges ``host_build`` and, inside it,
+``host_copy_down`` (positions and masses to the host, which waits for the
+device), ``host_octree`` (the C++ build) and ``host_copy_up`` (the arena and
+the permutation to the device), and of ``theta_walk`` (the host's enqueue of
+the table and B3), from the same trace; its kernels count to ``theta_walk``
+or to the rest of ``tree_step`` (the gather into DFS order and the leapfrog).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -36,12 +46,14 @@ import time
 import torch
 
 from wgpu_n_body_tpu_torch.inits import uniform_init
-from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
+from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
 STEPS = 3  # in the profiler window
 RANGES = ("naive_step", "morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
           "group_walk", "group_eval", "group_fallback")  # outer to inner
+HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host_copy_up",
+               "theta_walk")  # of a TreeSimHost step, on the host's timeline
 
 
 def _smi(query: str) -> str:
@@ -75,10 +87,19 @@ def kernel_breakdown(trace_events):
     return by_range, by_kernel, busy, intervals[-1][1] - intervals[0][0]
 
 
+def host_ranges(trace_events):
+    """Host µs per range of ``HOST_RANGES``, summed over the trace."""
+    out = {}
+    for e in trace_events:
+        if e.get("cat") == "user_annotation" and e.get("name") in HOST_RANGES:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="profile_step")
     parser.add_argument("n", type=int, nargs="?")
-    parser.add_argument("--sim", choices=["tree", "naive"], default="tree")
+    parser.add_argument("--sim", choices=["tree", "tree-host", "naive"], default="tree")
     parser.add_argument("--walk", choices=["group", "per_particle"], default="group")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -91,6 +112,10 @@ def main(argv=None) -> int:
     if args.sim == "naive":
         print(f"NaiveSim N={n}")
         sim = NaiveSim(params)
+    elif args.sim == "tree-host":
+        tp = TreeParams(leaf_bucket=1)
+        print(f"TreeSimHost N={n} theta={tp.theta} leaf_bucket=1")
+        sim = TreeSimHost(params, tp)
     else:
         tp = TreeParams(walk=args.walk)
         print(f"TreeSim N={n} theta={tp.theta} walk={tp.walk}")
@@ -100,7 +125,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     walls = []
-    for _ in range(5):
+    for _ in range(2 if args.sim == "tree-host" else 5):  # a host build takes seconds
         t0 = time.perf_counter()
         state = step(state)
         torch.cuda.synchronize()
@@ -118,7 +143,8 @@ def main(argv=None) -> int:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            by_range, by_kernel, busy, span = kernel_breakdown(json.load(f)["traceEvents"])
+            events = json.load(f)["traceEvents"]
+    by_range, by_kernel, busy, span = kernel_breakdown(events)
     total = sum(by_range.values())
     print(f"profiler, {STEPS} steps: kernel time {total / STEPS:.1f} us/step, busy "
           f"{busy / STEPS:.1f} us/step, wall {wall_us / STEPS:.1f} us/step, idle share of the "
@@ -131,6 +157,10 @@ def main(argv=None) -> int:
     for (where, name), us in ranked[15:]:  # the build's kernels, whatever their rank
         if where == "tree_build":
             print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
+    if args.sim == "tree-host":
+        host = host_ranges(events)
+        print("  host time per range, ms/step: "
+              + ", ".join(f"{k} {host.get(k, 0.0) / STEPS / 1e3:.3f}" for k in HOST_RANGES))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     if args.sim == "tree":
         print("diagnose", sim.diagnose(state))
