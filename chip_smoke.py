@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero):
  1. a CUDA device is present; print the card's name and power limit;
  2. build every kernel from ``wgpu_n_body_tpu_torch/csrc`` (one nvcc per
-    source, all started together: B1 and B2 share ``naive_forces.cu``) and,
+    source, all started together: B1 and B2 share ``naive_forces.cu``; the
+    key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -24,21 +25,29 @@ Phases (any failure exits non-zero):
  5. run ``cli headless --sim naive --n 262144 --steps 10`` in-process and
     check that each step launched B1 once and the state is sane;
  6. three NaiveSim steps at N=16384, kernel vs plain version;
- 7. report the tree kernels' builds (B3, B4, B5): registers and spills;
+ 7. report the tree kernels' builds (B3, B4, B5 with K2, K1): registers and
+    spills;
  8. B2 against its plain factored version: small ragged inputs and
     shards, N=262144 against float64 (as 3), timed beside the plain version, and
     ``NaiveSim(mxu=True)`` through ``OfflineHeadless`` at N=262144;
     two launches bit-equal;
- 9. the Morton sort and the plain octree build on the card against the same
-    build on the CPU at N=262144 (keys, permutation and arena integers
-    equal), and the build kernels (B5) against the plain build on the card
-    (integers equal, ``nodes_f32`` within rtol 1e-6 on every row): that scene
+ 9. the plain Morton sort and octree build on the card against the same
+    on the CPU at N=262144 (packed keys, permutation and arena integers
+    equal), and the build kernels (K2, the reorder, then B5's three) against
+    the plain reorder and build on the card (sorted state, split and window
+    levels bit-equal, integers equal, ``nodes_f32`` within rtol 1e-6 on
+    every row): that scene
     at buckets 1, 16, 32 and with an overflowing arena, the small and odd
     inputs of ``ops/tree_build_cases.py``, the main path's N=4,000,000
     uniform state (timed beside the plain version and the bytes bound, two
     builds bit-equal) and the N=2,000,000 disc scene. The plain version is
     held both on the kernels' float64 prefix sums and on its own; the
-    kernels' sums against ``torch.cumsum``'s;
+    kernels' sums against ``torch.cumsum``'s; 9f. the sort stage (K1, the
+    key kernel with the bound's reduction; CUB's stable sort on 3*depth
+    bits; K2) bit-equal to its plain version at N=262144 with ties, depths
+    5 and 20, N=2M disc and the N=4M scene before and after one step, a
+    planted fault (two tied bodies swapped, a key bit flipped) caught, and
+    K1, both sorts (CUB's, ``torch.sort``'s), K2 and the build timed at N=4M;
 10. B3 against the plain walk on 4096 sampled receivers of the N=4M tree
     (each receiver's counts of accepted nodes and of members equal to the
     plain rules', forces within a per-row p99 of 1e-5, which a planted fault
@@ -49,9 +58,9 @@ Phases (any failure exits non-zero):
     table, and on 4096 consecutive receivers;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
-    launched the build (B5) and B3 once (and the diagnostics one build more
-    and its group walk, B4 and B3 once), the state is sane and the
-    checkpoint reloads;
+    launched K1, K2, the build (B5) and B3 once (and the diagnostics one
+    sort and build more and its group walk, B4 and B3 once), the state is
+    sane and the checkpoint reloads;
 12. the group walk kernels (B4: a walk kernel writing each tile's list of
     ids, an evaluation kernel summing them) against their plain versions on
     every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
@@ -63,10 +72,12 @@ Phases (any failure exits non-zero):
     the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
     measurement config), where no tile may find the pool empty (12f);
 13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
-    group walk, N=4,000,000) and check that each step launched the build
-    (B5: its four kernels, one launcher call) once, both B4 kernels once and
-    B3 once (its fallback over the deferred mask), the diagnostics (nothing
-    deferred, none for the pool), the checkpoint and the mass multiset;
+    group walk, N=4,000,000) and check that each step launched K1, K2 and
+    the build (B5: its other three kernels, one launcher call) once, both B4
+    kernels once and B3 once (its fallback over the deferred mask), the
+    diagnostics (nothing deferred, none for the pool), the checkpoint and
+    the mass multiset; and that the tiles made from the build's split levels
+    equal those of the plain split levels on the last state;
 14. the tree-host path, where B3 is the whole force: one host build of the
     N=4M uniform scene (``native/octree.cpp``), B3 on its arena for 4096
     consecutive and 4096 sampled receivers against the plain walk on the same
@@ -85,7 +96,9 @@ Phases (any failure exits non-zero):
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
-3.35 TB/s (the bytes bind B5, the special-function ops the others). B3's
+3.35 TB/s (the bytes bind B5 and K1, the special-function ops the others).
+K1's and B5's times are on the main path's input (the N=4M state one step
+after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
 are those of the build kernels' arena (``arena``), and its figures on the
 host arena and on the per-particle path are extra keys.
@@ -237,12 +250,12 @@ def bound(count, mufu_each, flops_each, nbytes, mhz):
 
 def sorted_scene(state, params, tp):
     """(sorted state, tree, keys, drifted positions) of one tree step, built
-    as TreeSim builds it on the card (the kernels of B5)."""
-    from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
+    as TreeSim builds it on the card (K1, CUB's sort, the kernels of B5)."""
+    from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
     from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 
-    ss, bound_, keys = morton_sort(state, tp.max_depth)
-    tree = build_tree_cuda(ss, keys, bound_, tp)
+    perm, bound_, keys = morton_order_cuda(state.pos, tp.max_depth)
+    ss, tree = build_tree_cuda(state, perm, keys, bound_, tp)
     pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
     return ss, tree, keys, pos_new
 
@@ -260,6 +273,7 @@ def pool_of(gcuda, n_chunks):
 
 def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import (
+        morton_cuda,
         naive_cuda,
         tree_build_cuda,
         tree_walk_cuda,
@@ -268,13 +282,15 @@ def zero_launch_counts():
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
-    tree_build_cuda.LAUNCHES = 0
+    tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
 
 
 def launch_counts():
-    """Launches since ``zero_launch_counts``; B5 counts builds, each of which
-    enqueues its three kernels once."""
+    """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
+    reorder (B5's first kernel), B5 the builds, each of which enqueues its
+    other three kernels once."""
     from wgpu_n_body_tpu_torch.ops import (
+        morton_cuda,
         naive_cuda,
         tree_build_cuda,
         tree_walk_cuda,
@@ -283,7 +299,14 @@ def launch_counts():
 
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
-            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES}
+            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES,
+            "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER}
+
+
+def expected_counts(**counts):
+    """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval")."""
+    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2")
+    return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
 #: The all-pairs kernels' smaller sizes: the visualize scene and the size
@@ -493,7 +516,7 @@ def phase_b2(dev, smi, mhz):
     zero_launch_counts()
     runner.run(steps=STEPS_MXU, log_fn=lambda line: None)
     counts = launch_counts()
-    if counts != {"B1": 0, "B2": STEPS_MXU, "B3": 0, "B4": 0, "B4 eval": 0, "B5": 0}:
+    if counts != expected_counts(B2=STEPS_MXU):
         fail(f"NaiveSim(mxu=True) {STEPS_MXU} steps launched {counts}")
     plan = naive_cuda.LAST_PLAN_MXU  # the plan of the run's last launch
     if not all(torch.isfinite(t).all() for t in runner.state[:3]):
@@ -524,7 +547,7 @@ def compare_builds(what, k, p):
     input on the card: integers and scalars equal, ``nodes_f32`` within rtol
     1e-6 on every row (the unused tail and the sentinel included). Returns
     (max |k - p| over nodes_f32, rows of nodes_f32 that are not bit-equal)."""
-    for name in ("skip", "first", "count", "num_nodes", "overflowed", "root_width"):
+    for name in ("skip", "first", "count", "num_nodes", "overflowed", "root_width", "split"):
         a, b = getattr(k, name), getattr(p, name)
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
             fail(f"9 {what}: the kernels' {name} differs from the plain version's "
@@ -537,10 +560,22 @@ def compare_builds(what, k, p):
     return float((k.nodes_f32 - p.nodes_f32).abs().max()), differ
 
 
-def held_build(what, ss, keys, bound_, tp, own_scan=True):
-    """One input through the kernels and the plain version on the card.
+def bits_equal(a, b):
+    """Same dtype, shape and bits (a float compared as its int32 bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
-    The plain version is held twice: given the kernels' float64 prefix sums
+
+def held_build(what, state, perm, keys, bound_, tp, own_scan=True):
+    """One input (bodies in input order, the sort's permutation and keys)
+    through the kernels (the reorder K2, then B5) and the plain version
+    (``reorder``, then ``build_tree``) on the card.
+
+    The sorted state, split and window levels must be bit-equal. The plain
+    build is held twice: given the kernels' float64 prefix sums
     (so only the scans' summation order is shared: every hand-written search,
     count and total is compared, and the arenas should come out bit-equal),
     and, with ``own_scan``, with its own ``torch.cumsum`` sums. Both at
@@ -549,10 +584,18 @@ def held_build(what, ss, keys, bound_, tp, own_scan=True):
     magnitudes (float64 sums in another order). Returns (the kernels' arena,
     a line for the log, max |k - p| against the plain version's own scan,
     the largest difference of the two scans)."""
-    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, prefix_sums
+    from wgpu_n_body_tpu_torch.ops.morton import window_levels
+    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, prefix_sums, reorder
     from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda_with_sums
 
-    k, sums = build_tree_cuda_with_sums(ss, keys, bound_, tp)
+    ss_k, k, sums, window = build_tree_cuda_with_sums(state, perm, keys, bound_, tp)
+    ss = reorder(state, perm)
+    torch.cuda.synchronize()
+    plain_window = window_levels(keys, tp.max_depth, min(tp.leaf_bucket, state.n))
+    if not (all(bits_equal(a, b) for a, b in zip(ss_k, ss))
+            and bits_equal(window, plain_window.to(torch.uint8))):
+        fail(f"9 {what}: the reorder's sorted state or window levels differ from the plain "
+             f"version's")
     p_same = build_tree(ss, keys, bound_, tp, sums=sums)
     torch.cuda.synchronize()
     err_same, differ_same = compare_builds(f"{what}, the kernels' sums", k, p_same)
@@ -562,7 +605,8 @@ def held_build(what, ss, keys, bound_, tp, own_scan=True):
     if not bool((scan_err <= scan_gate).all()):
         fail(f"9 {what}: the kernels' prefix sums are {scan_err.tolist()} from torch.cumsum's "
              f"(gates {scan_gate.tolist()})")
-    line = (f"kernels == plain on the kernels' sums for skip/first/count/num_nodes "
+    line = (f"sorted state and window levels bit-equal; kernels == plain on the kernels' "
+            f"sums for skip/first/count/num_nodes/split "
             f"{int(k.num_nodes)} of cap {k.skip.shape[0] - 1}, overflowed {bool(k.overflowed)}, "
             f"nodes_f32 within rtol 1e-6 (max|k-p| {err_same:.3e}, {differ_same} rows not "
             f"bit-equal); the kernels' float64 sums within {float(scan_err.max()):.3e} of "
@@ -582,7 +626,13 @@ def phase_build(dev, smi, mhz):
     and the build kernels (B5) against the plain build on the card."""
     from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
     from wgpu_n_body_tpu_torch.ops import tree_build_cuda
-    from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_order, morton_sort
+    from wgpu_n_body_tpu_torch.ops.tree_build import (
+        NO_CHILD,
+        build_tree,
+        morton_order,
+        morton_sort,
+        reorder,
+    )
     from wgpu_n_body_tpu_torch.ops.tree_build_cases import build_cases
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
 
@@ -603,8 +653,8 @@ def phase_build(dev, smi, mhz):
         ss, _, _ = morton_sort(st, tp.max_depth)
         res.append((perm, bound_, keys, build_tree(ss, keys, bound_, tp)))
     (c_perm, c_bound, c_keys, c_tree), (g_perm, g_bound, g_keys, g_tree) = res
-    for name, a, b in (("bound", c_bound, g_bound), ("hi", c_keys[0], g_keys[0]),
-                       ("lo", c_keys[1], g_keys[1]), ("perm", c_perm, g_perm),
+    for name, a, b in (("bound", c_bound, g_bound), ("keys", c_keys, g_keys),
+                       ("perm", c_perm, g_perm), ("split", c_tree.split, g_tree.split),
                        ("skip", c_tree.skip, g_tree.skip), ("first", c_tree.first, g_tree.first),
                        ("count", c_tree.count, g_tree.count),
                        ("num_nodes", c_tree.num_nodes, g_tree.num_nodes),
@@ -615,6 +665,7 @@ def phase_build(dev, smi, mhz):
     st = state_from_numpy(pos, zeros, zeros, mass, dev)
     ms_sort, (ss, bound_, keys) = time_ms(lambda: morton_sort(st, tp.max_depth), 3)
     ms_build, _ = time_ms(lambda: build_tree(ss, keys, bound_, tp), 3)
+    perm = g_perm
     print(f"9a plain build N={n} (1% duplicate positions): card == CPU for keys, permutation, "
           f"skip/first/count, num_nodes {int(g_tree.num_nodes)} of cap "
           f"{g_tree.nodes_f32.shape[0] - 1}; nodes_f32 within rtol 1e-6; "
@@ -625,26 +676,27 @@ def phase_build(dev, smi, mhz):
     for kw in ({"leaf_bucket": 1}, {"leaf_bucket": 16}, {"leaf_bucket": 32},
                {"leaf_bucket": 16, "node_capacity_factor": 0.05}):
         tpb = TreeParams(walk="per_particle", **kw)
-        k, line, _, _ = held_build(f"N={n} {kw}", ss, keys, bound_, tpb)
+        k, line, _, _ = held_build(f"N={n} {kw}", st, perm, keys, bound_, tpb)
         if bool(k.overflowed) != ("node_capacity_factor" in kw):
             fail(f"9b {kw}: overflowed is {bool(k.overflowed)}")
         print(f"9b B5 N={n} {kw}: {line}")
-    del st, ss, keys, k, res, c_tree, g_tree
+    del st, ss, perm, keys, k, res, c_tree, g_tree
 
     # -- 9c. the small and odd inputs of the CPU tests --------------------------
     for case in build_cases():
         tpc = TreeParams(walk="per_particle", **case.tree_kw)
-        ssc, bound_c, keys_c = morton_sort(state_from_numpy(**case.state, device=dev),
-                                           tpc.max_depth)
-        k, line, _, _ = held_build(case.name, ssc, keys_c, bound_c, tpc)
+        stc = state_from_numpy(**case.state, device=dev)
+        perm_c, bound_c, keys_c = morton_order(stc.pos, tpc.max_depth)
+        k, line, _, _ = held_build(case.name, stc, perm_c, keys_c, bound_c, tpc)
         m = int(k.num_nodes)
-        print(f"9c B5 {case.name} (n={ssc.pos.shape[0]}, {case.tree_kw}): "
+        print(f"9c B5 {case.name} (n={stc.n}, {case.tree_kw}): "
               f"{int((k.nodes_f32[:m, NO_CHILD] == 2).sum())} overfull cells; {line}")
 
-    def twice(what, ss, keys, bound_, tp, k):
-        again = build_k(ss, keys, bound_, tp)
+    def twice(what, state, perm, keys, bound_, tp, k):
+        again = build_k(state, perm, keys, bound_, tp)[1]
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(k[:7], again[:7]))
+        same = same and torch.equal(k.split, again.split)
         if not same or not torch.equal(k.nodes_f32.view(torch.int32),
                                        again.nodes_f32.view(torch.int32)):
             fail(f"9 {what}: two builds of the same input differ")
@@ -652,40 +704,40 @@ def phase_build(dev, smi, mhz):
     # -- 9d. the main path's N=4M uniform state, timed --------------------------
     params, tp4 = SimParams(particle_num=N_TREE), TreeParams()  # depth 16, bucket 16
     state = uniform_init(torch.Generator().manual_seed(0), params, dev)
-    ss, bound_, keys = morton_sort(state, tp4.max_depth)
-    del state
-    k, line, max_abs, _ = held_build(f"N={N_TREE}", ss, keys, bound_, tp4)
-    twice(f"N={N_TREE}", ss, keys, bound_, tp4, k)
+    perm, bound_, keys = morton_order(state.pos, tp4.max_depth)
+    k, line, max_abs, _ = held_build(f"N={N_TREE}", state, perm, keys, bound_, tp4)
+    twice(f"N={N_TREE}", state, perm, keys, bound_, tp4, k)
     del k
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms_k, k = time_ms(lambda: build_k(ss, keys, bound_, tp4), 10)
+    ms_k, (_, k) = time_ms(lambda: build_k(state, perm, keys, bound_, tp4), 10)
     peak_k = torch.cuda.max_memory_allocated() - base
     t0 = time.perf_counter()
     for _ in range(10):
-        build_k(ss, keys, bound_, tp4)
+        build_k(state, perm, keys, bound_, tp4)
     host_ms = (time.perf_counter() - t0) * 100  # the wrapper's enqueue alone, per build
     torch.cuda.synchronize()
     m, cap = int(k.num_nodes), k.skip.shape[0] - 1
     del k
     torch.cuda.reset_peak_memory_stats()
-    ms_p, p = time_ms(lambda: build_tree(ss, keys, bound_, tp4), 3)
+    ms_p, p = time_ms(lambda: build_tree(reorder(state, perm), keys, bound_, tp4), 3)
     peak_p = torch.cuda.max_memory_allocated() - base
     del p
-    nbytes = tree_build_cuda.build_bytes(N_TREE, cap)
+    nbytes = stage_build_bytes(N_TREE, cap)
     # the operations are a few dozen per live row (the totals' float64
     # differences, three divides): far below the bytes' time
     b5_bound = bound(float(m), 0, 40, nbytes, mhz)
-    print(f"9d B5 N={N_TREE} uniform, depth {tp4.max_depth}, bucket {tp4.leaf_bucket}: {line}; "
-          f"two builds bit-equal; kernels {ms_k:.3f} ms per build by CUDA events over 10 builds "
-          f"(the wrapper's host time to enqueue one: {host_ms:.3f} ms), plain {ms_p:.3f} ms; bound "
-          f"{b5_bound['bound_ms']:.4f} ms ({nbytes} bytes at 3.35 TB/s): kernels at "
-          f"{b5_bound['bound_ms'] / ms_k:.2%}, plain at {b5_bound['bound_ms'] / ms_p:.2%}; peak "
-          f"device memory above the sorted state {peak_k / 1e9:.3f} GB (plain "
-          f"{peak_p / 1e9:.3f} GB); [{smi}]")
-    del ss, keys
+    print(f"9d B5 N={N_TREE} uniform, depth {tp4.max_depth}, bucket {tp4.leaf_bucket}, the "
+          f"unsorted initial state (the reorder's gathers are random): {line}; two builds "
+          f"bit-equal; kernels (reorder and build) {ms_k:.3f} ms per build by CUDA events over "
+          f"10 builds (the wrapper's host time to enqueue one: {host_ms:.3f} ms), plain (gathers "
+          f"and build) {ms_p:.3f} ms; bound {b5_bound['bound_ms']:.4f} ms ({nbytes} bytes at "
+          f"3.35 TB/s): kernels at {b5_bound['bound_ms'] / ms_k:.2%}, plain at "
+          f"{b5_bound['bound_ms'] / ms_p:.2%}; peak device memory above the input "
+          f"{peak_k / 1e9:.3f} GB (plain {peak_p / 1e9:.3f} GB); [{smi}]")
+    del state, perm, keys
     torch.cuda.empty_cache()
 
     # -- 9e. the N=2M disc scene of phase 12f ------------------------------------
@@ -697,11 +749,12 @@ def phase_build(dev, smi, mhz):
     # its own sums to what the two scans' difference allows.
     n2 = 2_000_000
     tp5 = TreeParams(theta=0.5)
-    ss, bound_, keys = morton_sort(
-        disc_init(torch.Generator().manual_seed(0), SimParams(particle_num=n2), dev),
-        tp5.max_depth)
-    k, line, _, scan_err = held_build(f"N={n2} disc", ss, keys, bound_, tp5, own_scan=False)
-    twice(f"N={n2} disc", ss, keys, bound_, tp5, k)
+    state = disc_init(torch.Generator().manual_seed(0), SimParams(particle_num=n2), dev)
+    perm, bound_, keys = morton_order(state.pos, tp5.max_depth)
+    k, line, _, scan_err = held_build(f"N={n2} disc", state, perm, keys, bound_, tp5,
+                                      own_scan=False)
+    twice(f"N={n2} disc", state, perm, keys, bound_, tp5, k)
+    ss = reorder(state, perm)
     p = build_tree(ss, keys, bound_, tp5)
     p2 = build_tree(ss, keys, bound_, tp5)
     torch.cuda.synchronize()
@@ -712,8 +765,8 @@ def phase_build(dev, smi, mhz):
     torch.testing.assert_close(k.nodes_f32, p.nodes_f32, rtol=1e-6, atol=atol)
     outside = int(((k.nodes_f32 - p.nodes_f32).abs() > 1e-6 * p.nodes_f32.abs()).sum())
     plain_rows = int((p.nodes_f32 != p2.nodes_f32).any(1).sum())
-    ms_k2, _ = time_ms(lambda: build_k(ss, keys, bound_, tp5), 5)
-    ms_p2, _ = time_ms(lambda: build_tree(ss, keys, bound_, tp5), 2)
+    ms_k2, _ = time_ms(lambda: build_k(state, perm, keys, bound_, tp5), 5)
+    ms_p2, _ = time_ms(lambda: build_tree(reorder(state, perm), keys, bound_, tp5), 2)
     print(f"9e B5 N={n2} disc: {int((k.nodes_f32[:, NO_CHILD] == 2).sum())} overfull cells; "
           f"{line}; two builds bit-equal (two plain builds differ in {plain_rows} rows); "
           f"against the plain version on its own sums integers equal, nodes_f32 within rtol "
@@ -721,7 +774,7 @@ def phase_build(dev, smi, mhz):
           f"{outside} elements outside rtol 1e-6 alone, max|k-p| "
           f"{float((k.nodes_f32 - p.nodes_f32).abs().max()):.3e}); kernels {ms_k2:.3f} ms, "
           f"plain {ms_p2:.3f} ms; [{smi}]")
-    del ss, keys, k, p, p2
+    del state, ss, perm, keys, k, p, p2
     torch.cuda.empty_cache()
     return {
         "name": "tree_build",
@@ -730,8 +783,10 @@ def phase_build(dev, smi, mhz):
         "replaces": "wgpu_n_body_tpu/ops/tree_build.py:175",
         "launches": 0,  # set from the main path's run (phase 13)
         "max_abs_err": max_abs,
-        "ms": ms_k,
-        "plain_ms": ms_p,
+        # ms, plain_ms, bound_ms: phase 9f's, on the main path's input; here
+        # the unsorted initial state
+        "ms_initial_state": ms_k,
+        "plain_ms_initial_state": ms_p,
         **b5_bound,
         "bound_count": nbytes,
         "bound_count_unit": "bytes",
@@ -745,6 +800,223 @@ def phase_build(dev, smi, mhz):
         "disc_2m_ms": ms_k2,
         "disc_2m_plain_ms": ms_p2,
     }
+
+
+def stage_build_bytes(n, cap):
+    """Bytes one build (the reorder, then B5's other kernels) must move:
+    the two passes' own, less what B5 reads back of the reorder's work (the
+    sorted positions and masses, 16 bytes a body) and its second read of
+    the keys (8)."""
+    from wgpu_n_body_tpu_torch.ops import tree_build_cuda
+
+    return tree_build_cuda.reorder_bytes(n) + tree_build_cuda.build_bytes(n, cap) - 24 * n
+
+
+#: The sort stage's outputs, in the order they are made and compared.
+STAGE_FIELDS = ("bound", "keys", "index", "perm", "sorted keys", "pos", "vel", "acc", "mass",
+                "split", "window")
+
+
+def stage_outputs(state, tp, plain, perm=None, keys_u=None):
+    """The sort stage of one tree step on the card, by field name: K1 (bound,
+    keys, index), CUB's sort (perm, sorted keys) and K2 (the sorted state,
+    split and window levels), or with ``plain`` their plain versions. A
+    given ``keys_u`` replaces K1's keys before the sort, a given ``perm``
+    the sort's permutation before K2 (planted faults)."""
+    from wgpu_n_body_tpu_torch.ops import morton, morton_cuda, tree_build_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_build import reorder
+
+    depth, n = tp.max_depth, state.n
+    out = {}
+    if plain:
+        out["bound"] = morton.bound_of(state.pos)
+        out["keys"] = morton.packed_keys(state.pos, out["bound"], depth)
+        out["index"] = torch.arange(n, dtype=torch.int32, device=state.pos.device)
+    else:
+        out["keys"], out["index"], out["bound"] = morton_cuda.morton_keys_cuda(state.pos, depth)
+    if keys_u is not None:
+        out["keys"] = keys_u
+    if plain:
+        out["sorted keys"], order = torch.sort(out["keys"], stable=True)
+        out["perm"] = out["index"][order]
+    else:
+        out["perm"], out["sorted keys"] = morton_cuda.sort_keys_cuda(out["keys"], out["index"],
+                                                                     depth)
+    if perm is not None:
+        out["perm"] = perm
+    if plain:
+        bucket = min(tp.leaf_bucket, n)
+        ss = reorder(state, out["perm"])
+        split = morton.split_levels(out["sorted keys"], depth).to(torch.uint8)
+        window = morton.window_levels(out["sorted keys"], depth, bucket).to(torch.uint8)
+    else:
+        ss, split, window = tree_build_cuda.reorder_cuda(state, out["perm"], out["sorted keys"],
+                                                         tp)
+    out.update(ss._asdict(), split=split, window=window)
+    return out
+
+
+def stage_mismatches(got, want):
+    """The fields of ``stage_outputs`` whose bits differ."""
+    torch.cuda.synchronize()
+    return [f for f in STAGE_FIELDS if not bits_equal(got[f], want[f])]
+
+
+def phase_sort(dev, smi, mhz):
+    """9f. The sort stage's kernels against their plain versions on the card,
+    bit for bit: K1 (the key kernel, with the bound's reduction), CUB's sort
+    and K2 (the reorder, B5's first kernel), on the main path's N=4M uniform
+    scene (its initial state and the state one step later, the input of
+    every later step), the N=2M disc scene, N=262144 with 1% duplicate
+    positions (ties), and depths 5 and 20; a planted fault (two tied bodies
+    swapped in the permutation, one key bit flipped) must be caught. K1,
+    the sort (CUB's and ``torch.sort``'s of the same keys), K2 and the whole
+    build timed at N=4M."""
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.ops import morton, morton_cuda, tree_build_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, reorder
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams, state_from_numpy
+
+    def held(what, state, tp):
+        got, want = stage_outputs(state, tp, False), stage_outputs(state, tp, True)
+        bad = stage_mismatches(got, want)
+        if bad:
+            fail(f"9f {what}: the sort stage's kernels differ from the plain versions in {bad}")
+        ties = int((got["sorted keys"][1:] == got["sorted keys"][:-1]).sum())
+        print(f"9f {what}, depth {tp.max_depth}: bound, keys, index, permutation, sorted keys, "
+              f"sorted state, split and window levels bit-equal to the plain versions "
+              f"({ties} tied keys)")
+        return got
+
+    # -- the N=262144 scene of 9a, with velocities and accelerations ----------
+    rng = np.random.default_rng(21)
+    n = N_MAIN
+    pos = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    pos[n // 2 : n // 2 + n // 100] = pos[: n // 100]  # exact duplicates: sort ties
+    vel, acc = (rng.uniform(-1, 1, (n, 3)).astype(np.float32) for _ in range(2))
+    st = state_from_numpy(pos, vel, acc, rng.uniform(0.5, 2.0, n).astype(np.float32), dev)
+    tp = TreeParams()
+    got = held(f"N={n}, 1% duplicate positions", st, tp)
+    for depth in (5, 20):
+        small = ParticleState(*(t[:65536].contiguous() for t in st))
+        held("N=65536 of that scene", small, TreeParams(max_depth=depth, leaf_bucket=4))
+    # planted faults: the check must see each
+    keys = got["sorted keys"]
+    tie = int((keys[1:] == keys[:-1]).nonzero()[0, 0])
+    swapped = got["perm"].clone()
+    swapped[[tie, tie + 1]] = swapped[[tie + 1, tie]]
+    flipped = got["keys"].clone()
+    flipped[n // 3] ^= 1 << 20
+    want = stage_outputs(st, tp, True)
+    planted = {
+        "two tied bodies swapped": stage_mismatches(stage_outputs(st, tp, False, perm=swapped),
+                                                    want),
+        "one key bit flipped": stage_mismatches(stage_outputs(st, tp, False, keys_u=flipped),
+                                                want),
+    }
+    print(f"9f planted faults at N={n}: fields that differ {planted}")
+    if not ({"perm", "mass"} <= set(planted["two tied bodies swapped"])
+            and "keys" in planted["one key bit flipped"]):
+        fail(f"9f: a planted fault passed the check: {planted}")
+    del st, got, want, keys, swapped, flipped
+
+    # -- N=2M disc --------------------------------------------------------------
+    n2 = 2_000_000
+    held(f"N={n2} disc", disc_init(torch.Generator().manual_seed(0), SimParams(particle_num=n2),
+                                   dev), TreeParams(theta=0.5))
+    torch.cuda.empty_cache()
+
+    # -- N=4M uniform: the initial state and the state one step later -----------
+    params, tp4 = SimParams(particle_num=N_TREE), TreeParams()
+    initial = uniform_init(torch.Generator().manual_seed(0), params, dev)
+    held(f"N={N_TREE} uniform, initial state", initial, tp4)
+    later = TreeSim(params, tp4).make_step()(initial)  # sorted by the step before
+    held(f"N={N_TREE} uniform, one step later", later, tp4)
+    depth = tp4.max_depth
+
+    def timed(state):
+        """ms of each piece on ``state``, by CUDA events."""
+        lo, hi = torch.aminmax(state.pos)
+        keys_u, index, bound_ = morton_cuda.morton_keys_cuda(state.pos, depth)
+        perm, keys = morton_cuda.sort_keys_cuda(keys_u, index, depth)
+
+        def stage():  # what a step runs before its walk
+            perm_, bound_s, keys_ = morton_cuda.morton_order_cuda(state.pos, depth)
+            return tree_build_cuda.build_tree_cuda(state, perm_, keys_, bound_s, tp4)
+
+        t = {
+            "aminmax": time_ms(lambda: torch.aminmax(state.pos), 20)[0],
+            "K1": time_ms(lambda: morton_cuda.launch_keys(state.pos, lo, hi, depth), 20)[0],
+            "K1 plain": time_ms(lambda: morton.packed_keys(state.pos, morton.bound_of(state.pos),
+                                                           depth), 3)[0],
+            "sort CUB": time_ms(lambda: morton_cuda.sort_keys_cuda(keys_u, index, depth), 20)[0],
+            "sort torch": time_ms(lambda: torch.sort(keys_u, stable=True), 20)[0],
+            "K2": time_ms(lambda: tree_build_cuda.reorder_cuda(state, perm, keys, tp4), 20)[0],
+            "K2 plain": time_ms(lambda: (reorder(state, perm), morton.split_levels(keys, depth),
+                                         morton.window_levels(keys, depth, tp4.leaf_bucket)),
+                                3)[0],
+            "build": time_ms(lambda: tree_build_cuda.build_tree_cuda(state, perm, keys, bound_,
+                                                                     tp4), 20)[0],
+            "build plain": time_ms(lambda: build_tree(reorder(state, perm), keys, bound_, tp4),
+                                   3)[0],
+            "stage": time_ms(stage, 20)[0],
+        }
+        local = float((perm.long() - torch.arange(N_TREE, device=dev)).abs().double().mean())
+        return t, local
+
+    t_init, local_init = timed(initial)
+    t_later, local_later = timed(later)
+    cap = tp4.capacity(N_TREE)
+    b_k1 = bound(float(N_TREE), 0, 9, morton_cuda.key_bytes(N_TREE), mhz)
+    b_k2 = bound(float(N_TREE), 0, 0, tree_build_cuda.reorder_bytes(N_TREE), mhz)
+    b_stage = bound(float(N_TREE), 0, 0, stage_build_bytes(N_TREE, cap), mhz)
+    for what, t, local in (("initial state", t_init, local_init),
+                           ("one step later", t_later, local_later)):
+        print(f"9f N={N_TREE} uniform, {what} (mean |perm[i] - i| {local:.1f}), ms by CUDA events: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f"; bounds (bytes at 3.35 TB/s): K1 {b_k1['bound_ms']:.4f} ms (K1 at "
+              f"{b_k1['bound_ms'] / t['K1']:.2%}), K2 {b_k2['bound_ms']:.4f} ms (K2 at "
+              f"{b_k2['bound_ms'] / t['K2']:.2%}), the build {b_stage['bound_ms']:.4f} ms (at "
+              f"{b_stage['bound_ms'] / t['build']:.2%}); [{smi}]")
+    del initial, later
+    torch.cuda.empty_cache()
+    k1 = {
+        "name": "morton_keys",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/morton_keys.cu",
+        "replaces": "wgpu_n_body_tpu/ops/morton.py:42",
+        "launches": 0,  # set from the main path's run (phase 13)
+        "max_abs_err": 0.0,  # keys, index and bound bit-equal to the plain version's
+        "ms": t_later["K1"],
+        "plain_ms": t_later["K1 plain"],
+        **b_k1,
+        "bound_count": morton_cuda.key_bytes(N_TREE),
+        "bound_count_unit": "bytes",
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes Morton keys",
+        "n": N_TREE,
+        "input": "the N=4M uniform state one TreeSim step after the initial one",
+        "bound_reduction_ms": t_later["aminmax"],
+        # the stable sort of the packed key (48 bits, int32 index), a
+        # library call of the port's (CUB), and torch.sort of the same keys
+        "sort_ms": t_later["sort CUB"],
+        "sort_torch_ms": t_later["sort torch"],
+        "initial_state_ms": {k: t_init[k] for k in ("aminmax", "K1", "sort CUB", "sort torch")},
+    }
+    b5 = {
+        "ms": t_later["build"],
+        "plain_ms": t_later["build plain"],
+        **b_stage,
+        "bound_count": stage_build_bytes(N_TREE, cap),
+        "input": "the N=4M uniform state one TreeSim step after the initial one",
+        "reorder_ms": t_later["K2"],
+        "reorder_plain_ms": t_later["K2 plain"],
+        "reorder_bound_ms": b_k2["bound_ms"],
+        "reorder_ms_initial_state": t_init["K2"],
+        "stage_ms": t_later["stage"],
+    }
+    return k1, b5
 
 
 #: B3 before its redesign (one thread per receiver), as phase 10c of this
@@ -982,11 +1254,11 @@ def phase_tree_cli(dev, smi):
         zero_launch_counts()
         out = run_cli(cli, argv)
         counts = launch_counts()
-        # one build (B5) and one B3 launch per step; the diagnostics line at
-        # the last step builds once more and runs one group walk (B4, then B3
-        # over its deferred mask), as in JAX
-        if counts != {"B1": 0, "B2": 0, "B3": STEPS + 1, "B4": 1, "B4 eval": 1,
-                      "B5": STEPS + 1}:
+        # one sort stage (K1, K2), one build (B5) and one B3 launch per step;
+        # the diagnostics line at the last step sorts and builds once more and
+        # runs one group walk (B4, then B3 over its deferred mask), as in JAX
+        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B5=STEPS + 1, K1=STEPS + 1,
+                                     K2=STEPS + 1):
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1000,10 +1272,11 @@ def phase_tree_cli(dev, smi):
         init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the tree run changed the mass multiset")
-    print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches "
-          f"and {counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; "
+    print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches, "
+          f"{counts['K1']} key kernel (K1) launches, {counts['K2']} reorders (K2) and "
+          f"{counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; "
           f"[{smi}]")
-    return counts["B3"]
+    return counts
 
 
 def phase_b4(dev, smi, mhz):
@@ -1284,7 +1557,8 @@ def phase_host(dev, smi, mhz):
     from wgpu_n_body_tpu_torch.native.build import build_host_tree
     from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
     from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
-    from wgpu_n_body_tpu_torch.ops.tree_build import morton_order, morton_sort
+    from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
     from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
     from wgpu_n_body_tpu_torch.ops.tree_walk import walk_counts
     from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams, state_from_numpy
@@ -1364,9 +1638,8 @@ def phase_host(dev, smi, mhz):
     pb = SimParams(particle_num=n)
     tpb = TreeParams(theta=0.5, leaf_bucket=1, walk="per_particle")
     st = state_from_numpy(pos, zeros, zeros, mass, dev)
-    perm, _, _ = morton_order(st.pos, tpb.max_depth)
-    ssd, bound_d, keys_d = morton_sort(st, tpb.max_depth)
-    dtree = build_tree_cuda(ssd, keys_d, bound_d, tpb)
+    perm, bound_d, keys_d = morton_order_cuda(st.pos, tpb.max_depth)
+    ssd, dtree = build_tree_cuda(st, perm, keys_d, bound_d, tpb)
     if bool(dtree.overflowed):
         fail("14b: the device arena with singleton leaves overflowed")
     counted = tree_walk_cuda.tree_forces_counts_cuda
@@ -1417,7 +1690,7 @@ def phase_host(dev, smi, mhz):
     rows = outside.nonzero().flatten()
     for what, srt, by, tree_ in (("device", ssd, perm, dtree), ("host", ssh, order, htree)):
         inv = torch.empty_like(by)
-        inv[by] = torch.arange(n, device=dev)
+        inv[by] = torch.arange(n, dtype=by.dtype, device=dev)
         want = walk_counts(srt.pos[inv[rows]], tree_, tpb)[:, :3]
         got = (cnt_dev if what == "device" else cnt_host)[rows].long()
         if not torch.equal(got, want):
@@ -1470,7 +1743,7 @@ def phase_host(dev, smi, mhz):
         zero_launch_counts()
         out = run_cli(cli, argv)
         counts = launch_counts()
-        if counts != {"B1": 0, "B2": 0, "B3": steps, "B4": 0, "B4 eval": 0, "B5": 0}:
+        if counts != expected_counts(B3=steps):
             fail(f"cli headless --sim tree-host, {steps} steps, launched {counts}")
         us = float(re.search(r"mean: (\S+) us/step", out).group(1))
         ck = load_checkpoint(ckpt, dev)
@@ -1582,6 +1855,10 @@ def phase_group_cli(dev, smi):
     from wgpu_n_body_tpu_torch import cli
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.ops.morton import split_levels
+    from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import tile_setup
     from wgpu_n_body_tpu_torch.params import SimParams
     from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -1593,11 +1870,11 @@ def phase_group_cli(dev, smi):
         out = run_cli(cli, argv)
         counts = launch_counts()
         diags = re.findall(r"'walk_deferred': (\d+)", out)
-        # each step builds once (B5) and walks once (B4, then B3 over its
-        # deferred mask), and so does each diagnostics line
+        # each step sorts once (K1, K2), builds once (B5) and walks once (B4,
+        # then B3 over its deferred mask), and so does each diagnostics line
         walks = STEPS + len(diags)
-        if len(diags) != 1 or counts != {"B1": 0, "B2": 0, "B3": walks, "B4": walks,
-                                         "B4 eval": walks, "B5": walks}:
+        if len(diags) != 1 or counts != expected_counts(B3=walks, B4=walks, B4_eval=walks,
+                                                        B5=walks, K1=walks, K2=walks):
             fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1612,14 +1889,27 @@ def phase_group_cli(dev, smi):
         init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the group-walk run changed the mass multiset")
+    # the step's tiles come from the build's split levels: on the last state,
+    # integer-equal to those of the plain split levels of the keys
+    tp = sim.add_params
+    perm, bound_, keys = morton_order_cuda(st.pos, tp.max_depth)
+    _, tree = build_tree_cuda(st, perm, keys, bound_, tp)
+    got, want = tile_setup(keys, N_TREE, tp, split=tree.split), tile_setup(keys, N_TREE, tp)
+    if not (torch.equal(tree.split.long(), split_levels(keys, tp.max_depth))
+            and all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                    for a, b in zip(got, want))):
+        fail("the tiles from the build's split levels differ from the plain split levels' tiles")
+    del perm, keys, tree, got, want
     pool = re.findall(r"'walk_pool_deferred': (\d+)", out)
     if pool != ["0"]:
         fail(f"the N=4M diagnostics report pool deferrals {pool}")
-    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): B5 builds "
-          f"{counts['B5']}, B4 walk {counts['B4']} and evaluation {counts['B4 eval']}, B3 "
-          f"{counts['B3']} launches in {STEPS} steps + {len(diags)} diagnostics (walk_deferred "
-          f"{diags[0]}, walk_pool_deferred {pool[0]}), {us:.1f} us/step; [{smi}]")
-    return counts["B4"], counts["B4 eval"], counts["B5"]
+    print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, B5 builds {counts['B5']}, B4 walk {counts['B4']} "
+          f"and evaluation {counts['B4 eval']}, B3 {counts['B3']} launches in {STEPS} steps + "
+          f"{len(diags)} diagnostics (walk_deferred {diags[0]}, walk_pool_deferred {pool[0]}), "
+          f"{us:.1f} us/step; the tiles from the build's split levels equal the plain ones; "
+          f"[{smi}]")
+    return counts
 
 
 def main() -> None:
@@ -1633,6 +1923,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch.models import NaiveSim
         from wgpu_n_body_tpu_torch.native import build as native_build
         from wgpu_n_body_tpu_torch.ops import (
+            morton_cuda,
             naive_cuda,
             tree_build_cuda,
             tree_walk_cuda,
@@ -1662,13 +1953,14 @@ def main() -> None:
         t = time.perf_counter()
         return (*native_build.build(), time.perf_counter() - t)
 
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=5)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
     host_lib = pool.submit(timed_host_build)  # native/octree.cpp, by g++
     builds = {
         "B1/B2": pool.submit(naive_cuda.build),
         "B3": pool.submit(tree_walk_cuda.build),
         "B4": pool.submit(tree_walk_group_cuda.build),
         "B5": pool.submit(tree_build_cuda.build),
+        "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -1781,7 +2073,7 @@ def main() -> None:
         counts = launch_counts()
         launches = counts["B1"]
         plan = naive_cuda.LAST_PLAN  # the plan of the run's last launch
-        if counts != {"B1": STEPS, "B2": 0, "B3": 0, "B4": 0, "B4 eval": 0, "B5": 0}:
+        if counts != expected_counts(B1=STEPS):
             fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
@@ -1830,13 +2122,14 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B5"):
+    for key in ("B3", "B4", "B5", "K1"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
         tree_ptxas[key] = ptxas_kernels(blog)
-    for name, regs, stores, loads in tree_ptxas["B5"]:
-        print(f"7 B5 ptxas {re.search(r'tree_[a-z]+_kernel', name).group(0)}: {regs} registers, "
+    for name, regs, stores, loads in tree_ptxas["B5"] + tree_ptxas["K1"]:
+        short = re.search(r"(tree|morton)_[a-z]+_kernel|cub\w*?(Onesweep|Histogram)\w*?Kernel", name)
+        print(f"7 ptxas {short.group(0) if short else name}: {regs} registers, "
               f"{stores} bytes spill stores, {loads} bytes spill loads")
 
     b2 = phase_b2(dev, smi, mhz)
@@ -1849,16 +2142,30 @@ def main() -> None:
              for name, regs, stores, _ in tree_ptxas["B5"]]
     b5["registers"] = {name: regs for name, regs, _ in short}
     b5["spill_store_bytes"] = {name: stores for name, _, stores in short}
+    k1, b5_main_input = phase_sort(dev, smi, mhz)
+    b5.update(b5_main_input)
+    for name, regs, stores, _ in tree_ptxas["K1"]:
+        if "morton_keys_kernel" in name:
+            k1["registers"], k1["spill_store_bytes"] = regs, stores
     b3 = phase_b3(dev, smi, mhz)
-    b3["launches_per_particle_path"] = phase_tree_cli(dev, smi)
+    per_particle = phase_tree_cli(dev, smi)
+    b3["launches_per_particle_path"] = per_particle["B3"]
+    b5["launches_per_particle_path"] = per_particle["B5"]
+    k1["launches_per_particle_path"] = per_particle["K1"]
     b4 = phase_b4(dev, smi, mhz)
-    b4["launches"], b4["launches_eval"], b5["launches"] = phase_group_cli(dev, smi)
+    main_path = phase_group_cli(dev, smi)
+    b4["launches"], b4["launches_eval"] = main_path["B4"], main_path["B4 eval"]
+    b5["launches"], b5["reorder_launches"] = main_path["B5"], main_path["K2"]
+    k1["launches"] = main_path["K1"]
     # this slice's main path: B3 is the whole force of the tree-host backend
     b3["launches"], host_record = phase_host(dev, smi, mhz)
     b3.update(host_record)
 
+    kernels = [b1, b2, b3, b4, b5, k1]
+    for k in kernels:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -138,7 +138,8 @@ def test_morton_keys_match_manual_interleave():
 @pytest.mark.parametrize("scene", SCENES)
 def test_morton_keys_and_permutation_equal_jax(scene, jax_orders):
     pos = _scene(scene)["pos"]
-    perm, bound, (hi, lo) = morton_order(torch.from_numpy(pos), DEPTH)
+    perm, bound, keys = morton_order(torch.from_numpy(pos), DEPTH)
+    hi, lo = morton.unpack_keys(keys, DEPTH)
     jperm, jbound, jhi, jlo = jax_orders[scene]
     assert bound.dtype == torch.float32 and float(bound) == jbound
     np.testing.assert_array_equal(hi.numpy(), jhi)
@@ -163,7 +164,7 @@ def test_quantize_and_keys_equal_jax_at_each_depth(depth):
     np.testing.assert_array_equal(lo.numpy(), _i64(jlo))
     order = np.lexsort((_i64(jlo), _i64(jhi)))
     hi_s, lo_s = hi[order], lo[order]
-    got = morton.split_levels(hi_s, lo_s, depth).numpy()
+    got = morton.split_levels(morton.pack_keys(hi_s, lo_s, depth), depth).numpy()
     want = _i64(jax_morton.split_levels(jhi[order], jlo[order], depth))
     np.testing.assert_array_equal(got, want)
     for level in (0, 1, min(depth, 10), depth):
@@ -176,7 +177,9 @@ def test_quantize_and_keys_equal_jax_at_each_depth(depth):
 @pytest.mark.parametrize("scene", SCENES)
 def test_split_levels_equal_jax(scene, jax_orders):
     _, _, jhi, jlo = jax_orders[scene]
-    got = morton.split_levels(torch.from_numpy(jhi), torch.from_numpy(jlo), DEPTH)
+    got = morton.split_levels(
+        morton.pack_keys(torch.from_numpy(jhi), torch.from_numpy(jlo), DEPTH), DEPTH
+    )
     want = jax_morton.split_levels(
         jnp.asarray(jhi, jnp.uint32), jnp.asarray(jlo, jnp.uint32), DEPTH
     )

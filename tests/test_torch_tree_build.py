@@ -16,7 +16,14 @@ import torch
 from wgpu_n_body_tpu import params as jp
 from wgpu_n_body_tpu.ops import tree_build as jax_build
 from wgpu_n_body_tpu_torch.ops import tree_build_cuda
-from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, build_tree, morton_sort, prefix_sums
+from wgpu_n_body_tpu_torch.ops.tree_build import (
+    NO_CHILD,
+    build_tree,
+    morton_order,
+    morton_sort,
+    prefix_sums,
+    reorder,
+)
 from wgpu_n_body_tpu_torch.ops.tree_build_cases import build_cases
 from wgpu_n_body_tpu_torch.params import ParticleState, TreeParams, state_from_numpy
 
@@ -32,6 +39,15 @@ def _sorted(case):
     tp = TreeParams(**ENGINE, **case.tree_kw)
     ss, bound, keys = morton_sort(state_from_numpy(**case.state, device="cpu"), tp.max_depth)
     return ss, keys, bound, tp
+
+
+def _unsorted(case):
+    """(state in input order, perm, sorted keys, bound, params): what the
+    build wrapper takes."""
+    tp = TreeParams(**ENGINE, **case.tree_kw)
+    state = state_from_numpy(**case.state, device="cpu")
+    perm, bound, keys = morton_order(state.pos, tp.max_depth)
+    return state, perm, keys, bound, tp
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -69,9 +85,11 @@ def test_plain_build_equals_jax(name):
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     tree_build_cuda.LAUNCHES = 0
     for name in ("bucket32", "overflow", "n1"):
-        ss, keys, bound, tp = _sorted(CASES[name])
-        got = tree_build_cuda.build_tree_cuda(ss, keys, bound, tp)
+        state, perm, keys, bound, tp = _unsorted(CASES[name])
+        got_ss, got = tree_build_cuda.build_tree_cuda(state, perm, keys, bound, tp)
+        ss = reorder(state, perm)
         want = build_tree(ss, keys, bound, tp)
+        assert all(torch.equal(a, b) for a, b in zip(got_ss, ss))
         for a, b in zip(got[:7], want[:7]):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert torch.equal(a, b) or (torch.isnan(a) == torch.isnan(b)).all()
@@ -81,13 +99,15 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
 
 def test_plain_build_takes_another_builds_sums():
     # what the card's check relies on: the plain version differenced from given sums
-    ss, keys, bound, tp = _sorted(CASES["bucket32"])
+    state, perm, keys, bound, tp = _unsorted(CASES["bucket32"])
+    ss = reorder(state, perm)
     want = build_tree(ss, keys, bound, tp)
     sums = prefix_sums(ss)
     assert sums.shape == (4, ss.pos.shape[0] + 1) and sums.dtype == torch.float64
     assert float(sums[0, -1]) == pytest.approx(float(ss.mass.double().sum()), rel=1e-14)
-    got, got_sums = tree_build_cuda.build_tree_cuda_with_sums(ss, keys, bound, tp)
-    assert torch.equal(got_sums, sums)
+    got_ss, got, got_sums, _ = tree_build_cuda.build_tree_cuda_with_sums(
+        state, perm, keys, bound, tp)
+    assert torch.equal(got_sums, sums) and torch.equal(got_ss.mass, ss.mass)
     for tree in (got, build_tree(ss, keys, bound, tp, sums=sums)):
         for a, b in zip(tree[:7], want[:7]):
             assert torch.equal(a, b)
@@ -107,12 +127,15 @@ def _replaced(ss, **kw):
                                   "bound_shape", "pos_strided", "mixed_devices",
                                   "other_device", "depth", "bucket"])
 def test_wrapper_rejects(what):
-    ss, keys, bound, tp = _sorted(CASES["depth4"])
+    ss, perm, keys, bound, tp = _unsorted(CASES["depth4"])
     n = ss.pos.shape[0]
-    call = tree_build_cuda.build_tree_cuda
+
+    def call(ss, keys, bound, tp):
+        return tree_build_cuda.build_tree_cuda(ss, perm, keys, bound, tp)
+
     if what == "keys_int32":
-        with pytest.raises(TypeError, match=r"keys\[0\] must be torch.int64"):
-            call(ss, (keys[0].to(torch.int32), keys[1]), bound, tp)
+        with pytest.raises(TypeError, match=r"keys must be torch.int64"):
+            call(ss, keys.to(torch.int32), bound, tp)
     elif what == "pos_float64":
         with pytest.raises(TypeError, match="pos must be torch.float32"):
             call(_replaced(ss, pos=ss.pos.double()), keys, bound, tp)
@@ -136,7 +159,8 @@ def test_wrapper_rejects(what):
     elif what == "other_device":
         meta = ParticleState(*(t.to("meta") for t in ss))
         with pytest.raises(ValueError, match="takes CUDA or CPU tensors"):
-            call(meta, tuple(k.to("meta") for k in keys), bound.to("meta"), tp)
+            tree_build_cuda.build_tree_cuda(meta, perm.to("meta"), keys.to("meta"),
+                                            bound.to("meta"), tp)
     elif what == "depth":
         with pytest.raises(ValueError, match="max_depth"):
             call(ss, keys, bound, TreeParams(max_depth=21))
@@ -147,13 +171,13 @@ def test_wrapper_rejects(what):
 
 def test_build_bytes_is_the_hand_count():
     # n = 10 bodies, an arena of cap = 20 rows (+ the sentinel):
-    #   read   10 * (8 + 8 keys, 12 pos, 4 mass) + 4 (bound)          =  324
+    #   read   10 * (8 packed key, 12 pos, 4 mass) + 4 (bound)        =  244
     #   prefix 11 entries * (4 float64 + 1 int32), written and read   =  792
     #   write  21 rows * (32 nodes_f32 + 3 * 4 ints) + 4 + 4 + 1      =  933
-    assert tree_build_cuda.build_bytes(10, 20) == 324 + 792 + 933 == 2049
+    assert tree_build_cuda.build_bytes(10, 20) == 244 + 792 + 933 == 1969
     n, cap = 4_000_000, TreeParams().capacity(4_000_000)
     assert cap == 2_000_001
-    assert tree_build_cuda.build_bytes(n, cap) == 32 * n + 4 + 72 * (n + 1) + 44 * (cap + 1) + 9
+    assert tree_build_cuda.build_bytes(n, cap) == 24 * n + 4 + 72 * (n + 1) + 44 * (cap + 1) + 9
 
 
 def test_treesim_builds_through_the_wrapper(monkeypatch):

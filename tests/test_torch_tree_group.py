@@ -17,7 +17,7 @@ from wgpu_n_body_tpu import params as jp
 from wgpu_n_body_tpu.ops import tree_build as jax_build
 from wgpu_n_body_tpu.ops.tree_walk_group import _tile_assignment as jax_tile_assignment
 from wgpu_n_body_tpu.ops.tree_walk_group import group_tree_forces as jax_group_tree_forces
-from wgpu_n_body_tpu_torch.ops import tree_walk_cuda, tree_walk_group_cuda
+from wgpu_n_body_tpu_torch.ops import morton, tree_walk_cuda, tree_walk_group_cuda
 from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense
 from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_order, morton_sort
 from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
@@ -104,12 +104,13 @@ def jax_skip():
 def test_tile_assignment_equals_jax(kind, g):
     n = 700 if g <= 100 else 2048
     s = _np_state(1, n, kind)
-    _, _, (hi, lo) = morton_order(torch.from_numpy(s["pos"]), DEPTH)
+    _, _, keys = morton_order(torch.from_numpy(s["pos"]), DEPTH)
+    hi, lo = morton.unpack_keys(keys, DEPTH)
     want = jax_tile_assignment(
         (jnp.asarray(hi.numpy(), jnp.uint32), jnp.asarray(lo.numpy(), jnp.uint32)),
         n, DEPTH, g, 64,
     )
-    got = _tile_assignment((hi, lo), n, DEPTH, g, 64)
+    got = _tile_assignment(morton.split_levels(keys, DEPTH), n, DEPTH, g, 64)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # tile_id
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))  # lstar
     assert got[2:] == tuple(want[2:])  # t_cap, t_blk, ta_blk
@@ -221,7 +222,7 @@ def test_wrapper_on_cpu_takes_plain_version_and_other_devices_raise():
         )
     meta = [t.to("meta") for t in (ss.pos, ss.mass)]
     meta_tree = type(tree)(*(t.to("meta") if torch.is_tensor(t) else t for t in tree))
-    meta_keys = tuple(k.to("meta") for k in keys)
+    meta_keys = keys.to("meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tree_walk_group_cuda.group_tree_forces_cuda(
             meta[0], meta[0], meta[1], meta_tree, meta_keys, params, ttp

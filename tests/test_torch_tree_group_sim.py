@@ -40,11 +40,10 @@ def test_receiver_shard_matches_jax_with_deferral():
     # of the shard's tiles defer, so the fallback's self index is offset too
     s = _np_state(6, 300, "clustered")
     want, want_def = _jax_walk(s, gid=slice(100, 228), **DEFER_KW)
-    ss, tree, (hi, lo), ttp = _port(s, **DEFER_KW)
+    ss, tree, keys, ttp = _port(s, **DEFER_KW)
     _, params = _sim_params(300)
     got, stats = group_tree_forces(
-        ss.pos[100:228], ss.pos, ss.mass, tree, (hi[100:228], lo[100:228]), params, ttp,
-        gid_offset=100,
+        ss.pos[100:228], ss.pos, ss.mass, tree, keys[100:228], params, ttp, gid_offset=100,
     )
     assert 0 < int(stats.deferred) == want_def < 128
     np.testing.assert_allclose(got.numpy(), want, **JAX_TOL)

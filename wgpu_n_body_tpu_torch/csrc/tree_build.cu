@@ -3,14 +3,19 @@
 // Replaces the XLA ops of wgpu_n_body_tpu/ops/tree_build.py::build_tree
 // (with ops/morton.py::split_levels and the scans of ops/scan.py), which the
 // port first carried as ~300 torch kernels over (depth+1) x n level arrays
-// (ops/tree_build.py::build_tree, now the plain version). From Morton-sorted
-// bodies and their (hi, lo) keys it writes the DFS node arena: nodes_f32,
-// skip, first, count, num_nodes, root_width, overflowed.
+// (ops/tree_build.py::build_tree, now the plain version), and the gathers of
+// ops/tree_build.py::morton_sort. From the bodies in their input order, the
+// sort's permutation and the sorted packed keys (csrc/morton_keys.cu: one
+// 3*depth-bit key, level L at bits [3(depth-L), 3(depth-L)+2]) it writes the
+// sorted state and the DFS node arena: nodes_f32, skip, first, count,
+// num_nodes, root_width, overflowed, and the split levels.
 //
 // The cell of a node at level L is a run of equal 3L-bit key prefixes, and
 // DFS node order is lexicographic (first particle, level). Four kernels:
 //
-// 1. tree_split_kernel, one thread per particle i:
+// 1. tree_reorder_kernel, one thread per sorted slot i:
+//      the body perm[i]'s pos, vel, acc and mass into slot i of the sorted
+//      state (the state's reorder: bit-equal to x[perm]);
 //      split[i]  = first level at which key[i] differs from key[i-1]
 //                  (0 for i = 0, depth+1 for equal keys): i starts a run at
 //                  exactly the levels >= split[i];
@@ -40,11 +45,11 @@
 //        share an offset with their successor, and the last of them owns);
 //      level = split[i] + (k - offset(i));
 //      run end: the first j > i whose level-L key prefix differs from i's.
-//        The keys are sorted, so the prefix is monotone: a galloping search
-//        from i (1, 2, 4, ... ahead) brackets the end and a binary search
-//        pins it, 2*log2(count) key loads. A leaf costs a handful of loads
-//        near i, the root 2*log2(n) across the array, and no table of run
-//        ends per level exists;
+//        The keys are sorted, so the prefix key >> 3(depth-L) is monotone:
+//        a galloping search from i (1, 2, 4, ... ahead) brackets the end and
+//        a binary search pins it, 2*log2(count) key loads. A leaf costs a
+//        handful of loads near i, the root 2*log2(n) across the array, and
+//        no table of run ends per level exists;
 //      count = end - i, skip = offset(end) (unclamped, as the plain
 //        version: a truncated subtree's skip may point past num_nodes),
 //      totals = sums(end) - sums(i), cog = total m*p / total m (IEEE
@@ -66,13 +71,16 @@
 // range sums to (hi[b] - hi[a]) + (lo[b] - lo[a]) in float32. Given these
 // prefix sums, the plain version returns the same arena bit for bit.
 //
-// What bounds it on H100: bytes, and few of them. A build reads 32 bytes per
-// particle and writes 44 per arena row; the in-block scans add 36 per
-// particle written once and read where a node begins or ends. The emission's
-// searches are dependent loads, a few dozen per live row, mostly within a few
-// cache lines of the owner; dead rows (half the arena at the default
-// capacity) only store the sentinel. Nothing is read back to the host,
-// nothing is allocated here, and every launch goes on the caller's stream.
+// What bounds it on H100: bytes, and few of them. The reorder reads 52 bytes
+// per body (perm, the state's 40, the key) and writes 42; its loads of the
+// state are gathers, local once the state is sorted from the step before.
+// The build then reads 24 bytes per particle and writes 44 per arena row;
+// the in-block scans add 36 per particle written once and read where a node
+// begins or ends. The emission's searches are dependent loads, a few dozen
+// per live row, mostly within a few cache lines of the owner; dead rows
+// (half the arena at the default capacity) only store the sentinel. Nothing
+// is read back to the host, nothing is allocated here, and every launch goes
+// on the caller's stream.
 
 #include <cuda_runtime.h>
 
@@ -82,31 +90,37 @@ namespace {
 // (ops/tree_build.py::FAR).
 constexpr float kFar = 1e15f;
 
-// First level at which two keys differ; depth+1 when they are equal. hi
-// holds levels 1..d_hi (level L at bits [3*(d_hi-L)+2 : 3*(d_hi-L)]), lo the
-// levels d_hi+1..depth likewise (ops/morton.py).
-__device__ __forceinline__ int split_level(long long hi_a, long long lo_a,
-                                           long long hi_b, long long lo_b,
-                                           int depth) {
-  const int d_hi = depth < 10 ? depth : 10;
-  const long long xh = hi_a ^ hi_b;
-  if (xh != 0) return d_hi - (63 - __clzll(xh)) / 3;
-  const long long xl = lo_a ^ lo_b;
-  if (xl != 0) return depth - (63 - __clzll(xl)) / 3;
-  return depth + 1;
+// First level at which two packed keys differ; depth+1 when they are equal
+// (ops/morton.py::diff_levels).
+__device__ __forceinline__ int split_level(unsigned long long a,
+                                           unsigned long long b, int depth) {
+  const unsigned long long x = a ^ b;
+  return x != 0 ? depth - (63 - __clzll(static_cast<long long>(x))) / 3
+                : depth + 1;
 }
 
-__global__ void tree_split_kernel(const long long* __restrict__ hi,
-                                  const long long* __restrict__ lo,
-                                  unsigned char* __restrict__ split,
-                                  unsigned char* __restrict__ window, int n,
-                                  int depth, int bucket) {
+__global__ void tree_reorder_kernel(
+    const int* __restrict__ perm, const unsigned long long* __restrict__ keys,
+    const float* __restrict__ pos, const float* __restrict__ vel,
+    const float* __restrict__ acc, const float* __restrict__ mass,
+    float* __restrict__ pos_s, float* __restrict__ vel_s,
+    float* __restrict__ acc_s, float* __restrict__ mass_s,
+    unsigned char* __restrict__ split, unsigned char* __restrict__ window,
+    int n, int depth, int bucket) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long h = hi[i], l = lo[i];
-  split[i] = i == 0 ? 0 : split_level(hi[i - 1], lo[i - 1], h, l, depth);
+  const size_t p = static_cast<size_t>(perm[i]);
+  const size_t d = 3 * static_cast<size_t>(i);
+  for (int q = 0; q < 3; ++q) {
+    pos_s[d + q] = pos[3 * p + q];
+    vel_s[d + q] = vel[3 * p + q];
+    acc_s[d + q] = acc[3 * p + q];
+  }
+  mass_s[i] = mass[p];
+  const unsigned long long k = keys[i];
+  split[i] = i == 0 ? 0 : split_level(keys[i - 1], k, depth);
   const long long j = static_cast<long long>(i) + bucket;
-  window[i] = j < n ? split_level(h, l, hi[j], lo[j], depth) : 0;
+  window[i] = j < n ? split_level(k, keys[j], depth) : 0;
 }
 
 // Particles per block of the scans: 32 warps, one particle per thread.
@@ -239,11 +253,11 @@ __device__ __forceinline__ float range_total(double a, double b) {
 }
 
 __global__ void tree_emit_kernel(
-    const long long* __restrict__ hi, const long long* __restrict__ lo,
-    const float* __restrict__ pos, const unsigned char* __restrict__ split,
-    const float* __restrict__ bound, const int* __restrict__ in_block_c,
-    const double* __restrict__ in_block_w, const int* __restrict__ prefix_c,
-    const double* __restrict__ prefix_w, float4* __restrict__ nodes,
+    const unsigned long long* __restrict__ keys, const float* __restrict__ pos,
+    const unsigned char* __restrict__ split, const float* __restrict__ bound,
+    const int* __restrict__ in_block_c, const double* __restrict__ in_block_w,
+    const int* __restrict__ prefix_c, const double* __restrict__ prefix_w,
+    float4* __restrict__ nodes,
     int* __restrict__ skip, int* __restrict__ first, int* __restrict__ count,
     int* __restrict__ num_nodes_out, float* __restrict__ root_width_out,
     unsigned char* __restrict__ overflowed_out, int n, int nb, int cap,
@@ -285,15 +299,9 @@ __global__ void tree_emit_kernel(
   level = level < 0 ? 0 : (level > depth ? depth : level);
 
   // run end: the first j > i outside i's cell at `level`
-  const int d_hi = depth < 10 ? depth : 10;
-  const bool in_hi = level <= d_hi;
-  const int shift = in_hi ? 3 * (d_hi - level) : 3 * (depth - level);
-  const long long hi_i = hi[i];
-  const long long want = in_hi ? (hi_i >> shift) : (lo[i] >> shift);
-  auto same_cell = [&](long long j) {
-    return in_hi ? (hi[j] >> shift) == want
-                 : (hi[j] == hi_i && (lo[j] >> shift) == want);
-  };
+  const int shift = 3 * (depth - level);
+  const unsigned long long want = keys[i] >> shift;
+  auto same_cell = [&](long long j) { return (keys[j] >> shift) == want; };
   long long in = i, step = 1;  // `in` is inside the cell
   while (i + step < n && same_cell(i + step)) {
     in = i + step;
@@ -356,11 +364,38 @@ __global__ void tree_emit_kernel(
 // (ceil(n / this) totals, one more prefix) by it.
 extern "C" int tree_build_scan_block() { return kScan; }
 
-// The four kernels of one build, in order, on `stream`. Returns the
-// cudaError_t of the first launch that failed (0 = success).
+// The reorder of n bodies into the sorted order, with the split and window
+// levels of the sorted keys, on `stream`. Returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int tree_reorder_launch(const void* perm, const void* keys,
+                                   const void* pos, const void* vel,
+                                   const void* acc, const void* mass,
+                                   void* pos_s, void* vel_s, void* acc_s,
+                                   void* mass_s, void* split, void* window,
+                                   int n, int depth, int bucket, int block,
+                                   int device, void* stream) {
+  if (n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tree_reorder_kernel<<<(n + block - 1) / block, block, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(perm),
+      static_cast<const unsigned long long*>(keys),
+      static_cast<const float*>(pos), static_cast<const float*>(vel),
+      static_cast<const float*>(acc), static_cast<const float*>(mass),
+      static_cast<float*>(pos_s), static_cast<float*>(vel_s),
+      static_cast<float*>(acc_s), static_cast<float*>(mass_s),
+      static_cast<unsigned char*>(split), static_cast<unsigned char*>(window),
+      n, depth, bucket);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The other three kernels of one build, in order, on `stream`, after the
+// reorder. Returns the cudaError_t of the first launch that failed
+// (0 = success).
 extern "C" int tree_build_launch(
-    const void* hi, const void* lo, const void* pos, const void* mass,
-    const void* bound, void* split, void* window, void* in_block_c,
+    const void* keys, const void* pos, const void* mass,
+    const void* bound, const void* split, const void* window, void* in_block_c,
     void* in_block_w, void* block_c, void* block_w, void* prefix_c,
     void* prefix_w, void* nodes, void* skip, void* first, void* count,
     void* num_nodes, void* root_width, void* overflowed, int n, int cap,
@@ -370,12 +405,6 @@ extern "C" int tree_build_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (n + kScan - 1) / kScan;
-  tree_split_kernel<<<(n + block - 1) / block, block, 0, s>>>(
-      static_cast<const long long*>(hi), static_cast<const long long*>(lo),
-      static_cast<unsigned char*>(split), static_cast<unsigned char*>(window),
-      n, depth, bucket);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   tree_count_kernel<<<nb, kScan, 0, s>>>(
       static_cast<const unsigned char*>(split),
       static_cast<const unsigned char*>(window),
@@ -391,7 +420,7 @@ extern "C" int tree_build_launch(
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   tree_emit_kernel<<<(cap + block) / block, block, 0, s>>>(
-      static_cast<const long long*>(hi), static_cast<const long long*>(lo),
+      static_cast<const unsigned long long*>(keys),
       static_cast<const float*>(pos), static_cast<const unsigned char*>(split),
       static_cast<const float*>(bound), static_cast<const int*>(in_block_c),
       static_cast<const double*>(in_block_w),

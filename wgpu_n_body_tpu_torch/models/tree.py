@@ -3,10 +3,13 @@
 
 One step, all on the state's device:
 
-    morton sort (== the reference's DFS particle reorder)
-    -> arena build (ops/tree_build_cuda.py: the kernels of
-       csrc/tree_build.cu, or the plain ops/tree_build.py for a CPU state)
+    Morton keys and their stable sort (ops/morton_cuda.py: the key kernel
+       of csrc/morton_keys.cu and CUB's radix sort)
+    -> the reorder (== the reference's DFS particle reorder) and the arena
+       build (ops/tree_build_cuda.py: the kernels of csrc/tree_build.cu)
     -> leapfrog with the theta walk as the force
+
+each with its plain version (ops/tree_build.py) for a CPU state.
 
 Like the reference, TreeSim reorders particles every step and returns the
 sorted state. The force is the default group walk (``walk="group"``: the
@@ -27,7 +30,7 @@ import torch
 
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
-from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
+from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
@@ -73,11 +76,13 @@ class TreeSim(Simulator):
         return super().init_state(generator, init_fn, device)
 
     def _sort_build(self, state: ParticleState):
+        """(sorted state, arena, sorted packed keys): the key kernel in the
+        profiler range ``morton_keys``, the sort in ``morton_sort``, the
+        reorder and the build in ``tree_build``."""
         tp = self.add_params
-        with trace_scope("morton_sort"):
-            state_sorted, bound, keys = morton_sort(state, tp.max_depth)
+        perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
         with trace_scope("tree_build"):
-            tree = build_tree_cuda(state_sorted, keys, bound, tp)
+            state_sorted, tree = build_tree_cuda(state, perm, keys, bound, tp)
         return state_sorted, tree, keys
 
     def step_fn(self) -> StepFn:

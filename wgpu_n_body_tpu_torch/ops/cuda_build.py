@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 #: Flags every kernel of the port is built with: Hopper (``sm_90a``), no
 #: ``--use_fast_math`` (IEEE divide and sqrt, denormals kept, unless a
 #: kernel asks for an approximation in inline PTX), and ``-Xptxas -v`` so
@@ -31,6 +33,13 @@ BASE_FLAGS = [
 #: constants) still finds them.
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def launch_target(device: torch.device) -> tuple[int, int]:
+    """(device index, handle of its current stream) of a CUDA ``device``:
+    the last two arguments of every launcher."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
 
 
 def nvcc() -> str:

@@ -6,11 +6,15 @@ with x as the lowest interleaved bit, so sorting by Morton key is the
 reference's per-step reorder, and the octree cells at depth L are runs of
 equal 3L-bit key prefixes.
 
-Keys are 3*D bits (D = max depth <= 20), split as in the JAX package into
+Keys are 3*D bits (D = max depth <= 20). The JAX package splits them into
 (hi, lo): hi holds levels 1..min(D, 10) in its low 3*min(D, 10) bits, lo
-the levels below. Both halves are at most 30 bits, so they are computed
-and returned as int64 tensors holding the JAX package's uint32 values
-bit for bit (torch has no usable uint32 arithmetic on CUDA).
+the levels below; ``morton_keys`` returns that pair as int64 tensors
+holding the JAX package's uint32 values bit for bit (torch has no usable
+uint32 arithmetic on CUDA). The port sorts and builds from one packed
+int64 key, ``hi << 3*d_lo | lo`` (d_lo = D - min(D, 10)): 48 bits at the
+default depth 16, 60 at depth 20, level L at bits [3(D-L), 3(D-L)+2].
+``packed_keys`` is the plain version of the key kernel
+(``csrc/morton_keys.cu``); ``unpack_keys`` gives back (hi, lo).
 """
 
 from __future__ import annotations
@@ -70,33 +74,66 @@ def morton_keys(cell: torch.Tensor, depth: int) -> tuple[torch.Tensor, torch.Ten
     return hi, lo
 
 
+def pack_keys(hi: torch.Tensor, lo: torch.Tensor, depth: int) -> torch.Tensor:
+    """The packed key ``hi << 3*d_lo | lo`` of (hi, lo) keys at ``depth``."""
+    return (hi << (3 * (depth - min(depth, 10)))) | lo
+
+
+def unpack_keys(key: torch.Tensor, depth: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of packed keys at ``depth``: the JAX package's two halves."""
+    lo_bits = 3 * (depth - min(depth, 10))
+    return key >> lo_bits, key & ((1 << lo_bits) - 1)
+
+
+def bound_of(pos: torch.Tensor) -> torch.Tensor:
+    """The root's half width max(|coord|, 1) (tree.rs:424-446), float32."""
+    one = torch.ones((), dtype=pos.dtype, device=pos.device)
+    return torch.maximum(one, pos.abs().amax())
+
+
+def packed_keys(pos: torch.Tensor, bound: torch.Tensor, depth: int) -> torch.Tensor:
+    """(N,) int64 packed Morton keys of float32 positions: the plain version
+    of ``morton_keys_kernel`` (``quantize``, ``morton_keys``, packed)."""
+    return pack_keys(*morton_keys(quantize(pos, bound, depth), depth), depth)
+
+
 def highest_bit(v: torch.Tensor) -> torch.Tensor:
-    """Index of the highest set bit of each non-negative int64 below 2^53
-    (0 for 0): the exact integer ``31 - clz`` of 32-bit values.
+    """Index of the highest set bit of each non-negative int64 (0 for 0):
+    the exact integer ``63 - clzll``.
 
-    The binary exponent of the value as a float64, which holds every such
-    integer exactly (unlike a float ``log2``, which can round up at powers
-    of two); three kernels instead of a 36-kernel binary search.
-    """
-    return torch.clamp(torch.frexp(v.to(torch.float64)).exponent.to(v.dtype) - 1, min=0)
+    The binary exponent of the value's high or low 32 bits as a float64,
+    which holds every such integer exactly (unlike a float ``log2``, which
+    can round up at powers of two, or the float64 of a 60-bit value)."""
+    high = v >> 32
+    part = torch.where(high != 0, high, v)
+    exp = torch.clamp(torch.frexp(part.to(torch.float64)).exponent.to(v.dtype) - 1, min=0)
+    return exp + torch.where(high != 0, 32, 0)
 
 
-def split_levels(hi: torch.Tensor, lo: torch.Tensor, depth: int) -> torch.Tensor:
-    """(n,) int64: the shallowest level at which key[i] differs from
-    key[i-1] — particle i starts a new cell run at exactly the levels
-    >= split_levels[i]. Element 0 is 0 (a run start everywhere); identical
-    adjacent keys give depth+1 (never a start)."""
-    d_hi = min(depth, 10)
-    xh = hi[1:] ^ hi[:-1]
-    xl = lo[1:] ^ lo[:-1]
-    # hi holds levels 1..d_hi, level L at bits [3*(d_hi-L)+2 : 3*(d_hi-L)];
-    # lo holds levels d_hi+1..depth likewise.
-    lvl = torch.where(
-        xh != 0,
-        d_hi - highest_bit(xh) // 3,
-        torch.where(xl != 0, depth - highest_bit(xl) // 3, depth + 1),
-    )
-    return torch.cat([torch.zeros(1, dtype=torch.int64, device=hi.device), lvl])
+def diff_levels(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tensor:
+    """int64: the shallowest level at which packed keys ``a`` and ``b``
+    differ, ``depth + 1`` where they are equal. Level L sits at bits
+    [3(depth-L), 3(depth-L)+2], so it is ``depth - highest_bit(a ^ b) // 3``."""
+    x = a ^ b
+    return torch.where(x != 0, depth - highest_bit(x) // 3, depth + 1)
+
+
+def split_levels(keys: torch.Tensor, depth: int) -> torch.Tensor:
+    """(n,) int64 of sorted packed keys: the shallowest level at which
+    key[i] differs from key[i-1] — particle i starts a new cell run at
+    exactly the levels >= split_levels[i]. Element 0 is 0 (a run start
+    everywhere); identical adjacent keys give depth+1 (never a start)."""
+    zero = torch.zeros(min(1, keys.shape[0]), dtype=torch.int64, device=keys.device)
+    return torch.cat([zero, diff_levels(keys[:-1], keys[1:], depth)])
+
+
+def window_levels(keys: torch.Tensor, depth: int, bucket: int) -> torch.Tensor:
+    """(n,) int64 of sorted packed keys: the shallowest level at which
+    key[i] differs from key[i+bucket], 0 where i + bucket >= n (the build
+    kernels' ``window``, ``csrc/tree_build.cu``)."""
+    n = keys.shape[0]
+    tail = torch.zeros(min(bucket, n), dtype=torch.int64, device=keys.device)
+    return torch.cat([diff_levels(keys[: max(n - bucket, 0)], keys[bucket:], depth), tail])
 
 
 def prefix_at_level(

@@ -2,9 +2,11 @@
 ``wgpu_n_body_tpu/ops/tree_build.py`` (reference src/sims/tree.rs:417-602).
 
 The same construction as the JAX package, in torch ops (sort, scans,
-gathers), with results equal to it. ``build_tree`` is the plain version of
-the build kernels (``ops/tree_build_cuda.py``, ``csrc/tree_build.cu``),
-which build a CUDA state's arena; the Morton sort here serves both:
+gathers), with results equal to it. ``morton_order`` is the plain version
+of the key kernel and sort (``ops/morton_cuda.py``), ``build_tree`` of the
+build kernels (``ops/tree_build_cuda.py``, ``csrc/tree_build.cu``), which
+sort and build a CUDA state's arena. Keys are the packed int64 Morton keys
+of ``ops/morton.py``:
 
 - After the Morton sort, the cell of a node at level L is a run of equal
   3L-bit key prefixes. A node is real iff it is the root or its parent run
@@ -60,6 +62,11 @@ class TreeArrays(NamedTuple):
     root_width: () float32 — 2 * bound (tree.rs:450).
     overflowed: () bool — the unclamped node count exceeded cap.
     octets, octet_pts: the JAX octet engine's tables; always None here.
+    split:      (n,) uint8 — per sorted particle, the shallowest level at
+                which its key differs from its predecessor's
+                (``morton.split_levels``); the group walk's tile set-up
+                reads it on the card. None for an arena made elsewhere
+                (the host build).
 
     ``NO_CHILD`` is 3-state: 0 = internal, 1 = terminal cell of at most
     leaf_bucket particles, 2 = terminal cell at max_depth holding more
@@ -75,32 +82,32 @@ class TreeArrays(NamedTuple):
     overflowed: torch.Tensor
     octets: torch.Tensor | None = None
     octet_pts: torch.Tensor | None = None
+    split: torch.Tensor | None = None
 
 
 def morton_order(pos: torch.Tensor, depth: int):
-    """Morton ordering of positions: (perm, bound, sorted (hi, lo) keys).
+    """Morton ordering of positions: (perm (n,) int32, bound, sorted packed
+    keys (n,) int64).
 
     bound = max(|coord|, 1.0) (tree.rs:424-446). The sort is stable on the
-    62-bit key ``hi << 32 | lo``, so ties keep index order and ``perm``
-    equals the JAX package's ``(hi, lo, idx)`` lexsort.
+    packed key, so ties keep index order and ``perm`` equals the JAX
+    package's ``(hi, lo, idx)`` lexsort.
     """
-    one = torch.ones((), dtype=pos.dtype, device=pos.device)
-    bound = torch.maximum(one, pos.abs().amax())
-    hi, lo = morton.morton_keys(morton.quantize(pos, bound, depth), depth)
-    keys, perm = torch.sort((hi << 32) | lo, stable=True)
-    return perm, bound, (keys >> 32, keys & 0xFFFFFFFF)
+    bound = morton.bound_of(pos)
+    keys, perm = torch.sort(morton.packed_keys(pos, bound, depth), stable=True)
+    return perm.to(torch.int32), bound, keys
+
+
+def reorder(state: ParticleState, perm: torch.Tensor) -> ParticleState:
+    """The state in the order ``perm``: ``x[perm]`` for each field."""
+    return ParticleState(*(t[perm] for t in state))
 
 
 def morton_sort(state: ParticleState, depth: int):
-    """Sort particles by Morton key (the reference's per-step reorder)."""
+    """Sort particles by Morton key (the reference's per-step reorder):
+    (sorted state, bound, sorted packed keys)."""
     perm, bound, keys = morton_order(state.pos, depth)
-    sorted_state = ParticleState(
-        pos=state.pos[perm],
-        vel=state.vel[perm],
-        acc=state.acc[perm],
-        mass=state.mass[perm],
-    )
-    return sorted_state, bound, keys
+    return reorder(state, perm), bound, keys
 
 
 def prefix_sums(state_sorted: ParticleState) -> torch.Tensor:
@@ -114,7 +121,7 @@ def prefix_sums(state_sorted: ParticleState) -> torch.Tensor:
 
 def build_tree(
     state_sorted: ParticleState,
-    keys: tuple[torch.Tensor, torch.Tensor],
+    keys: torch.Tensor,
     bound: torch.Tensor,
     params: TreeParams,
     sums: torch.Tensor | None = None,
@@ -139,7 +146,6 @@ def build_tree(
     n = pos.shape[0]
     dev = pos.device
     cap = params.capacity(n)
-    hi, lo = keys
     root_width = (2.0 * bound).to(torch.float32)
     i64 = torch.int64
 
@@ -151,7 +157,7 @@ def build_tree(
     # begins exactly one row of n later, which reads back as end n. (The
     # JAX package's cummax/cummin over the level rows would run on the GPU
     # as one thread block per row.)
-    s = morton.split_levels(hi, lo, depth)
+    s = morton.split_levels(keys, depth)
     rows = (depth + 1) * n
     lv = torch.arange(depth + 1, dtype=i64, device=dev)[:, None]
     start = (s[None, :] <= lv).reshape(-1)
@@ -236,4 +242,5 @@ def build_tree(
         num_nodes=num_nodes.to(torch.int32),
         root_width=root_width,
         overflowed=num_nodes_raw > cap,
+        split=s.to(torch.uint8),
     )

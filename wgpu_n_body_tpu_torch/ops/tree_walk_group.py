@@ -97,9 +97,10 @@ def _window(x: torch.Tensor, w: int, op) -> torch.Tensor:
     return op(m[:k], m[w - span : w - span + k])
 
 
-def _tile_assignment(keys, n, depth, g_tile, ta_blk_max=2048):
+def _tile_assignment(s, n, depth, g_tile, ta_blk_max=2048):
     """Split the sorted receivers into density-adaptive pieces
-    (``tree_walk_group.py:184-242``, integers equal).
+    (``tree_walk_group.py:184-242``, integers equal) from their split
+    levels ``s`` (``morton.split_levels`` of their sorted keys).
 
     Each receiver's tile cell is its deepest ancestor Morton cell still
     holding >= g_tile receivers; pieces break where that cell changes and
@@ -114,11 +115,9 @@ def _tile_assignment(keys, n, depth, g_tile, ta_blk_max=2048):
     is the max of that depth over the windows covering i — two sliding
     windows of ~log2(g_tile) passes each, the same integers.
     """
-    hi, lo = keys
-    dev = hi.device
+    dev = s.device
     i64 = torch.int64
     ii = torch.arange(n, dtype=i64, device=dev)
-    s = morton.split_levels(hi, lo, depth)
     if g_tile == 1:
         lstar = torch.full((n,), depth, dtype=i64, device=dev)
     elif n < g_tile:
@@ -145,13 +144,16 @@ def _tile_assignment(keys, n, depth, g_tile, ta_blk_max=2048):
     return tile_id, lstar, t_cap, t_blk, ta_blk
 
 
-def tile_setup(keys, n: int, tree_params: TreeParams) -> Tiles:
-    """The tiles of n sorted receivers with Morton ``keys``
-    (``tree_walk_group.py:287-301``). No host read."""
+def tile_setup(keys, n: int, tree_params: TreeParams, split=None) -> Tiles:
+    """The tiles of n sorted receivers with packed Morton ``keys``
+    (``tree_walk_group.py:287-301``). No host read. ``split``: the
+    receivers' split levels where a build already made them (the build
+    kernels' ``TreeArrays.split``); by default ``morton.split_levels`` of
+    the keys."""
+    depth = tree_params.max_depth
+    s = morton.split_levels(keys, depth) if split is None else split
     g = tree_params.effective_walk_tile(n)
-    tile_id_raw, _, t_cap, _, _ = _tile_assignment(
-        keys, n, tree_params.max_depth, g, tree_params.walk_block
-    )
+    tile_id_raw, _, t_cap, _, _ = _tile_assignment(s, n, depth, g, tree_params.walk_block)
     spilled = tile_id_raw >= t_cap  # merged into the last tile; deferred
     tile_id = torch.clamp(tile_id_raw, max=t_cap - 1)
     dev = tile_id.device
@@ -449,7 +451,7 @@ def group_tree_forces(
     src_pos: torch.Tensor,
     src_mass: torch.Tensor,
     tree: TreeArrays,
-    keys: tuple[torch.Tensor, torch.Tensor],
+    keys: torch.Tensor,
     params: SimParams,
     tree_params: TreeParams,
     gid_offset: int = 0,
@@ -461,7 +463,7 @@ def group_tree_forces(
               order starting at sorted index ``gid_offset``.
     src_pos:  (N, 3) pre-step sources, the full sorted order.
     src_mass: (N,) sorted masses.
-    keys:     Morton (hi, lo) keys of the receivers (same slice).
+    keys:     packed Morton keys of the receivers (same slice).
     imports:  the JAX fused-LET import forest; not ported, raises.
     """
     _check_engine_args(imports)

@@ -210,7 +210,7 @@ def group_tree_forces_cuda(
     src_pos: torch.Tensor,
     src_mass: torch.Tensor,
     tree: TreeArrays,
-    keys: tuple[torch.Tensor, torch.Tensor],
+    keys: torch.Tensor,
     params: SimParams,
     tree_params: TreeParams,
     gid_offset: int = 0,
@@ -221,14 +221,15 @@ def group_tree_forces_cuda(
 
     CUDA tensors go through the kernel, then the per-particle kernel over
     the deferred receivers; CPU tensors through the plain version; anything
-    else raises. The stages carry profiler ranges (``group_tiles``;
-    ``group_kernel`` around the walk kernel's ``group_walk`` and the
-    evaluation's ``group_eval``; ``group_fallback``), which
-    ``utils/profile_step.py`` reads.
+    else raises. On the card the tiles come from the split levels the build
+    kernels wrote (``tree.split``), which a CUDA tree must carry. The
+    stages carry profiler ranges (``group_tiles``; ``group_kernel`` around
+    the walk kernel's ``group_walk`` and the evaluation's ``group_eval``;
+    ``group_fallback``), which ``utils/profile_step.py`` reads.
     """
     _check_engine_args(imports)
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
-               tree.count, tree.num_nodes, *keys]
+               tree.count, tree.num_nodes, keys]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
@@ -239,9 +240,15 @@ def group_tree_forces_cuda(
         )
     if device.type != "cuda":
         raise ValueError(f"group_tree_forces_cuda takes CUDA or CPU tensors, got {device}")
+    if tree.split is None:
+        raise ValueError("group_tree_forces_cuda on CUDA takes the build's split levels "
+                         "(tree.split); this tree has none")
     n = pos_new.shape[0]
+    g0 = int(gid_offset)
     with trace_scope("group_tiles"):
-        tiles = tile_setup(keys, n, tree_params)
+        # the receivers are sorted bodies [g0, g0 + n); a slice's first split
+        # level is never read (its first receiver starts a piece anyway)
+        tiles = tile_setup(keys, n, tree_params, split=tree.split[g0 : g0 + n])
     with trace_scope("group_kernel"):
         with trace_scope("group_walk"):
             lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)
@@ -256,10 +263,8 @@ def group_tree_forces_cuda(
         full = lists.pool_full[tiles.tile_id] & ~bad
         deferred = bad | full
         self_idx = None  # receiver i is source i, unless the receivers are a later slice
-        if int(gid_offset):
-            self_idx = torch.arange(
-                int(gid_offset), int(gid_offset) + n, dtype=torch.int32, device=device
-            )
+        if g0:
+            self_idx = torch.arange(g0, g0 + n, dtype=torch.int32, device=device)
         fallback = tree_forces_cuda(
             pos_new, src_pos, src_mass, tree, params, tree_params, active=deferred,
             self_idx=self_idx, table=table,

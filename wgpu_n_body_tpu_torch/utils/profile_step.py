@@ -13,14 +13,16 @@ simulator's own step. Prints:
   clock and power;
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
   the GPU timeline, each kernel attributed to the innermost range that holds
-  it (``morton_sort``, ``tree_build`` and ``theta_walk`` from ``TreeSim``;
+  it (``morton_keys``, ``morton_sort``, ``tree_build`` and ``theta_walk``
+  from ``TreeSim``;
   inside the group walk ``group_tiles``, ``group_kernel`` (B4: the walk
   kernel in ``group_walk``, the source table and the evaluation kernel in
   ``group_eval``) and ``group_fallback`` (B3 over the deferred mask, and
   the merge) from ``group_tree_forces_cuda``; the rest is the leapfrog),
   busy time as the union of kernel intervals, the idle share of the
-  window, the top kernels and every kernel of ``tree_build`` (the four of
-  ``csrc/tree_build.cu``), and the peak device memory;
+  window, the top kernels and every kernel of ``morton_keys``,
+  ``morton_sort`` and ``tree_build`` (the key kernel, CUB's sort passes,
+  the four kernels of ``csrc/tree_build.cu``), and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
 A naive step's kernels all count to its ``naive_step`` range. With ``--sim
 tree-host`` (N defaults to 4,000,000, singleton leaves) the step's host side
@@ -50,8 +52,8 @@ from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
 STEPS = 3  # in the profiler window
-RANGES = ("naive_step", "morton_sort", "tree_build", "theta_walk", "group_tiles", "group_kernel",
-          "group_walk", "group_eval", "group_fallback")  # outer to inner
+RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "theta_walk", "group_tiles",
+          "group_kernel", "group_walk", "group_eval", "group_fallback")  # outer to inner
 HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host_copy_up",
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
 
@@ -154,8 +156,8 @@ def main(argv=None) -> int:
     ranked = sorted(by_kernel.items(), key=lambda x: -x[1])
     for (where, name), us in ranked[:15]:
         print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
-    for (where, name), us in ranked[15:]:  # the build's kernels, whatever their rank
-        if where == "tree_build":
+    for (where, name), us in ranked[15:]:  # the build stage's kernels, whatever their rank
+        if where in ("morton_keys", "morton_sort", "tree_build"):
             print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
     if args.sim == "tree-host":
         host = host_ranges(events)

@@ -57,7 +57,7 @@ from wgpu_n_body_tpu_torch.models.tree_host import host_tree_arrays
 from wgpu_n_body_tpu_torch.native.build import build_host_tree
 from wgpu_n_body_tpu_torch.ops import cuda_build
 from wgpu_n_body_tpu_torch.ops import tree_walk_cuda as wcuda
-from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
+from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk import walk_counts
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
@@ -267,8 +267,8 @@ def main(argv=None) -> int:
     tp = TreeParams(theta=args.theta, walk="per_particle")
     print(f"scene {args.scene}, N={n}, theta={tp.theta}")
     state = INITS[args.scene](torch.Generator().manual_seed(0), params, dev)
-    ss, bound, keys = morton_sort(state, tp.max_depth)
-    tree = build_tree_cuda(ss, keys, bound, tp)
+    perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
+    ss, tree = build_tree_cuda(state, perm, keys, bound, tp)
     pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt
     study_arena("device", pos_new, ss, tree, params, tp, dev, smi, mhz, parent)
     if args.sweep:
