@@ -93,10 +93,34 @@ Phases (any failure exits non-zero):
     kernel, finite state, mass multiset, the checkpoint reloads as a
     ``TreeSim`` with ``leaf_bucket=1``, and one more step timed stage by
     stage (14c).
+15. the rendering path (B6, ``csrc/raster.cu``): 15a the raster kernels'
+    counts bit-equal to their plain version on the card and to the host
+    render (``runners/renderer.py::render_counts``) on the CPU tests' scenes
+    (uniform, splat, near-lens, shell, 296 near-lens bodies, NaN and
+    behind-camera rows), on the visualize scene (TreeSim N=100,000 disc after
+    10 steps) at the default camera and at a camera flown forward until at
+    least 1,000 footprints leave the per-thread 8 x 8 box, and on the N=4M
+    uniform headless scene; the list of bodies the tile kernel drew equal to
+    the plain boxes' wide ones; two launches bit-equal; the u8 blend equal
+    to the plain LUT; 15b each scene's raster and blend timed beside the
+    plain version, with the bytes bound, the atomics, the list's length and
+    the launches per frame; 15c ``cli visualize --gif`` at its defaults (60
+    PNGs and a GIF, 60 raster launches and one tree step each, a frame held
+    against the host render of the same positions, µs/step); 15d ``cli
+    render`` of a trajectory ``cli headless --trajectory`` wrote; 15e
+    ``serve`` through ``make_server(port=0)``: the page, 40 flythrough frames
+    each equal to the host render of its pre-step state, ``focus=0`` not
+    stepping, ``/quit``, frame-time p50 and fps, one raster and one blend
+    launch per frame.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
 3.35 TB/s (the bytes bind B5 and K1, the special-function ops the others).
+B6's bound is the larger of its bytes (12 per body, 9 per pixel, 4 per
+listed body) at 3.35 TB/s and its float32 operations (20 per body, 6 per
+candidate pixel) at 67 TFLOP/s; its record's times are the visualize
+scene's (raster and blend), its launches those of ``cli visualize`` and,
+as ``launches_blend``, those of the served frames.
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
@@ -275,6 +299,7 @@ def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import (
         morton_cuda,
         naive_cuda,
+        raster_cuda,
         tree_build_cuda,
         tree_walk_cuda,
         tree_walk_group_cuda,
@@ -283,15 +308,18 @@ def zero_launch_counts():
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
     tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
+    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BLEND = 0
 
 
 def launch_counts():
     """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
     reorder (B5's first kernel), B5 the builds, each of which enqueues its
-    other three kernels once."""
+    other three kernels once; B6 the frames' rasters (raster_kernel, then
+    raster_big_kernel for triangles), "B6 blend" their u8 blends."""
     from wgpu_n_body_tpu_torch.ops import (
         morton_cuda,
         naive_cuda,
+        raster_cuda,
         tree_build_cuda,
         tree_walk_cuda,
         tree_walk_group_cuda,
@@ -300,12 +328,14 @@ def launch_counts():
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
             "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES,
-            "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER}
+            "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
+            "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND}
 
 
 def expected_counts(**counts):
-    """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval")."""
-    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2")
+    """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
+    ``B6_blend`` for "B6 blend")."""
+    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2", "B6", "B6 blend")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -1912,6 +1942,405 @@ def phase_group_cli(dev, smi):
     return counts
 
 
+#: B6's per-thread box (``csrc/raster.cu`` kSmallBox): a footprint whose
+#: clipped box is wider or higher goes to the tile kernel's list
+RASTER_SMALL_BOX = 8
+#: cli visualize / serve defaults (reference bin/visualize.rs: TreeSim, disc)
+N_VIS, VIS_G, VIS_DT = 100_000, 1e-5, 0.0016
+#: the flythrough camera of 15a moves forward until this many footprints
+#: leave the per-thread box
+FLY_LISTED = 1000
+NO_RASTER_LIBRARY = ("none: no single PyTorch call rasterises triangles by the pixel-centre "
+                     "rule (index_add_ or bincount only scatters the hits)")
+
+
+def render_scenes():
+    """(name, positions, camera, width, height, footprint) of the CPU tests'
+    scenes (tests/test_torch_renderer.py, made from the same seeds)."""
+    from wgpu_n_body_tpu_torch.runners.renderer import Camera
+
+    def uniform(seed, n):
+        return np.random.RandomState(seed).uniform(-0.8, 0.8, (n, 3)).astype(np.float32)
+
+    def behind_lens(rng, n):
+        return rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32) - np.float32([0, 0, 1])
+
+    lens = Camera(eye=(0.0, 0.0, 2.0), aspect=1.0)
+    rng = np.random.RandomState(7)
+    near = np.concatenate([np.array([[0.0, 0.0, 1.999]], np.float32), behind_lens(rng, 3000)])
+    rng = np.random.RandomState(11)
+    shell = rng.uniform(-0.05, 0.05, (500, 3)).astype(np.float32) + np.float32([0, 0, 1.85])
+    shell = np.concatenate([shell, behind_lens(rng, 2000)])
+    rng = np.random.RandomState(3)
+    n296 = rng.uniform(-0.001, 0.001, (296, 3)).astype(np.float32)
+    n296[:, 2] = 1.999 + n296[:, 2] * 0.1
+    n296 = np.concatenate([n296, behind_lens(rng, 500)])
+    odd = uniform(5, 400)
+    odd[:8] = [[np.nan, 0, 0], [0, np.nan, 0], [0, 0, np.nan], [np.inf, 0, 0],
+               [0, 1, 3.0], [50, 0, 0], [0, 0, 2.0], [0, 1, 2.0]]
+    return [("uniform 20000", uniform(3, 20000), Camera(aspect=1.0), 400, 400, "triangle"),
+            ("splat 5000", uniform(4, 5000), Camera(aspect=1.0), 256, 256, "splat"),
+            ("near lens", near, lens, 400, 400, "triangle"),
+            ("shell", shell, lens, 400, 400, "triangle"),
+            ("near lens 296", n296, lens, 128, 128, "triangle"),
+            ("odd rows", odd, Camera(aspect=1.0), 96, 64, "triangle"),
+            ("odd rows splat", odd, Camera(aspect=1.0), 96, 64, "splat")]
+
+
+def held_frame(name, pos, cam, width, height, footprint, host=True):
+    """15a: B6's counts against its plain version on the card, a second
+    launch and (``host``) the host render; its list against the plain
+    boxes; the u8 blend against the plain LUT. Returns the frame's figures:
+    kept bodies, candidate pixels, listed bodies, hits and atomics."""
+    from wgpu_n_body_tpu_torch.ops import raster, raster_cuda
+    from wgpu_n_body_tpu_torch.runners.renderer import render_counts
+
+    m = cam.view_proj()
+    k, listed, length = raster_cuda.launch_raster(pos, m, width, height, footprint)
+    again = raster_cuda.raster_counts_cuda(pos, m, width, height, footprint)
+    torch.cuda.synchronize()
+    plain = raster.raster_counts(pos, m, width, height, footprint)
+    if not torch.equal(k, plain):
+        fail(f"15a {name}: B6's counts differ from the plain version's on "
+             f"{int((k != plain).sum())} pixels")
+    if not torch.equal(k, again):
+        fail(f"15a {name}: two B6 launches differ")
+    if host and not np.array_equal(k.cpu().numpy(), render_counts(
+            pos.cpu().numpy(), cam, width, height, footprint)):
+        fail(f"15a {name}: B6's counts differ from the host render's")
+    u8 = raster_cuda.blend_u8_cuda(k)
+    if not torch.equal(u8, raster.blend_u8(k)):
+        fail(f"15a {name}: blend_u8_kernel differs from the plain LUT")
+    n_listed = int(length)
+    clip, w = raster.project(pos, m)
+    keep, cx, cy, sx, sy = raster.triangles(clip, w, width, height, footprint)
+    idx = keep.nonzero().flatten()
+    if footprint == "splat":
+        tested = atomics = int(k.sum())
+    else:
+        x0, x1, y0, y1 = raster.boxes(cx[idx], cy[idx], sx[idx], sy[idx], width, height)
+        wide = (x1 >= x0) & (y1 >= y0) & (
+            (x1 - x0 >= RASTER_SMALL_BOX) | (y1 - y0 >= RASTER_SMALL_BOX))
+        if not torch.equal(torch.sort(listed[:n_listed].long()).values, idx[wide]):
+            fail(f"15a {name}: the tile kernel's list ({n_listed}) is not the bodies whose "
+                 f"box exceeds {RASTER_SMALL_BOX} px ({int(wide.sum())})")
+        tested = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
+        big = raster.raster_counts(pos[idx[wide]], m, width, height)
+        # one atomic per hit of a per-thread body, one per listed body on the
+        # list's counter; the tile kernel adds once per pixel with hits
+        atomics = int(k.sum()) - int(big.sum()) + n_listed
+    return {"scene": name, "n": int(pos.shape[0]), "width": width, "height": height,
+            "footprint": footprint, "kept": int(keep.sum()), "candidate_pixels": tested,
+            "listed": n_listed, "hits": int(k.sum()), "atomics": atomics,
+            "tile_kernel_pixel_adds": 0 if footprint == "splat" else int((big > 0).sum())}
+
+
+def raster_bound(rec):
+    """The least time for a frame and its blend: the bytes (12 per body, 9
+    per pixel, 4 per listed body) at the HBM rate, or the float32 operations
+    (20 per body, 6 per candidate pixel; the float64 projection counted at
+    the float32 rate) at the float32 peak, whichever is larger."""
+    from wgpu_n_body_tpu_torch.ops.raster_cuda import frame_bytes
+
+    nbytes = frame_bytes(rec["n"], rec["width"], rec["height"], rec["listed"])
+    ops = 20 * rec["n"] + 6 * rec["candidate_pixels"]
+    t_bytes, t_ops = nbytes / HBM_PEAK * 1e3, ops / FP32_PEAK * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+            "operations", "bound_bytes": nbytes, "bound_ops": ops, "bound_ops_ms": t_ops}
+
+
+def device_ms(fn, reps):
+    """(mean device ms per call of ``fn``, {kernel or memset name: ms}):
+    the durations of the kernels and memsets in a ``torch.profiler`` trace
+    of ``reps`` calls, without the host's enqueue time between them."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    parts = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memset"):
+            name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].strip()[:40]
+            parts[name] = parts.get(name, 0.0) + e["dur"] / reps / 1e3
+    if not parts:
+        fail("the profiler saw no kernel on the card")
+    return sum(parts.values()), parts
+
+
+def timed_frame(rec, pos, cam, reps=20):
+    """15b: raster, blend and both by device time (profiler) and by CUDA
+    events over calls queued back to back (which the host's enqueue bounds
+    when a frame is short), the plain version beside them, and the bound."""
+    from wgpu_n_body_tpu_torch.ops import raster, raster_cuda
+
+    m, w, h, fp = cam.view_proj(), rec["width"], rec["height"], rec["footprint"]
+    ms_r, k = time_ms(lambda: raster_cuda.raster_counts_cuda(pos, m, w, h, fp), reps)
+    ms_b, _ = time_ms(lambda: raster_cuda.blend_u8_cuda(k), reps)
+    ev_ms, _ = time_ms(lambda: raster_cuda.blend_u8_cuda(raster_cuda.raster_counts_cuda(
+        pos, m, w, h, fp)), reps)
+    dev_r, parts = device_ms(lambda: raster_cuda.raster_counts_cuda(pos, m, w, h, fp), reps)
+    dev_b, _ = device_ms(lambda: raster_cuda.blend_u8_cuda(k), reps)
+    ms_p, _ = time_ms(lambda: raster.blend_u8(raster.raster_counts(pos, m, w, h, fp)), 3)
+    rec.update(ms=dev_r + dev_b, raster_ms=dev_r, blend_ms=dev_b, raster_parts_ms=parts,
+               event_ms=ev_ms, event_raster_ms=ms_r, event_blend_ms=ms_b, plain_ms=ms_p,
+               **raster_bound(rec))
+    ms = rec["ms"]
+    rec["share_of_bound"] = rec["bound_ms"] / ms
+    print(f"15b {rec['scene']}: N={rec['n']} {w}x{h} {fp}: device time raster {dev_r:.4f} ms "
+          f"({', '.join(f'{n} {t:.4f}' for n, t in parts.items())}) + blend {dev_b:.4f} ms = "
+          f"{ms:.4f} ms; CUDA events back to back: raster {ms_r:.4f} + blend {ms_b:.4f}, "
+          f"together {ev_ms:.4f} ms; plain {ms_p:.3f} ms; bound {rec['bound_ms']:.4f} "
+          f"ms ({rec['bound_by']}: {rec['bound_bytes']} bytes, {rec['bound_ops']} ops) -> "
+          f"{rec['share_of_bound']:.2%} of the device time; kept {rec['kept']}, candidate pixels "
+          f"{rec['candidate_pixels']}, listed {rec['listed']}, hits {rec['hits']}, atomics "
+          f"{rec['atomics']}, tile-kernel pixel adds {rec['tile_kernel_pixel_adds']}; "
+          f"launches per frame: 1 raster call ({2 if fp == 'triangle' else 1} kernels) + 1 "
+          f"blend")
+    return rec
+
+
+def phase_render_kernels(dev, smi):
+    """15a-b: B6 held and timed on every scene."""
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.ops import raster_cuda
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+    from wgpu_n_body_tpu_torch.runners.renderer import Camera
+
+    records = []
+    for name, pos_np, cam, w, h, fp in render_scenes():
+        pos = torch.from_numpy(pos_np).to(dev)
+        rec = held_frame(name, pos, cam, w, h, fp)
+        records.append(timed_frame(rec, pos, cam))
+    # the visualize scene after 10 steps, at the default camera and flown in
+    params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
+    runner = OfflineHeadless(TreeSim(params, TreeParams(theta=0.75)), disc_init, seed=0,
+                             device=dev)
+    for _ in range(STEPS):
+        runner.step()
+    pos = runner.state.pos
+    cam = Camera(aspect=1.0)
+    vis = timed_frame(held_frame(f"visualize N={N_VIS} disc, {STEPS} steps", pos, cam, 400, 400,
+                                 "triangle"), pos, cam)
+    moves = 0
+    while int(raster_cuda.launch_raster(pos, cam.view_proj(), 400, 400)[2]) < FLY_LISTED:
+        if moves == 12:
+            fail(f"15a: 12 moves forward leave fewer than {FLY_LISTED} footprints past the "
+                 f"{RASTER_SMALL_BOX} x {RASTER_SMALL_BOX} box")
+        cam, moves = cam.moved("forward", 0.2), moves + 1
+    fly = timed_frame(held_frame(f"visualize flythrough ({moves} moves forward, eye "
+                                 f"{[round(float(v), 3) for v in cam.eye]})", pos, cam, 400,
+                                 400, "triangle"), pos, cam)
+    # the N=4M uniform headless scene
+    big = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
+    t0 = time.perf_counter()
+    head = held_frame(f"headless N={N_TREE} uniform", big.pos, Camera(aspect=1.0), 400, 400,
+                      "triangle")
+    print(f"15a the N={N_TREE} frame held against the host render in "
+          f"{time.perf_counter() - t0:.1f} s")
+    head = timed_frame(head, big.pos, Camera(aspect=1.0))
+    del big, runner
+    torch.cuda.empty_cache()
+    print(f"15a B6 bit-equal to its plain version, to a second launch and to the host render "
+          f"on {len(records) + 3} scenes; lists equal the plain boxes' wide footprints; blend "
+          f"equal to the LUT; [{smi}]")
+    return vis, [*records, fly, head]
+
+
+def phase_visualize_cli(dev, smi):
+    """15c: ``cli visualize --gif`` at its defaults, in-process."""
+    from wgpu_n_body_tpu_torch import cli
+    from wgpu_n_body_tpu_torch.runners import renderer
+
+    seen = []
+    render = cli.render_frame_on_device
+
+    def recorded(pos, *args, **kw):  # keeps the last frame's positions
+        seen[:] = [pos.clone()]
+        return render(pos, *args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, gif = os.path.join(tmp, "frames"), os.path.join(tmp, "disc.gif")
+        cli.render_frame_on_device = recorded
+        try:
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            text = run_cli(cli, ["visualize", "--out", out, "--gif", gif])
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            cli.render_frame_on_device = render
+        frames = sorted(os.listdir(out))
+        if len(frames) != 60 or not os.path.getsize(gif):
+            fail(f"15c cli visualize wrote {len(frames)} frames and a GIF of "
+                 f"{os.path.getsize(gif) if os.path.exists(gif) else 0} bytes")
+        steps = 60  # --frames 60 x --steps-per-frame 1, the group walk's step
+        if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B5=steps, K1=steps,
+                                     K2=steps, B6=60):
+            fail(f"15c cli visualize launched {counts}")
+        last = os.path.join(tmp, "host.png")
+        renderer.write_png(last, renderer.render_frame(seen[0].cpu().numpy()))
+        with open(last, "rb") as a, open(os.path.join(out, frames[-1]), "rb") as b:
+            if a.read() != b.read():
+                fail("15c the last frame differs from the host render of the same positions")
+        gif_bytes = os.path.getsize(gif)
+    us = float(re.search(r"mean: (\S+) us/step", text).group(1))
+    print(f"15c cli visualize (TreeSim N={N_VIS} disc, 60 frames, --gif): {counts['B6']} raster "
+          f"launches, {counts['B4']} steps; the last frame equals the host render of its "
+          f"positions; GIF {gif_bytes} bytes; {us:.1f} us/step (TreeSim N={N_VIS} disc, mean of "
+          f"steps 2-60), whole command {wall:.1f} s; [{smi}]")
+    return counts["B6"], us, wall
+
+
+def phase_render_cli(dev, smi):
+    """15d: ``cli render`` of a trajectory that ``cli headless`` wrote."""
+    from wgpu_n_body_tpu_torch import cli
+    from wgpu_n_body_tpu_torch.runners import renderer
+    from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryReader
+
+    with tempfile.TemporaryDirectory() as tmp:
+        traj, out = os.path.join(tmp, "traj"), os.path.join(tmp, "frames")
+        run_cli(cli, ["headless", "--n", str(N_VIS), "--init", "disc", "--g", str(VIS_G),
+                      "--dt", str(VIS_DT), "--steps", "4", "--trajectory", traj])
+        zero_launch_counts()
+        run_cli(cli, ["render", "--trajectory", traj, "--out", out, "--gif",
+                      os.path.join(tmp, "t.gif")])
+        counts = launch_counts()
+        reader = TrajectoryReader(traj)
+        if counts != expected_counts(B6=len(reader)) or len(reader) != 5:
+            fail(f"15d cli render of {len(reader)} frames launched {counts}")
+        for step, pos in reader:
+            want = os.path.join(tmp, "host.png")
+            renderer.write_png(want, renderer.render_frame(pos))
+            with open(want, "rb") as a, open(os.path.join(out, f"frame_{step:08d}.png"), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"15d cli render's frame {step} differs from the host render")
+    print(f"15d cli render of the 5 frames cli headless --trajectory wrote (TreeSim N={N_VIS} "
+          f"disc): {counts['B6']} raster launches, every PNG equal to the host render's; [{smi}]")
+
+
+def phase_serve(dev, smi):
+    """15e: serve, through make_server(port=0) and http.client."""
+    import http.client
+    import threading
+
+    from wgpu_n_body_tpu_torch.inits import disc_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.runners.online import KEYMAP, OnlineViewer, make_server
+    from wgpu_n_body_tpu_torch.runners.renderer import png_bytes, render_frame
+
+    params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
+    viewer = OnlineViewer(TreeSim(params, TreeParams(theta=0.75)), disc_init, device=dev)
+    viewer.warmup()
+    server, done = make_server(viewer, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+
+        def get(path):
+            conn.request("GET", path)
+            return conn.getresponse().read()
+
+        page = get("/")
+        if b"frame.png" not in page:
+            fail("15e the page does not load frames")
+        # into the disc (1,551 then 6,067 footprints past the 8 x 8 box at
+        # the initial state), back out, orbit, up and down
+        script = ["w"] * 10 + ["s"] * 10 + ["a"] * 5 + ["d"] * 5 + ["q"] * 3 + ["e"] * 3 + [""] * 4
+        zero_launch_counts()
+        steps0 = viewer.runner.step_num
+        frame_ms = []
+        for i, keys in enumerate(script):
+            pos = viewer.runner.state.pos.cpu().numpy()
+            cam = viewer.camera
+            for k in keys.split(",") if keys else []:
+                cam = cam.moved(KEYMAP[k], viewer.speed)
+            png = get(f"/frame.png?keys={keys}&focus=1")
+            img = render_frame(pos, cam, viewer.width, viewer.height)
+            want = png_bytes((np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8), level=1)
+            if png != want:
+                fail(f"15e frame {i} (keys {keys!r}) differs from the host render of its "
+                     "pre-step state")
+            frame_ms.append(json.loads(get("/stats"))["last_frame_ms"])
+        checked = len(script)
+        # the same flight again, timed: nothing but the requests
+        t0 = time.perf_counter()
+        for keys in script:
+            get(f"/frame.png?keys={keys}&focus=1")
+            frame_ms.append(json.loads(get("/stats"))["last_frame_ms"])
+        fps_client = len(script) / (time.perf_counter() - t0)
+        stats = json.loads(get("/stats"))
+        steps = viewer.runner.step_num
+        get("/frame.png?focus=0")
+        if json.loads(get("/stats"))["steps"] != steps:
+            fail("15e focus=0 stepped")
+        frames = 2 * len(script) + 1
+        counts = launch_counts()
+        if counts != expected_counts(B3=steps - steps0, B4=steps - steps0,
+                                     B4_eval=steps - steps0, B5=steps - steps0,
+                                     K1=steps - steps0, K2=steps - steps0, B6=frames,
+                                     B6_blend=frames):
+            fail(f"15e {frames} frames and {steps - steps0} steps launched {counts}")
+        if get("/quit") != b"bye" or not done.wait(timeout=10):
+            fail("15e /quit did not set the done event")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    p50 = float(np.percentile(frame_ms[checked:], 50))
+    print(f"15e serve (TreeSim N={N_VIS} disc, 400x400): {checked} flythrough frames equal to "
+          f"the host render of their pre-step state; focus=0 did not step; /quit set done; "
+          f"timed flight of {len(script)} frames: frame time p50 {p50:.3f} ms (tick), fps "
+          f"{stats['fps']} (server's window), {fps_client:.2f} (client, with /stats); raster "
+          f"{counts['B6']} and blend {counts['B6 blend']} launches in {frames} frames; "
+          f"[{smi}]")
+    return counts["B6 blend"], {"frame_ms_p50": p50, "fps": stats["fps"],
+                                "fps_client": fps_client, "frames": frames}
+
+
+def phase_render(dev, smi, mhz):
+    """15. The rendering path: B6 held and timed (15a-b), then driven by
+    ``cli visualize`` (15c, its main path), ``cli render`` (15d) and
+    ``serve`` (15e)."""
+    vis, scenes = phase_render_kernels(dev, smi)
+    launches, us, wall = phase_visualize_cli(dev, smi)
+    phase_render_cli(dev, smi)
+    launches_blend, serve = phase_serve(dev, smi)
+    return {
+        "name": "raster",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/raster.cu",
+        "replaces": "wgpu_n_body_tpu/runners/renderer.py:435",
+        "launches": launches,
+        "launches_blend": launches_blend,
+        "max_abs_err": 0,  # integer counts, held equal on every scene
+        "ms": vis["ms"],
+        "plain_ms": vis["plain_ms"],
+        "bound_ms": vis["bound_ms"],
+        "bound_by": vis["bound_by"],
+        "library_ms": None,
+        "library": NO_RASTER_LIBRARY,
+        "raster_ms": vis["raster_ms"],
+        "blend_ms": vis["blend_ms"],
+        "scene": vis["scene"],
+        "scenes": scenes,
+        "visualize_us_per_step": us,
+        "visualize_wall_s": wall,
+        "serve": serve,
+        "sm_mhz": mhz,
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1925,6 +2354,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch.ops import (
             morton_cuda,
             naive_cuda,
+            raster_cuda,
             tree_build_cuda,
             tree_walk_cuda,
             tree_walk_group_cuda,
@@ -1953,7 +2383,7 @@ def main() -> None:
         t = time.perf_counter()
         return (*native_build.build(), time.perf_counter() - t)
 
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=6)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=7)
     host_lib = pool.submit(timed_host_build)  # native/octree.cpp, by g++
     builds = {
         "B1/B2": pool.submit(naive_cuda.build),
@@ -1961,6 +2391,7 @@ def main() -> None:
         "B4": pool.submit(tree_walk_group_cuda.build),
         "B5": pool.submit(tree_build_cuda.build),
         "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
+        "B6": pool.submit(raster_cuda.build),
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -2122,7 +2553,7 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B5", "K1"):
+    for key in ("B3", "B4", "B5", "K1", "B6"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -2161,7 +2592,13 @@ def main() -> None:
     b3["launches"], host_record = phase_host(dev, smi, mhz)
     b3.update(host_record)
 
-    kernels = [b1, b2, b3, b4, b5, k1]
+    b6 = phase_render(dev, smi, mhz)
+    # registers and spills of each of B6's kernels (empty when already built)
+    for key, col in (("registers", 1), ("spill_store_bytes", 2)):
+        b6[key] = {re.search(r"raster_big_kernel|raster_kernelILb[01]E|blend_u8_kernel",
+                             row[0]).group(0): row[col] for row in tree_ptxas["B6"]}
+
+    kernels = [b1, b2, b3, b4, b5, k1, b6]
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")

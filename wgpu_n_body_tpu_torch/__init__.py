@@ -9,8 +9,10 @@ reference the port is held against:
                   (per-particle walk)
 - ``ops``         forces (plain torch + the hand-written CUDA kernels in
                   ``csrc/``: all-pairs dx-form and factored, tree walk),
-                  Morton keys, octree build, leapfrog, energy
-- ``runners``     headless step loop, trajectory IO
+                  Morton keys, octree build, leapfrog, energy, the
+                  renderer's raster
+- ``runners``     headless step loop, trajectory IO, offline renderer,
+                  online viewer, GIF writer
 - ``utils``       profiling, checkpointing (format shared with JAX)
 """
 

@@ -4,11 +4,16 @@
     python -m wgpu_n_body_tpu_torch.cli headless --sim naive --n 262144
     python -m wgpu_n_body_tpu_torch.cli headless          # TreeSim, N=4M, group walk
     python -m wgpu_n_body_tpu_torch.cli bench             # naive, then tree, at each size
+    python -m wgpu_n_body_tpu_torch.cli visualize --gif disc.gif   # TreeSim N=100k disc, 60 frames
+    python -m wgpu_n_body_tpu_torch.cli serve             # browser viewer at 127.0.0.1:8000
+    python -m wgpu_n_body_tpu_torch.cli render --trajectory DIR
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``,
 ``--sim tree`` (either walk) and ``--sim tree-host`` (host C++ build,
-device walk; needs ``g++``), on one device. ``--devices > 1`` (ROADMAP
+device walk; needs ``g++``), on one device. ``visualize``, ``serve`` and
+``render`` rasterise on ``--device`` (on the card through the kernels of
+``csrc/raster.cu``). ``--devices > 1`` (ROADMAP
 A13) exits with code 2, as does a malformed ``--tree-kw``, a ``TreeParams``
 value the chosen device does not take (``walk_tile`` above 512 on CUDA) or
 one the backend does not take (``leaf_bucket`` other than 1 with
@@ -21,6 +26,7 @@ import argparse
 import ast
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -30,8 +36,11 @@ from wgpu_n_body_tpu_torch.inits import INITS, uniform_init
 from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.models.base import Simulator
 from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
+from wgpu_n_body_tpu_torch.runners.gif import write_gif
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
-from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
+from wgpu_n_body_tpu_torch.runners.online import OnlineViewer, serve
+from wgpu_n_body_tpu_torch.runners.renderer import Camera, render_frame_on_device, write_png
+from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryReader, TrajectoryWriter
 from wgpu_n_body_tpu_torch.utils.profiling import sync
 
 
@@ -131,11 +140,15 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
                    help="torch device of the state (default cuda)")
 
 
+def _check_tree_kw(args) -> None:
+    if args.tree_kw and args.sim not in TREE_SIMS:
+        _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
+
+
 def cmd_headless(args) -> int:
     """bin/headless.rs analog: per-step microseconds printed
     (headless.rs:12-34)."""
-    if args.tree_kw and args.sim not in TREE_SIMS:
-        _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
+    _check_tree_kw(args)
     sim = _build_sim(args)
     runner = OfflineHeadless(
         sim, INITS[args.init or "uniform"], seed=args.seed, device=_device(args.device)
@@ -159,6 +172,84 @@ def cmd_headless(args) -> int:
     )
     mean = runner.timer.mean_s()
     print(f"mean: {mean * 1e6:.1f} us/step over {args.steps} steps")
+    return 0
+
+
+def _write_frames(out_dir: str, frames, gif: str | None, fps: float) -> None:
+    """The PNG of each (name, float image) under ``out_dir`` and, if asked,
+    the animation of them all at ``gif``."""
+    images, written = [], 0
+    for name, img in frames:
+        write_png(os.path.join(out_dir, name), img)
+        written += 1
+        if gif:
+            images.append(img)
+    print(f"wrote {written} frames to {out_dir}")
+    if gif:
+        write_gif(gif, images, fps=fps)
+        print(f"wrote animation to {gif}")
+
+
+def cmd_visualize(args) -> int:
+    """bin/visualize.rs analog, offline: run TreeSim N=100k disc
+    (visualize.rs:26-37) and render a frame after each ``--steps-per-frame``
+    steps with the reference camera, the raster on ``--device``."""
+    _check_tree_kw(args)
+    sim = _build_sim(args)
+    runner = OfflineHeadless(
+        sim, INITS[args.init or "disc"], seed=args.seed, device=_device(args.device)
+    )
+    camera = Camera(aspect=args.width / args.height)
+    os.makedirs(args.out, exist_ok=True)
+
+    def frames():
+        for frame in range(args.frames):
+            for _ in range(args.steps_per_frame):
+                runner.step()
+            img = render_frame_on_device(
+                runner.state.pos, camera, args.width, args.height, footprint=args.footprint
+            )
+            yield f"frame_{frame:06d}.png", img
+
+    _write_frames(args.out, frames(), args.gif, args.fps)
+    steps = args.frames * args.steps_per_frame
+    print(f"mean: {runner.timer.mean_s() * 1e6:.1f} us/step over {steps} steps")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    """Interactive viewer (bin/visualize.rs + online_renderer.rs analog):
+    the browser is the window — live frames, WASD/QE camera, Esc quits,
+    focus loss pauses. Same scene defaults as ``visualize``."""
+    _check_tree_kw(args)
+    viewer = OnlineViewer(
+        _build_sim(args),
+        INITS[args.init or "disc"],
+        seed=args.seed,
+        width=args.width,
+        height=args.height,
+        steps_per_frame=args.steps_per_frame,
+        footprint=args.footprint,
+        device=_device(args.device),
+    )
+    stats = serve(viewer, host=args.host, port=args.port)
+    print(f"served {stats['frames']} frames, {stats['steps']} steps")
+    return 0
+
+
+def cmd_render(args) -> int:
+    """Render the frames of a dumped trajectory directory (either
+    package's), each uploaded to ``--device`` and rasterised there."""
+    device = _device(args.device)
+    camera = Camera(aspect=args.width / args.height)
+    os.makedirs(args.out, exist_ok=True)
+    frames = (
+        (f"frame_{step:08d}.png",
+         render_frame_on_device(torch.from_numpy(pos).to(device), camera, args.width,
+                                args.height))
+        for step, pos in TrajectoryReader(args.trajectory)
+    )
+    _write_frames(args.out, frames, args.gif, args.fps)
     return 0
 
 
@@ -229,6 +320,39 @@ def main(argv=None) -> int:
         "per log)",
     )
     p.set_defaults(fn=cmd_headless)
+
+    p = sub.add_parser("visualize", help="run + render frames (offline)")
+    _add_sim_flags(p, n=100_000, g=1e-5, e=1e-4, dt=0.0016, sim="tree")
+    p.add_argument("--width", type=int, default=400)
+    p.add_argument("--height", type=int, default=400)
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--steps-per-frame", type=int, default=1)
+    p.add_argument("--out", type=str, default="frames")
+    p.add_argument("--footprint", choices=["triangle", "splat"], default="triangle")
+    p.add_argument("--gif", type=str, default=None)
+    p.add_argument("--fps", type=float, default=30.0)
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("serve", help="interactive browser viewer")
+    _add_sim_flags(p, n=100_000, g=1e-5, e=1e-4, dt=0.0016, sim="tree")
+    p.add_argument("--width", type=int, default=400)
+    p.add_argument("--height", type=int, default=400)
+    p.add_argument("--steps-per-frame", type=int, default=1)
+    p.add_argument("--footprint", choices=["triangle", "splat"], default="triangle")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("render", help="render a dumped trajectory")
+    p.add_argument("--trajectory", type=str, required=True)
+    p.add_argument("--out", type=str, default="frames")
+    p.add_argument("--width", type=int, default=400)
+    p.add_argument("--height", type=int, default=400)
+    p.add_argument("--gif", type=str, default=None)
+    p.add_argument("--fps", type=float, default=30.0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the raster (default cuda)")
+    p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("bench", help="criterion-style sweep")
     _add_sim_flags(p, n=8192, g=1e-6, e=1e-4, dt=0.016, sim="", sim_list=True)
