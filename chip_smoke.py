@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
  1. a CUDA device is present; print the card's name and power limit;
  2. build every kernel from ``wgpu_n_body_tpu_torch/csrc`` (one nvcc per
     source, all started together: B1 and B2 share ``naive_forces.cu``; the
-    key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort) and,
+    key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort, B7's
+    ``let_export.cu`` carries CUB's scans) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -112,6 +113,31 @@ Phases (any failure exits non-zero):
     each equal to the host render of its pre-step state, ``focus=0`` not
     stepping, ``/quit``, frame-time p50 and fps, one raster and one blend
     launch per frame.
+16. the LET export walk (B7, ``csrc/let_export.cu``) against its plain
+    version on the card, every output bit for bit: n_local=4,000,000 bodies
+    uniform in octant 0 of [-1, 1]^3, theta=0.75, let_cap = auto_let_cap
+    (98,304), the other octants' boxes as destinations at P=8 and P=4 (the
+    geometry of the JAX package's ``tools/measure_let.py --geometry
+    octants``), both timed beside the plain version and the bytes bound;
+    theta=0 (every row to every other octant, N=262144) and a planted
+    overflow (let_cap 4096: the DFS prefix kept, the flags set);
+17. the LET step of P=4 ranks of 4,000,000 bodies (N=16M, the four top
+    Morton quadrants' slabs of the uniform scene) emulated on one card: the
+    port's per-rank stages (``parallel/sharded_tree.py``: sort and build,
+    B7, the local and the import walk) in turn, the boxes' gather and the
+    all_to_all done by hand, each stage timed per rank beside the
+    single-device default step at N=16M; forces on 4,096 sampled receivers
+    held to ``tests/test_let.py:68``'s criteria against float64 all-pairs;
+    B3 over an import forest with self_idx past every source against the
+    plain walk, and as the group walk's fallback; 17b the exports' rows of a
+    uniform N=16M scene owned as four slices of the global Morton order (a
+    reshard's ownership, with ragged ends);
+18. this slice's main path: a one-rank NCCL process group running
+    ``ShardedNaiveSim`` (allgather, ring; N=262144) and ``ShardedTreeSim``
+    (replicated, let; N=4,000,000) through ``OfflineHeadless`` for 6 steps
+    in chunks of 3, each held to its single-device sim (pos rtol 1e-5, vel
+    and acc rtol 1e-4) with its launches counted (B7 once per LET step) and
+    its time per step beside the single-device one.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
@@ -121,6 +147,9 @@ listed body) at 3.35 TB/s and its float32 operations (20 per body, 6 per
 candidate pixel) at 67 TFLOP/s; its record's times are the visualize
 scene's (raster and blend), its launches those of ``cli visualize`` and,
 as ``launches_blend``, those of the served frames.
+B7's bound is its bytes (the arena rows some destination visits, the
+member rows it copies and every output slot) at 3.35 TB/s; its record's
+times are phase 16's at P=8, its launches phase 18's.
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
@@ -144,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -163,13 +193,6 @@ def row_rel_err(got, want):
     """Per-row relative L2 error |got_i - want_i| / |want_i| (float64)."""
     got, want = got.double(), want.double()
     return ((got - want).norm(dim=1) / want.norm(dim=1)).cpu().numpy()
-
-
-def mean_rel_err(got, want):
-    """tests/test_tree.py's force error: mean |got - want| over the mean
-    row norm of ``want``."""
-    got, want = got.double(), want.double()
-    return float((got - want).abs().mean() / want.norm(dim=1).mean())
 
 
 def time_ms(fn, reps):
@@ -297,6 +320,7 @@ def pool_of(gcuda, n_chunks):
 
 def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import (
+        let_export_cuda,
         morton_cuda,
         naive_cuda,
         raster_cuda,
@@ -308,15 +332,17 @@ def zero_launch_counts():
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
     tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
-    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BLEND = 0
+    raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BLEND = let_export_cuda.LAUNCHES = 0
 
 
 def launch_counts():
     """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
     reorder (B5's first kernel), B5 the builds, each of which enqueues its
     other three kernels once; B6 the frames' rasters (raster_kernel, then
-    raster_big_kernel for triangles), "B6 blend" their u8 blends."""
+    raster_big_kernel for triangles), "B6 blend" their u8 blends; B7 the LET
+    exports (each enqueues four kernels and two CUB scans)."""
     from wgpu_n_body_tpu_torch.ops import (
+        let_export_cuda,
         morton_cuda,
         naive_cuda,
         raster_cuda,
@@ -329,13 +355,14 @@ def launch_counts():
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
             "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES,
             "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
-            "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND}
+            "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND,
+            "B7": let_export_cuda.LAUNCHES}
 
 
 def expected_counts(**counts):
     """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
     ``B6_blend`` for "B6 blend")."""
-    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2", "B6", "B6 blend")
+    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2", "B6", "B6 blend", "B7")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -1097,7 +1124,7 @@ def phase_b3(dev, smi, mhz):
     """10. The tree walk kernel (B3) against the plain walk and float64."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
-    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_dense, naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_dense, naive_forces_ref
     from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
     from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
     from wgpu_n_body_tpu_torch.ops.tree_walk_group import source_table
@@ -1316,7 +1343,7 @@ def phase_b4(dev, smi, mhz):
     from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
     from wgpu_n_body_tpu_torch.ops import naive_cuda, tree_walk_cuda
     from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
-    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_ref
     from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
     from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
         LIST_CHUNK,
@@ -1586,7 +1613,7 @@ def phase_host(dev, smi, mhz):
     from wgpu_n_body_tpu_torch.models.tree_host import host_tree_arrays
     from wgpu_n_body_tpu_torch.native.build import build_host_tree
     from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
-    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_ref
     from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
     from wgpu_n_body_tpu_torch.ops.tree_build import morton_sort
     from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
@@ -2341,6 +2368,386 @@ def phase_render(dev, smi, mhz):
     }
 
 
+# ------------------------------------------------------------ multi-GPU (A13)
+
+#: BASELINE config 4's per-rank size (N=32,000,000 over 8 ranks), and the
+#: ranks of the emulated LET step (N = 4 x N_LOCAL)
+N_LOCAL = 4_000_000
+P_EMULATED = 4
+#: receivers held against float64 in the emulated LET step
+LET_SAMPLE = 4096
+NO_EXPORT_LIBRARY = "none: no single PyTorch call prunes a tree against boxes"
+
+
+def octant_boxes(p, dev):
+    """(lo, hi) (p, 3): destination d is octant d of the global [-1, 1]^3
+    cube, x lowest (octant 0, this rank's own, is [-1, 0]^3): the geometry
+    of the JAX package's ``tools/measure_let.py --geometry octants``."""
+    lo = torch.tensor([[-1.0 + (d & 1), -1.0 + ((d >> 1) & 1), -1.0 + ((d >> 2) & 1)]
+                       for d in range(p)], dtype=torch.float32, device=dev)
+    return lo, lo + 1.0
+
+
+def octant_local(n, dev, tp, seed=0):
+    """One rank's LET sort and build (``sharded_tree.let_sort_build``) of n
+    bodies uniform in octant 0 of [-1, 1]^3 (mass 1, at rest), against the
+    whole cube's bound 1."""
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams
+    from wgpu_n_body_tpu_torch.parallel.sharded_tree import let_sort_build
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.rand((n, 3), generator=gen, device=dev) - 1.0
+    z = torch.zeros_like(pos)
+    state = ParticleState(pos, z, z, torch.ones(n, device=dev))
+    return let_sort_build(state, torch.ones(1, device=dev), SimParams(particle_num=n), tp)
+
+
+def held_export(what, local, blo, bhi, me, theta, cap):
+    """B7 on the card against its plain version on the same inputs, every
+    output bit for bit (floats too: both copy the same rows). Returns (the
+    kernel's export, the plain rows' visited mask, max |kernel - plain|)."""
+    from wgpu_n_body_tpu_torch.ops import let_export, let_export_cuda
+
+    k = let_export_cuda.export_walk_cuda(local.tree, local.pos_s, local.mass_s, blo, bhi, me,
+                                         theta, cap)
+    torch.cuda.synchronize()
+    p = let_export.export_walk(local.tree, local.pos_s, local.mass_s, blo, bhi, me, theta, cap)
+    _, visited, _ = let_export.export_rows(local.tree, blo, bhi, me, theta)
+    bad = [f for f in k._fields
+           if getattr(k, f).dtype != getattr(p, f).dtype or not bits_equal(getattr(k, f),
+                                                                          getattr(p, f))]
+    if bad:
+        for f in bad:
+            a, b = getattr(k, f), getattr(p, f)
+            where = (a != b).nonzero()[:5].tolist() if a.shape == b.shape else (a.shape, b.shape)
+            print(f"  {what}: {f} differs at {where}")
+        fail(f"16 B7 {what}: the kernel's {bad} differ from the plain version's")
+    err = max(float((getattr(k, f) - getattr(p, f)).abs().max()) for f in ("nodes", "parts"))
+    return k, visited, err
+
+
+def phase_let_kernel(dev, smi):
+    """16. B7 (``csrc/let_export.cu``) against its plain version, timed."""
+    from wgpu_n_body_tpu_torch.ops import let_export, let_export_cuda
+    from wgpu_n_body_tpu_torch.params import TreeParams
+    from wgpu_n_body_tpu_torch.parallel.let_tree import auto_let_cap
+
+    tp = TreeParams()
+    cap = auto_let_cap(N_LOCAL, tp.theta)
+    local = octant_local(N_LOCAL, dev, tp)
+    m = int(local.tree.num_nodes)
+    rec = {}
+    for p in (8, 4):
+        blo, bhi = octant_boxes(p, dev)
+        exp, visited, err = held_export(f"octants P={p}", local, blo, bhi, 0, tp.theta, cap)
+        if bool(exp.overflow.any()) or int(exp.n_rows[0]) != 0:
+            fail(f"16 P={p}: n_rows {exp.n_rows.tolist()} overflow {exp.overflow.tolist()}")
+        ms, _ = time_ms(lambda: let_export_cuda.export_walk_cuda(
+            local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap), 10)
+        plain_ms, _ = time_ms(lambda: let_export.export_walk(
+            local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap), 2)
+        nbytes = let_export.export_bytes(exp, visited)
+        bound_ms = nbytes / HBM_PEAK * 1e3
+        rec[p] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_bytes": nbytes,
+                  "max_abs_err": err, "n_rows": exp.n_rows.tolist(),
+                  "visited_rows": int(visited.any(0).sum())}
+        print(f"16a B7 octants n_local={N_LOCAL} ({m} arena rows) theta={tp.theta} P={p} "
+              f"let_cap={cap}: bit-equal to the plain version; rows per destination "
+              f"{exp.n_rows.tolist()}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): {bound_ms / ms:.2%}; [{smi}]")
+        del exp, visited
+    # theta = 0 opens every row (each destination takes the whole tree), and
+    # a let_cap below the face neighbours' rows must overflow, keeping the
+    # DFS prefix
+    small = octant_local(262144, dev, tp, seed=1)
+    blo, bhi = octant_boxes(8, dev)
+    exp0, _, _ = held_export("theta=0", small, blo, bhi, 0, 0.0, 327680)
+    m0 = int(small.tree.num_nodes)
+    singles = int(((small.tree.nodes_f32[:m0, 6] > 0) & (small.tree.count[:m0] == 1)).sum())
+    want0 = m0 + small.pos_s.shape[0] - singles  # every row, and each header's members
+    exp_o, _, _ = held_export("overflow", local, blo, bhi, 0, tp.theta, 4096)
+    if exp0.overflow.any() or exp0.n_rows[1:].ne(exp0.n_rows[1]).any():
+        fail(f"16 theta=0: n_rows {exp0.n_rows.tolist()}")
+    if not bool(exp_o.overflow[1]) or int(exp_o.n_rows[1]) != 4096:
+        fail(f"16 planted overflow not flagged: {exp_o.n_rows.tolist()}")
+    print(f"16b theta=0 (N=262144, let_cap 327680): bit-equal, {int(exp0.n_rows[1])} rows to "
+          f"each other octant (arena rows + bodies - one-body cells = {want0}); let_cap 4096 at "
+          f"n_local={N_LOCAL}: bit-equal, overflow {exp_o.overflow.tolist()}")
+    if int(exp0.n_rows[1]) != want0:
+        fail(f"16 theta=0 exports {int(exp0.n_rows[1])} rows, not {want0}")
+    del local, small, exp0, exp_o
+    torch.cuda.empty_cache()
+    return {
+        "name": "let_export",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/let_export.cu",
+        "replaces": "wgpu_n_body_tpu/parallel/let_tree.py:148",
+        "launches": 0,  # set from the main path's run (phase 18)
+        "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+        "ms": rec[8]["ms"],
+        "plain_ms": rec[8]["plain_ms"],
+        "bound_ms": rec[8]["bound_ms"],
+        "bound_by": "bytes",
+        "bound_unit": "HBM",
+        "library_ms": None,
+        "library": NO_EXPORT_LIBRARY,
+        "geometry": f"octants, n_local={N_LOCAL}, theta={tp.theta}, let_cap={cap}, P=8",
+        "p8": rec[8],
+        "p4": rec[4],
+    }
+
+
+def stage_ms(fn):
+    """(fn's result, its ms by CUDA events, one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_let_emulated(dev, smi):
+    """17. The LET step of P=4 ranks of N_LOCAL bodies each, emulated on one
+    card: the port's per-rank stages in turn, the boxes' gather and the
+    exchange by hand; forces against float64 beside the single-device step."""
+    import dataclasses
+
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.ops import let_export_cuda, tree_walk_group_cuda
+    from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
+    from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_ref
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.parallel import sharded_tree as st
+    from wgpu_n_body_tpu_torch.parallel.let_tree import assemble_import_forest, auto_let_cap
+    from wgpu_n_body_tpu_torch.utils.multi_gpu_check import rows_of
+
+    p, n_l = P_EMULATED, N_LOCAL
+    n = p * n_l
+    params, tp = SimParams(particle_num=n), TreeParams()
+    # auto_let_cap sizes the face of a cube-shaped domain (98,304 rows at 4M);
+    # these domains are 2:1:1 slabs, so the step takes twice it and reports
+    # whether the auto size would have held every export
+    auto = auto_let_cap(n_l, tp.theta)
+    cap = 2 * auto
+    # the uniform scene of N bodies in [-1, 1]^3, rank r owning the slab of
+    # the top Morton quadrant r (y half r & 1, z half r >> 1), n_l bodies
+    # each: the domains of the global Morton order's four slices, cut clean
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ranks = []
+    for r in range(p):
+        pos = torch.rand((n_l, 3), generator=gen, device=dev)
+        pos = pos - torch.tensor([0.5, 1.0 - (r & 1), 1.0 - (r >> 1)], device=dev)
+        pos[:, 0] *= 2.0
+        vel = (torch.rand((n_l, 3), generator=gen, device=dev) * 2.0 - 1.0) * 0.001
+        ranks.append(ParticleState(pos, vel, torch.zeros_like(pos), torch.ones(n_l, device=dev)))
+    state = ranks[0]  # for its field names
+    bound = torch.stack([st.let_bound(s.pos) for s in ranks]).amax(0)  # the all_reduce
+    tp_imp = dataclasses.replace(tp, walk_list_cap=tp.effective_import_list_cap())
+    for _ in range(2):  # the ranks' stages twice: the second pass is timed
+        t = {k: [] for k in ("build", "export", "local_walk", "import_walk")}
+        locals_ = []
+        for s in ranks:
+            loc, ms = stage_ms(lambda: st.let_sort_build(s, bound, params, tp))
+            locals_.append(loc)
+            t["build"].append(ms)
+        boxes = [st.receiver_box(loc.pos_new) for loc in locals_]
+        blo, bhi = torch.cat([b[0] for b in boxes]), torch.cat([b[1] for b in boxes])
+        zero_launch_counts()
+        exps = []
+        for r, loc in enumerate(locals_):
+            exp, ms = stage_ms(lambda: st.let_export(loc, blo, bhi, r, tp, cap))
+            exps.append(exp)
+            t["export"].append(ms)
+        imps = st.exchange_by_hand(exps)
+        accs, deferred = [], 0
+        for r, loc in enumerate(locals_):
+            # each walk alone, timed, then the product's let_forces for the forces
+            _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
+                loc.pos_new, loc.pos_s, loc.mass_s, loc.tree, loc.keys, params, tp))
+            t["local_walk"].append(ms)
+            imp = imps[r]
+            _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
+                loc.pos_new, imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
+                imp.parts[:, :, 3].reshape(-1).contiguous(), assemble_import_forest(imp),
+                loc.keys, params, tp_imp, gid_offset=p * cap, recv_split=loc.tree.split))
+            t["import_walk"].append(ms)
+            acc, d = st.let_forces(loc, imp, params, tp, p, cap)
+            accs.append(acc)
+            deferred += int(d)
+        counts = launch_counts()
+    # B3 over an import forest, its receivers numbered past every source
+    # (self_idx = P * let_cap + i): against the plain walk, and as the group
+    # walk's fallback when every tile is deferred (no room in the list pool)
+    loc, imp = locals_[1], imps[1]
+    forest = assemble_import_forest(imp)
+    src = types.SimpleNamespace(pos=imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
+                                mass=imp.parts[:, :, 3].reshape(-1).contiguous())
+    b = LET_SAMPLE
+    past = torch.arange(p * cap, p * cap + b, dtype=torch.int32, device=dev)
+    k_b3, _, _, _, _, p99_b3, _ = held_walk("17 B3 past the sources", loc.pos_new[:b], past,
+                                            src, forest, params, tp_imp)
+    with pool_of(tree_walk_group_cuda, 0):
+        k_def, stats = tree_walk_group_cuda.group_tree_forces_cuda(
+            loc.pos_new[:b], src.pos, src.mass, forest, loc.keys[:b], params, tp_imp,
+            gid_offset=p * cap, recv_split=loc.tree.split[:b])
+    if int(stats.deferred) != b or not torch.equal(k_def, k_b3):
+        fail(f"17 the import walk's fallback ({int(stats.deferred)} of {b} deferred) differs "
+             "from B3 with self_idx past the sources")
+    print(f"17 B3 over rank 1's import forest, {b} receivers with self_idx past all "
+          f"{p * cap} sources: counts equal the plain rules', per-row p99 {p99_b3:.3e} against "
+          f"the plain walk; the group walk with every tile deferred gives B3's bits")
+    rows = [e.n_rows.tolist() for e in exps]
+    if any(bool(e.overflow.any()) for e in exps) or any(bool(l.tree.overflowed) for l in locals_):
+        fail(f"17 emulated LET step overflowed: rows {rows}")
+    if counts["B7"] != p:
+        fail(f"17 {p} exports launched B7 {counts['B7']} times")
+    # the single-device default step on the same bodies
+    sim = TreeSim(params, tp)
+    step = sim.make_step()
+    whole = ParticleState(*(torch.cat([getattr(s, f) for s in ranks]) for f in state._fields))
+    del state, ranks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = step(whole)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    _, single_ev = stage_ms(lambda: step(whole))
+    # 4096 sampled receivers, 1024 of each rank, against float64 all-pairs
+    gen_s = torch.Generator(device=dev).manual_seed(1)
+    per = LET_SAMPLE // p
+    picks = [torch.randint(0, n_l, (per,), generator=gen_s, device=dev) for _ in range(p)]
+    recv = torch.cat([loc.pos_new[i] for loc, i in zip(locals_, picks)])
+    got_let = torch.cat([a[i] for a, i in zip(accs, picks)])
+    src = torch.cat([loc.pos_s for loc in locals_])
+    mass = torch.cat([loc.mass_s for loc in locals_])
+    own = torch.cat([r * n_l + i for r, i in enumerate(picks)])
+    truth = naive_forces_ref(recv.double(), src.double(), mass.double(), params, block=8,
+                             row_offset=own)
+    try:
+        at = rows_of(recv, single.pos)
+    except ValueError:
+        fail("17 the sampled receivers are not in the single-device step's drifted state")
+    err_let = mean_rel_err(got_let, truth)
+    err_rep = mean_rel_err(single.acc[at], truth)
+    mean = {k: sum(v) / p for k, v in t.items()}
+    need = max(max(r) for r in rows)
+    print(f"17 emulated LET step, P={p} x n_local={n_l} (N={n}, uniform, the four top Morton "
+          f"quadrants' slabs), theta={tp.theta}, let_cap={cap}: rows per export {rows} (the "
+          f"largest {need}: auto_let_cap {auto} {'holds' if need <= auto else 'overflows'}); "
+          f"deferred {deferred}; launches {counts}")
+    for k, v in t.items():
+        print(f"17 {k}: " + ", ".join(f"{x:.3f}" for x in v) + f" ms per rank (mean {mean[k]:.3f})")
+    print(f"17 single-device default step at N={n}: {single_ms:.3f} ms synchronised, "
+          f"{single_ev:.3f} ms by events; per-rank LET stages sum {sum(mean.values()):.3f} ms")
+    print(f"17 vs float64 on {LET_SAMPLE} receivers: mean relative error LET {err_let:.4e}, "
+          f"single-device group walk {err_rep:.4e} (gates < 0.03 and LET < 3 x single + 1e-4); "
+          f"[{smi}]")
+    if not (err_let < 0.03 and err_rep < 0.03 and err_let < 3 * err_rep + 1e-4):
+        fail("17 the emulated LET step's forces miss tests/test_let.py:68's criteria")
+    del locals_, exps, imps, accs, single, truth
+    # 17b. the uniform scene (each quadrant's count as it falls) owned as a
+    # reshard leaves it: slices of the global Morton order, whose ragged ends
+    # poke into the neighbours' slabs; the exports' rows at four times the
+    # auto size (a measurement)
+    del whole
+    pos = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
+    zero3 = torch.zeros_like(pos)
+    perm = morton_order_cuda(pos, tp.max_depth)[0].long()
+    slices = [st.let_sort_build(ParticleState(pos[perm[r * n_l:(r + 1) * n_l]], zero3[:n_l],
+                                              zero3[:n_l], torch.ones(n_l, device=dev)),
+                                bound, params, tp) for r in range(p)]
+    del perm, pos, zero3
+    boxes = [st.receiver_box(loc.pos_new) for loc in slices]
+    blo, bhi = torch.cat([b[0] for b in boxes]), torch.cat([b[1] for b in boxes])
+    wide = 4 * auto
+    morton_rows = [st.let_export(loc, blo, bhi, r, tp, wide).n_rows.tolist()
+                   for r, loc in enumerate(slices)]
+    print(f"17b N={n} uniform in [-1, 1]^3 as four slices of the global Morton order: rows per "
+          f"export at let_cap {wide}: {morton_rows} (auto_let_cap {auto}); [{smi}]")
+    del slices
+    torch.cuda.empty_cache()
+    return {"stages_ms": t, "single_ms": single_ms, "single_events_ms": single_ev,
+            "err_let": err_let, "err_single": err_rep, "rows": rows, "deferred": deferred,
+            "let_cap": cap, "auto_let_cap": auto, "morton_slice_rows": morton_rows,
+            "launches": counts["B7"]}
+
+
+def sharded_run(make, steps, chunk, dev):
+    """(runner, launches, ms per step of the last chunk) of a headless run on
+    ``dev`` of ``steps`` steps in chunks of ``chunk`` (each chunk ends in a
+    synchronisation)."""
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    runner = OfflineHeadless(make(), uniform_init, seed=0, device=dev)
+    zero_launch_counts()
+    runner.run(steps=steps, chunk=chunk, log_fn=lambda line: None)
+    return runner, launch_counts(), runner.timer.times_s[-1] / chunk * 1e3
+
+
+def phase_sharded(dev, smi):
+    """18. This slice's main path: a one-rank NCCL group running the sharded
+    sims through the runner, each held to its single-device sim."""
+    import torch.distributed as dist
+
+    from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
+    from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.parallel import ShardedNaiveSim, ShardedTreeSim
+    from wgpu_n_body_tpu_torch.parallel.mesh import free_port, init_distributed, make_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    init_distributed(backend, 0, 1, f"tcp://localhost:{free_port()}")
+    out = {}
+    try:
+        mesh = make_mesh()
+        if mesh.device != dev or dist.get_backend() != backend:
+            fail(f"18 the one-rank group runs on {mesh.device} under {dist.get_backend()}")
+        steps, chunk = 6, 3
+        runs = [("naive", s, N_MAIN, expected_counts(B1=steps)) for s in ("allgather", "ring")]
+        tree_counts = {
+            "replicated": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
+                                          B4_eval=steps, B3=steps),
+            "let": expected_counts(K1=steps, K2=steps, B5=steps, B4=2 * steps,
+                                   B4_eval=2 * steps, B3=2 * steps, B7=steps),
+        }
+        runs += [("tree", s, N_TREE, c) for s, c in tree_counts.items()]
+        singles = {}
+        for kind, schedule, n, want in runs:
+            params = SimParams(particle_num=n)
+            if kind == "naive":
+                make = lambda: ShardedNaiveSim(params, mesh, NaiveParams(), schedule)
+                make_single = lambda: NaiveSim(params, NaiveParams())
+            else:
+                make = lambda: ShardedTreeSim(params, mesh, TreeParams(), schedule)
+                make_single = lambda: TreeSim(params, TreeParams())
+            runner, counts, ms = sharded_run(make, steps, chunk, dev)
+            if counts != want:
+                fail(f"18 {kind} {schedule}: {steps} steps launched {counts}, not {want}")
+            if kind not in singles:
+                singles[kind] = sharded_run(make_single, steps, chunk, dev)
+            single, _, single_ms = singles[kind]
+            a, b = runner.state, single.state
+            torch.testing.assert_close(a.pos, b.pos, rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(a.vel, b.vel, rtol=1e-4, atol=1e-7)
+            torch.testing.assert_close(a.acc, b.acc, rtol=1e-4, atol=1e-8)
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+            health = runner.last_health
+            print(f"18 one-rank NCCL {kind} {schedule} N={n}: {steps} steps in chunks of {chunk}, "
+                  f"launches {({k: v for k, v in counts.items() if v})}; held to the "
+                  f"single-device sim (bit-equal: {same}); {ms:.3f} ms/step against "
+                  f"{single_ms:.3f} ({ms / single_ms - 1:+.2%}); health {health}; [{smi}]")
+            out[f"{kind} {schedule}"] = {"ms": ms, "single_ms": single_ms, "counts": counts,
+                                         "bit_equal": same}
+            del runner
+        del singles
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2352,6 +2759,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch.models import NaiveSim
         from wgpu_n_body_tpu_torch.native import build as native_build
         from wgpu_n_body_tpu_torch.ops import (
+            let_export_cuda,
             morton_cuda,
             naive_cuda,
             raster_cuda,
@@ -2383,7 +2791,7 @@ def main() -> None:
         t = time.perf_counter()
         return (*native_build.build(), time.perf_counter() - t)
 
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=7)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=8)
     host_lib = pool.submit(timed_host_build)  # native/octree.cpp, by g++
     builds = {
         "B1/B2": pool.submit(naive_cuda.build),
@@ -2392,6 +2800,7 @@ def main() -> None:
         "B5": pool.submit(tree_build_cuda.build),
         "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
         "B6": pool.submit(raster_cuda.build),
+        "B7": pool.submit(let_export_cuda.build),  # with CUB's scans
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -2553,7 +2962,7 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B5", "K1", "B6"):
+    for key in ("B3", "B4", "B5", "K1", "B6", "B7"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -2598,7 +3007,20 @@ def main() -> None:
         b6[key] = {re.search(r"raster_big_kernel|raster_kernelILb[01]E|blend_u8_kernel",
                              row[0]).group(0): row[col] for row in tree_ptxas["B6"]}
 
-    kernels = [b1, b2, b3, b4, b5, k1, b6]
+    b7 = phase_let_kernel(dev, smi)
+    for name, regs, stores, _ in tree_ptxas["B7"]:
+        short = re.search(r"let_[a-z]+_kernel", name)
+        if short:
+            b7.setdefault("registers", {})[short.group(0)] = regs
+            b7.setdefault("spill_store_bytes", {})[short.group(0)] = stores
+    b7["emulated_p4"] = phase_let_emulated(dev, smi)
+    sharded = phase_sharded(dev, smi)
+    # this slice's main path: one export per LET step of the one-rank group
+    b7["launches"] = sharded["tree let"]["counts"]["B7"]
+    b7["launches_emulated_p4"] = b7["emulated_p4"].pop("launches")
+    b7["sharded_p1"] = sharded
+
+    kernels = [b1, b2, b3, b4, b5, k1, b6, b7]
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")

@@ -279,7 +279,7 @@ def test_cli_headless_tree_host_on_cpu(tmp_path, capsys):
     [
         (["--tree-kw", "leaf_bucket=4"], "leaf_bucket=1, got 4"),
         (["--tree-kw", "bucket=4"], "NAME one of"),
-        (["--devices", "2"], "not yet ported"),
+        (["--devices", "2"], "--devices requires --sim naive|tree"),
     ],
 )
 def test_cli_tree_host_usage_errors_exit_2(extra, says, capsys):

@@ -173,10 +173,10 @@ def test_make_sim_of_tree_checkpoint_raises(tmp_path):
     ckpt = load_checkpoint(ck, device="cpu")
     assert ckpt.step == 5 and ckpt.add_params is None
     # no add-params means TreeSim with the default (group) walk, as in JAX;
-    # only a sharded run's checkpoint still raises
+    # a sharded run's checkpoint needs the ranks' mesh, as in JAX
     sim = ckpt.make_sim()
     assert isinstance(sim, TreeSim) and sim.add_params == TreeParams()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="pass mesh="):
         ckpt._replace(schedule={"name": "let", "let_cap": 64, "mesh_axes": ["x"]}).make_sim()
 
 
@@ -197,7 +197,8 @@ def test_cli_headless_on_cpu(tmp_path, capsys):
     assert TrajectoryReader(traj).steps == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("extra", [["--sim", "naive", "--devices", "2"]])
+@pytest.mark.parametrize("extra", [["--sim", "tree", "--devices", "2", "--schedule", "let",
+                                    "--fused-let-walk"]])
 def test_cli_not_ported_exits_2(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(["headless", "--n", "64", "--device", "cpu", *extra])

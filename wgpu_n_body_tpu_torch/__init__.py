@@ -6,11 +6,13 @@ reference the port is held against:
 - ``params``      value types and the numpy state bridge
 - ``inits``       initial-condition generators (torch.Generator)
 - ``models``      simulation backends: naive O(N^2), Barnes-Hut TreeSim
-                  (per-particle walk)
+                  (group and per-particle walks), TreeSimHost
 - ``ops``         forces (plain torch + the hand-written CUDA kernels in
-                  ``csrc/``: all-pairs dx-form and factored, tree walk),
+                  ``csrc/``: all-pairs dx-form and factored, tree walks),
                   Morton keys, octree build, leapfrog, energy, the
-                  renderer's raster
+                  renderer's raster, the LET export
+- ``parallel``    multi-GPU schedules on ``torch.distributed`` (sharded
+                  naive and tree, the LET export kernel's wrappers)
 - ``runners``     headless step loop, trajectory IO, offline renderer,
                   online viewer, GIF writer
 - ``utils``       profiling, checkpointing (format shared with JAX)

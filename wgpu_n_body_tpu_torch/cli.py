@@ -8,16 +8,25 @@
     python -m wgpu_n_body_tpu_torch.cli serve             # browser viewer at 127.0.0.1:8000
     python -m wgpu_n_body_tpu_torch.cli render --trajectory DIR
 
+    python -m wgpu_n_body_tpu_torch.cli headless --devices 4 --schedule let   # 4 GPUs, NCCL
+    python -m wgpu_n_body_tpu_torch.cli headless --devices 4 --device cpu --n 4096   # 4 CPU ranks
+
 Flags and defaults are the JAX package's, plus ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``,
 ``--sim tree`` (either walk) and ``--sim tree-host`` (host C++ build,
-device walk; needs ``g++``), on one device. ``visualize``, ``serve`` and
-``render`` rasterise on ``--device`` (on the card through the kernels of
-``csrc/raster.cu``). ``--devices > 1`` (ROADMAP
-A13) exits with code 2, as does a malformed ``--tree-kw``, a ``TreeParams``
-value the chosen device does not take (``walk_tile`` above 512 on CUDA) or
-one the backend does not take (``leaf_bucket`` other than 1 with
-``--sim tree-host``).
+device walk; needs ``g++``). ``visualize``, ``serve`` and ``render``
+rasterise on ``--device`` (on the card through the kernels of
+``csrc/raster.cu``). ``headless --devices K`` with K > 1 spawns K ranks
+itself (``torch.multiprocessing``), rank r on ``cuda:r`` under NCCL, or K
+CPU processes under gloo with ``--device cpu``, and runs ``--sim naive``
+(``--schedule allgather|ring``, default allgather) or ``--sim tree``
+(``replicated|let``, default replicated) sharded over them; rank 0 prints.
+Exit code 2 (naming the field): a bad ``--schedule``, ``--devices`` with
+another ``--sim`` or another command, more ranks than visible GPUs, an N
+the ranks do not divide, ``--fused-let-walk`` (not yet ported), a
+malformed ``--tree-kw``, a ``TreeParams`` value the chosen device does not
+take (``walk_tile`` above 512 on CUDA) or one the backend does not take
+(``leaf_bucket`` other than 1 with ``--sim tree-host``).
 """
 
 from __future__ import annotations
@@ -31,11 +40,16 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from wgpu_n_body_tpu_torch.inits import INITS, uniform_init
 from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.models.base import Simulator
+from wgpu_n_body_tpu_torch.ops.let_export import check_let_cap
 from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
+from wgpu_n_body_tpu_torch.parallel import ShardedNaiveSim, ShardedTreeSim, sharded_naive, sharded_tree
+from wgpu_n_body_tpu_torch.parallel.mesh import Mesh, free_port, init_distributed, make_mesh
 from wgpu_n_body_tpu_torch.runners.gif import write_gif
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 from wgpu_n_body_tpu_torch.runners.online import OnlineViewer, serve
@@ -46,6 +60,8 @@ from wgpu_n_body_tpu_torch.utils.profiling import sync
 
 SIMS = ("naive", "tree", "tree-host")
 TREE_SIMS = ("tree", "tree-host")  # the backends --tree-kw applies to
+#: valid --schedule values per sharded backend, the first the default
+SCHEDULES = {"naive": sharded_naive.SCHEDULES, "tree": sharded_tree.SCHEDULES}
 
 
 def _device(name: str) -> torch.device:
@@ -84,10 +100,8 @@ def _tree_kw(specs: list[str]) -> dict:
 
 def _build_sim(args) -> Simulator:
     if args.devices > 1:
-        _usage_error(
-            f"--sim {args.sim} --devices {args.devices}: not yet ported "
-            "(ROADMAP A13); the port runs --sim naive|tree|tree-host on one device"
-        )
+        _usage_error(f"--devices {args.devices}: sharded runs are `headless` only "
+                     "(--sim naive|tree)")
     if args.sim not in SIMS:
         _usage_error(f"--sim {args.sim!r}: choose one of {', '.join(SIMS)}")
     params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
@@ -115,6 +129,69 @@ def _build_sim(args) -> Simulator:
     return sim
 
 
+def _sharded_sim(args, mesh: Mesh) -> Simulator:
+    """The sharded backend of ``--devices`` for this rank's ``mesh``; exits 2
+    naming the field on a value it does not take (called once with a
+    stand-in mesh before any rank starts)."""
+    if args.sim not in SCHEDULES:
+        _usage_error(f"--devices requires --sim naive|tree (got --sim {args.sim})")
+    schedule = args.schedule or SCHEDULES[args.sim][0]
+    if schedule not in SCHEDULES[args.sim]:
+        _usage_error(f"--schedule {schedule!r} invalid for --sim {args.sim}: choose from "
+                     f"{', '.join(SCHEDULES[args.sim])}")
+    if args.fused_let_walk:
+        _usage_error("--fused-let-walk: the fused LET walk is not yet ported (ROADMAP B8); "
+                     "the default split walk runs without the flag")
+    if args.let_cap is not None:
+        try:
+            check_let_cap(args.let_cap)
+        except ValueError as exc:
+            _usage_error(f"--let-cap: {exc}")
+    params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
+    try:
+        if args.sim == "naive":
+            return ShardedNaiveSim(params, mesh, NaiveParams(use_pallas=not args.no_pallas),
+                                   schedule=schedule)
+        tp = TreeParams(**{"theta": args.theta, **_tree_kw(args.tree_kw)})
+        return ShardedTreeSim(params, mesh, tp, schedule=schedule, let_cap=args.let_cap)
+    except (TypeError, ValueError, NotImplementedError) as exc:
+        _usage_error(f"--sim {args.sim} --devices {args.devices}: {exc}")
+
+
+def _rank_main(rank: int, args, port: int) -> None:
+    """One rank of ``headless --devices K``: join the group, run, leave."""
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+    else:  # K processes share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.devices))
+    init_distributed("nccl" if cuda else "gloo", rank, args.devices, f"tcp://localhost:{port}")
+    try:
+        mesh = make_mesh(device=f"cuda:{rank}" if cuda else "cpu")
+        _headless(args, _sharded_sim(args, mesh), mesh.device, root=rank == 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_sharded(args) -> int:
+    """``headless --devices K``: check the arguments, then spawn K ranks."""
+    _check_tree_kw(args)
+    device = torch.device(args.device)
+    _sharded_sim(args, Mesh(rank=0, size=args.devices, device=device))
+    if device.type == "cuda":
+        visible = torch.cuda.device_count()
+        if args.devices > visible:
+            _usage_error(f"--devices {args.devices}: only {visible} CUDA devices are visible")
+    elif device.type != "cpu":
+        _usage_error(f"--devices {args.devices}: --device must be cuda or cpu, got {device}")
+    try:
+        mp.spawn(_rank_main, args=(args, free_port()), nprocs=args.devices, join=True)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        print(f"a rank failed: {exc}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
     if sim_list:  # bench: comma-separated list of backends
         p.add_argument("--sim", default=sim)
@@ -135,7 +212,16 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
         "--tree-kw walk='\"per_particle\"' --tree-kw leaf_bucket=32",
     )
     p.add_argument("--devices", type=int, default=0,
-                   help="shard over K devices (not ported yet: 0/1 only)")
+                   help="shard `headless` over K ranks: K GPUs (NCCL), or K CPU processes "
+                   "(gloo) with --device cpu (0/1 = one device)")
+    p.add_argument("--schedule", type=str, default=None,
+                   help="sharded schedule: naive allgather|ring, tree replicated|let "
+                   "(default: the first of each)")
+    p.add_argument("--let-cap", type=int, default=None,
+                   help="LET export rows per destination (default: sized from measured "
+                   "need, parallel/let_tree.py::auto_let_cap)")
+    p.add_argument("--fused-let-walk", action="store_true",
+                   help="the JAX package's fused LET walk: not yet ported (exits 2)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the state (default cuda)")
 
@@ -145,17 +231,13 @@ def _check_tree_kw(args) -> None:
         _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
 
 
-def cmd_headless(args) -> int:
-    """bin/headless.rs analog: per-step microseconds printed
-    (headless.rs:12-34)."""
-    _check_tree_kw(args)
-    sim = _build_sim(args)
-    runner = OfflineHeadless(
-        sim, INITS[args.init or "uniform"], seed=args.seed, device=_device(args.device)
-    )
+def _headless(args, sim: Simulator, device: torch.device, root: bool = True) -> None:
+    """The headless run of ``sim``: one device, or one rank of a sharded
+    run (every rank runs this; the ``root`` rank writes and prints)."""
+    runner = OfflineHeadless(sim, INITS[args.init or "uniform"], seed=args.seed, device=device)
     traj = (
         TrajectoryWriter(args.trajectory, meta={"n": args.n, "dt": args.dt})
-        if args.trajectory
+        if args.trajectory and root
         else None
     )
     runner.run(
@@ -163,15 +245,27 @@ def cmd_headless(args) -> int:
         chunk=args.chunk,
         log_every=args.chunk if args.chunk > 1 else 1,
         trajectory=traj,
-        trajectory_every=args.trajectory_every,
+        trajectory_every=args.trajectory_every or (max(args.chunk, 1) if args.trajectory else 0),
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every or args.steps,
         energy_every=args.energy_every,
         overflow_check_every=args.overflow_check_every,
+        reshard_every=args.reshard_every,
         diag_log_every=args.diag_every,
+        log_fn=print if root else (lambda line: None),
     )
-    mean = runner.timer.mean_s()
-    print(f"mean: {mean * 1e6:.1f} us/step over {args.steps} steps")
+    if root:
+        print(f"mean: {runner.timer.mean_s() * 1e6:.1f} us/step over {args.steps} steps",
+              flush=True)
+
+
+def cmd_headless(args) -> int:
+    """bin/headless.rs analog: per-step microseconds printed
+    (headless.rs:12-34); ``--devices K`` > 1 runs it sharded over K ranks."""
+    if args.devices > 1:
+        return _run_sharded(args)
+    _check_tree_kw(args)
+    _headless(args, _build_sim(args), _device(args.device))
     return 0
 
 
@@ -318,6 +412,11 @@ def main(argv=None) -> int:
         help="log the backend health dict (node count, capacity, overflow, "
         "walk_deferred) at this cadence (one extra sort, build and group walk "
         "per log)",
+    )
+    p.add_argument(
+        "--reshard-every", type=int, default=0,
+        help="re-partition a sharded tree run into global Morton slices at this "
+        "cadence (bounds LET export drift; a pure permutation)",
     )
     p.set_defaults(fn=cmd_headless)
 

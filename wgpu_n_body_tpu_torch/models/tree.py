@@ -38,6 +38,33 @@ from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
 
 
+def validate_tree_params(tp: TreeParams) -> None:
+    """Raise ValueError for TreeParams values no tree backend takes."""
+    if tp.walk not in ("group", "per_particle"):
+        raise ValueError(f"unknown walk {tp.walk!r}")
+    if not isinstance(tp.max_depth, int) or not 1 <= tp.max_depth <= 20:
+        raise ValueError(f"max_depth must be an int in [1, 20], got {tp.max_depth!r}")
+    if not isinstance(tp.leaf_bucket, int) or tp.leaf_bucket < 1:
+        raise ValueError(f"leaf_bucket must be an int >= 1, got {tp.leaf_bucket!r}")
+    if not isinstance(tp.theta, (int, float)) or not tp.theta >= 0:
+        raise ValueError(f"theta must be a number >= 0, got {tp.theta!r}")
+
+
+def check_walk_tile(tp: TreeParams, n_receivers: int, device: torch.device) -> None:
+    """Raise ValueError for a walk tile ``device`` does not take.
+
+    The group walk's evaluation kernel holds a tile in one CTA, at most
+    ``MAX_TILE`` receivers, so a larger ``walk_tile`` is rejected for a CUDA
+    device, before any state is made or stepped (``diagnose`` runs the
+    group walk whatever ``walk`` is). The CPU path takes any tile."""
+    tile = tp.effective_walk_tile(n_receivers)
+    if device.type == "cuda" and tile > MAX_TILE:
+        raise ValueError(
+            f"walk_tile must be at most {MAX_TILE} on a CUDA device, got {tile} "
+            "(larger tiles run with --device cpu only)"
+        )
+
+
 class TreeSim(Simulator):
     """Barnes-Hut O(N log N) backend, device-resident."""
 
@@ -45,31 +72,14 @@ class TreeSim(Simulator):
         super().__init__(sim_params)
         # The reference defaults theta=0.75 when params are missing
         # (tree.rs:42-51); here the default lives in TreeParams itself.
-        self.add_params = tp = add_params or TreeParams()
-        if tp.walk not in ("group", "per_particle"):
-            raise ValueError(f"unknown walk {tp.walk!r}")
-        if not isinstance(tp.max_depth, int) or not 1 <= tp.max_depth <= 20:
-            raise ValueError(f"max_depth must be an int in [1, 20], got {tp.max_depth!r}")
-        if not isinstance(tp.leaf_bucket, int) or tp.leaf_bucket < 1:
-            raise ValueError(f"leaf_bucket must be an int >= 1, got {tp.leaf_bucket!r}")
-        if not isinstance(tp.theta, (int, float)) or not tp.theta >= 0:
-            raise ValueError(f"theta must be a number >= 0, got {tp.theta!r}")
+        self.add_params = add_params or TreeParams()
+        validate_tree_params(self.add_params)
         self._overflowed: torch.Tensor | None = None
 
     def check_device(self, device: torch.device) -> None:
-        """Raise ValueError for parameters that ``device`` does not take.
-
-        The group walk's evaluation kernel holds a tile in one CTA, at most
-        ``MAX_TILE`` receivers, so a larger ``walk_tile`` is rejected for a
-        CUDA device here, before any state is made or stepped (``diagnose``
-        runs the group walk whatever ``walk`` is). The CPU path takes any
-        tile."""
-        tile = self.add_params.effective_walk_tile(self.sim_params.particle_num)
-        if device.type == "cuda" and tile > MAX_TILE:
-            raise ValueError(
-                f"walk_tile must be at most {MAX_TILE} on a CUDA device, got {tile} "
-                "(larger tiles run with --device cpu only)"
-            )
+        """Raise ValueError for parameters that ``device`` does not take
+        (``check_walk_tile``)."""
+        check_walk_tile(self.add_params, self.sim_params.particle_num, device)
 
     def init_state(self, generator, init_fn, device) -> ParticleState:
         self.check_device(torch.device(device))

@@ -72,20 +72,26 @@ def _checked_depth(depth) -> None:
         raise ValueError(f"max_depth must be an int in [1, 20], got {depth!r}")
 
 
-def morton_keys_cuda(pos: torch.Tensor, depth: int):
+def morton_keys_cuda(pos: torch.Tensor, depth: int, bound: torch.Tensor | None = None):
     """(keys (n,) int64 unsorted packed keys, index (n,) int32 0..n-1,
     bound () float32) of (n, 3) float32 positions: the bound's reduction
-    and the key kernel on a CUDA tensor, the plain version on a CPU one."""
+    and the key kernel on a CUDA tensor, the plain version on a CPU one.
+    ``bound``, when given, is a () float32 at least max(1, max |pos|) that
+    the cells are cut from instead (the LET schedule's, reduced over the
+    ranks so that every rank's cells align); the kernel takes it as its
+    min and max."""
     n = pos.shape[0] if pos.dim() == 2 else -1
     _check("pos", pos, torch.float32, (n, 3))
     _checked_depth(depth)
+    if bound is not None:
+        _check("bound", bound, torch.float32, ())
     if pos.device.type == "cpu":
-        bound = morton.bound_of(pos)
+        bound = morton.bound_of(pos) if bound is None else bound
         index = torch.arange(n, dtype=torch.int32)
         return morton.packed_keys(pos, bound, depth), index, bound
     if pos.device.type != "cuda":
         raise ValueError(f"morton_keys_cuda takes CUDA or CPU tensors, got {pos.device}")
-    return launch_keys(pos, *torch.aminmax(pos), depth)
+    return launch_keys(pos, *(torch.aminmax(pos) if bound is None else (-bound, bound)), depth)
 
 
 def launch_keys(pos: torch.Tensor, pos_min: torch.Tensor, pos_max: torch.Tensor, depth: int):
@@ -141,13 +147,15 @@ def sort_keys_cuda(keys: torch.Tensor, index: torch.Tensor, depth: int):
     return perm, keys_sorted
 
 
-def morton_order_cuda(pos: torch.Tensor, depth: int):
+def morton_order_cuda(pos: torch.Tensor, depth: int, bound: torch.Tensor | None = None):
     """Morton ordering of (n, 3) float32 positions: (perm (n,) int32, bound
     () float32, sorted packed keys (n,) int64), equal to
-    ``tree_build.morton_order``'s. The key kernel runs in the profiler range
+    ``tree_build.morton_order``'s (against ``bound`` where it is given, see
+    ``morton_keys_cuda``). The key kernel runs in the profiler range
     ``morton_keys``, the sort in ``morton_sort``."""
     with trace_scope("morton_keys"):
-        keys, index, bound = morton_keys_cuda(pos, depth)
+        keys, index, bound = morton_keys_cuda(pos, depth, bound)
     with trace_scope("morton_sort"):
         perm, keys = sort_keys_cuda(keys, index, depth)
     return perm, bound, keys
+

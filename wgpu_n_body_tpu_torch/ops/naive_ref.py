@@ -96,3 +96,10 @@ def naive_forces_mxu_ref(
     return _blocked(
         naive_forces_mxu_dense, pos_new, pos_old, mass, params, block, row_offset
     )
+
+
+def mean_rel_err(got, want) -> float:
+    """tests/test_tree.py's force error: mean |got - want| over the mean row
+    norm of ``want`` (float64)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().mean() / want.norm(dim=1).mean())

@@ -177,7 +177,7 @@ def _check_engine_args(imports) -> None:
     if imports is not None:
         raise NotImplementedError(
             "group_tree_forces(imports=...) is the fused LET walk of the sharded "
-            "tree, not ported yet (ROADMAP A13)"
+            "tree (let_fused=True), not ported yet (ROADMAP A13, B8)"
         )
 
 
@@ -464,7 +464,7 @@ def group_tree_forces(
     src_pos:  (N, 3) pre-step sources, the full sorted order.
     src_mass: (N,) sorted masses.
     keys:     packed Morton keys of the receivers (same slice).
-    imports:  the JAX fused-LET import forest; not ported, raises.
+    imports:  the JAX fused-LET import forest; not ported (B8), raises.
     """
     _check_engine_args(imports)
     n = pos_new.shape[0]

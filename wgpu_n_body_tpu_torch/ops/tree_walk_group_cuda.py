@@ -82,6 +82,18 @@ def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def check_receivers(gid_offset: int, n: int, n_src: int) -> int:
+    """``gid_offset`` as an int, if the n receivers' global indices [gid_offset,
+    gid_offset + n) are sources of the walk (a slice of the sorted order) or
+    lie wholly past the n_src sources (the LET import walk, whose receivers
+    are no source, so the self-mask masks none); ValueError otherwise."""
+    gid_offset = int(gid_offset)
+    if gid_offset < 0 or gid_offset < n_src < gid_offset + n:
+        raise ValueError(f"receivers [{gid_offset}, {gid_offset + n}) straddle the end of the "
+                         f"{n_src} sources")
+    return gid_offset
+
+
 def group_walk_lists_cuda(
     pos_new: torch.Tensor,
     tree: TreeArrays,
@@ -164,9 +176,7 @@ def group_eval_lists_cuda(
         raise TypeError("ids must be a 1-D int32 pool")
     if not 1 <= tiles.g <= MAX_TILE:
         raise ValueError(f"walk_tile must be in [1, {MAX_TILE}] on CUDA, got {tiles.g}")
-    gid_offset = int(gid_offset)
-    if gid_offset < 0 or gid_offset + n > n_src:
-        raise ValueError(f"receivers [{gid_offset}, {gid_offset + n}) are not in the {n_src} sources")
+    gid_offset = check_receivers(gid_offset, n, n_src)
 
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
     if table is None:  # one 16-byte row per id
@@ -215,6 +225,7 @@ def group_tree_forces_cuda(
     tree_params: TreeParams,
     gid_offset: int = 0,
     imports=None,
+    recv_split: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk (see
     ``tree_walk_group.group_tree_forces``).
@@ -222,7 +233,10 @@ def group_tree_forces_cuda(
     CUDA tensors go through the kernel, then the per-particle kernel over
     the deferred receivers; CPU tensors through the plain version; anything
     else raises. On the card the tiles come from the split levels the build
-    kernels wrote (``tree.split``), which a CUDA tree must carry. The
+    kernels wrote: the tree's own (``tree.split``) at the receivers' sorted
+    indices [gid_offset, gid_offset + B), or ``recv_split`` (B,) where the
+    receivers are not the tree's bodies (the LET import walk: the receivers'
+    own tree's levels). The plain version derives them from ``keys``. The
     stages carry profiler ranges (``group_tiles``; ``group_kernel`` around
     the walk kernel's ``group_walk`` and the evaluation's ``group_eval``;
     ``group_fallback``), which ``utils/profile_step.py`` reads.
@@ -240,15 +254,17 @@ def group_tree_forces_cuda(
         )
     if device.type != "cuda":
         raise ValueError(f"group_tree_forces_cuda takes CUDA or CPU tensors, got {device}")
-    if tree.split is None:
-        raise ValueError("group_tree_forces_cuda on CUDA takes the build's split levels "
-                         "(tree.split); this tree has none")
     n = pos_new.shape[0]
     g0 = int(gid_offset)
-    with trace_scope("group_tiles"):
+    if recv_split is None:
+        if tree.split is None:
+            raise ValueError("group_tree_forces_cuda on CUDA takes the build's split levels "
+                             "(tree.split or recv_split); this tree has none")
         # the receivers are sorted bodies [g0, g0 + n); a slice's first split
         # level is never read (its first receiver starts a piece anyway)
-        tiles = tile_setup(keys, n, tree_params, split=tree.split[g0 : g0 + n])
+        recv_split = tree.split[g0 : g0 + n]
+    with trace_scope("group_tiles"):
+        tiles = tile_setup(keys, n, tree_params, split=recv_split)
     with trace_scope("group_kernel"):
         with trace_scope("group_walk"):
             lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)

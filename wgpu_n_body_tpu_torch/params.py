@@ -111,9 +111,13 @@ class TreeParams:
     second pass that restarts straggler tiles runs on the TPU only; its CPU
     path, which the port follows, is one pass, and a CUDA block finishes
     its own tile with no lockstep), ``octet_capacity_factor`` (no octet
-    tables are built), and the multi-chip LET fields
-    (``let_import_list_cap``, ``let_fused``, ``let_forest_factor``) until
-    the sharded tree is ported (ROADMAP A13).
+    tables are built) and ``let_forest_factor`` (the fused LET walk's).
+
+    Read by the sharded tree (``parallel/sharded_tree.py``):
+      let_import_list_cap: walk_list_cap of the split LET walk's import
+        forest walk (``effective_import_list_cap``).
+      let_fused: must be False: the fused LET walk (import octet tables)
+        is not ported (ROADMAP B8), and True raises.
     """
 
     theta: float = 0.75

@@ -4,6 +4,7 @@ CUDA card.
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] [--walk per_particle]
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim tree-host
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim naive
+    python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --schedule let
 
 N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
 defaults (uniform scene, θ=0.75); with ``--sim naive`` to 262144, the naive
@@ -32,6 +33,12 @@ device), ``host_octree`` (the C++ build) and ``host_copy_up`` (the arena and
 the permutation to the device), and of ``theta_walk`` (the host's enqueue of
 the table and B3), from the same trace; its kernels count to ``theta_walk``
 or to the rest of ``tree_step`` (the gather into DFS order and the leapfrog).
+With ``--schedule replicated|let`` the step is ``ShardedTreeSim``'s in a
+one-rank NCCL group (the sharded machinery on one card), and its kernel and
+host time are also printed per stage: the sort (``morton_keys``,
+``morton_sort``), ``tree_build``, B7 (``let_export``), the exchange
+(``let_exchange``), the walks (``let_local_walk``, ``let_import_walk``;
+``theta_walk`` under ``replicated``).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -46,16 +53,22 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from wgpu_n_body_tpu_torch.inits import uniform_init
 from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+from wgpu_n_body_tpu_torch.parallel import ShardedTreeSim
+from wgpu_n_body_tpu_torch.parallel.mesh import free_port, init_distributed, make_mesh
 
 STEPS = 3  # in the profiler window
 RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "theta_walk", "group_tiles",
           "group_kernel", "group_walk", "group_eval", "group_fallback")  # outer to inner
 HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host_copy_up",
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
+#: the stages of a sharded tree step, which do not nest
+STAGES = ("morton_keys", "morton_sort", "tree_build", "let_export", "let_exchange",
+          "let_local_walk", "let_import_walk", "theta_walk")
 
 
 def _smi(query: str) -> str:
@@ -65,17 +78,17 @@ def _smi(query: str) -> str:
     ).stdout.strip()
 
 
-def kernel_breakdown(trace_events):
+def kernel_breakdown(trace_events, names=RANGES):
     """(per-range kernel µs, per-(range, kernel) µs, busy µs, span µs)
-    from a chrome trace's events; a kernel counts to the innermost range
-    that holds it."""
+    from a chrome trace's events; a kernel counts to the innermost range of
+    ``names`` that holds it."""
     kernels = [e for e in trace_events if e.get("cat") == "kernel"]
     ranges = [e for e in trace_events
-              if e.get("cat") == "gpu_user_annotation" and e.get("name") in RANGES]
+              if e.get("cat") == "gpu_user_annotation" and e.get("name") in names]
     by_range, by_kernel = {}, {}
     for k in kernels:
         inside = [r for r in ranges if r["ts"] <= k["ts"] < r["ts"] + r["dur"]]
-        where = (min(inside, key=lambda r: (r["dur"], -RANGES.index(r["name"])))["name"]
+        where = (min(inside, key=lambda r: (r["dur"], -names.index(r["name"])))["name"]
                  if inside else "leapfrog")
         by_range[where] = by_range.get(where, 0.0) + k["dur"]
         key = (where, k["name"][:60])
@@ -89,13 +102,31 @@ def kernel_breakdown(trace_events):
     return by_range, by_kernel, busy, intervals[-1][1] - intervals[0][0]
 
 
-def host_ranges(trace_events):
-    """Host µs per range of ``HOST_RANGES``, summed over the trace."""
+def host_ranges(trace_events, names=HOST_RANGES):
+    """Host µs per range of ``names``, summed over the trace."""
     out = {}
     for e in trace_events:
-        if e.get("cat") == "user_annotation" and e.get("name") in HOST_RANGES:
+        if e.get("cat") == "user_annotation" and e.get("name") in names:
             out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
     return out
+
+
+def host_ops(trace_events, within: str):
+    """[(op or range name, host µs)] of the host events that lie directly
+    inside the ranges named ``within`` (the outermost level below them),
+    summed by name over the trace, longest first."""
+    host = [e for e in trace_events
+            if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "user_annotation")]
+    outer = [e for e in host if e.get("name") == within]
+    out = {}
+    for r in outer:
+        lo, hi = r["ts"], r["ts"] + r["dur"]
+        inner = [e for e in host if e is not r and lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+        for e in inner:  # keep only events no other inner event encloses
+            if not any(o is not e and o["ts"] <= e["ts"] and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+                       and o["dur"] > e["dur"] for o in inner):
+                out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+    return sorted(out.items(), key=lambda x: -x[1])
 
 
 def main(argv=None) -> int:
@@ -103,6 +134,8 @@ def main(argv=None) -> int:
     parser.add_argument("n", type=int, nargs="?")
     parser.add_argument("--sim", choices=["tree", "tree-host", "naive"], default="tree")
     parser.add_argument("--walk", choices=["group", "per_particle"], default="group")
+    parser.add_argument("--schedule", choices=["replicated", "let"], default=None,
+                        help="ShardedTreeSim's step in a one-rank NCCL group")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("profile_step needs a CUDA device", file=sys.stderr)
@@ -118,6 +151,12 @@ def main(argv=None) -> int:
         tp = TreeParams(leaf_bucket=1)
         print(f"TreeSimHost N={n} theta={tp.theta} leaf_bucket=1")
         sim = TreeSimHost(params, tp)
+    elif args.schedule:
+        tp = TreeParams(walk=args.walk)
+        init_distributed("nccl", 0, 1, f"tcp://localhost:{free_port()}")
+        print(f"ShardedTreeSim N={n} theta={tp.theta} walk={tp.walk} schedule={args.schedule}, "
+              "one NCCL rank")
+        sim = ShardedTreeSim(params, make_mesh(), tp, args.schedule)
     else:
         tp = TreeParams(walk=args.walk)
         print(f"TreeSim N={n} theta={tp.theta} walk={tp.walk}")
@@ -163,9 +202,22 @@ def main(argv=None) -> int:
         host = host_ranges(events)
         print("  host time per range, ms/step: "
               + ", ".join(f"{k} {host.get(k, 0.0) / STEPS / 1e3:.3f}" for k in HOST_RANGES))
+    if isinstance(sim, ShardedTreeSim):
+        stages = kernel_breakdown(events, STAGES)[0]
+        host = host_ranges(events, STAGES + ("sharded_tree_step",))
+        print("  per stage, kernel / host ms per step: " + ", ".join(
+            f"{k} {stages.get(k, 0.0) / STEPS / 1e3:.3f} / {host.get(k, 0.0) / STEPS / 1e3:.3f}"
+            for k in STAGES + ("leapfrog",) if k in stages or k in host)
+            + f"; the step's host time {host.get('sharded_tree_step', 0.0) / STEPS / 1e3:.3f}")
+        for within in ("let_import_walk", "group_fallback", "group_tiles"):
+            ops = host_ops(events, within)
+            print(f"  host ms per step directly inside {within}, the longest: " + ", ".join(
+                f"{name} {us / STEPS / 1e3:.3f}" for name, us in ops[:10]))
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    if args.sim == "tree":
+    if args.sim == "tree":  # TreeSim or ShardedTreeSim
         print("diagnose", sim.diagnose(state))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 
