@@ -7,8 +7,9 @@ Phases (any failure exits non-zero):
  1. a CUDA device is present; print the card's name and power limit;
  2. build every kernel from ``wgpu_n_body_tpu_torch/csrc`` (one nvcc per
     source, all started together: B1 and B2 share ``naive_forces.cu``; the
-    key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort, B7's
-    ``let_export.cu`` carries CUB's scans) and,
+    key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort; the tile
+    set-up B4 · T (``tile_setup.cu``) and B7 (``let_export.cu``) share the
+    chained scan of ``chained_scan.cuh``) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -26,8 +27,8 @@ Phases (any failure exits non-zero):
  5. run ``cli headless --sim naive --n 262144 --steps 10`` in-process and
     check that each step launched B1 once and the state is sane;
  6. three NaiveSim steps at N=16384, kernel vs plain version;
- 7. report the tree kernels' builds (B3, B4, B5 with K2, K1): registers and
-    spills;
+ 7. report the tree kernels' builds (B3, B4, B4 · T, B5 with K2, K1, B6,
+    B7): registers and spills;
  8. B2 against its plain factored version: small ragged inputs and
     shards, N=262144 against float64 (as 3), timed beside the plain version, and
     ``NaiveSim(mxu=True)`` through ``OfflineHeadless`` at N=262144;
@@ -60,8 +61,8 @@ Phases (any failure exits non-zero):
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
     launched K1, K2, the build (B5) and B3 once (and the diagnostics one
-    sort and build more and its group walk, B4 and B3 once), the state is
-    sane and the checkpoint reloads;
+    sort and build more and its group walk, B4 · T, B4 and B3 once), the
+    state is sane and the checkpoint reloads;
 12. the group walk kernels (B4: a walk kernel writing each tile's list of
     ids, an evaluation kernel summing them) against their plain versions on
     every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
@@ -71,14 +72,23 @@ Phases (any failure exits non-zero):
     tile deferred against B3, with a list pool too small (12d), the full
     N=4M walk timed stage by stage beside B3 and its SFU bound (12e), and
     the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
-    measurement config), where no tile may find the pool empty (12f);
+    measurement config), where no tile may find the pool empty (12f). Every
+    walk there takes its tiles from B4 · T (``tile_setup_cuda``), held equal
+    field for field to the plain ``tile_setup`` on the same split levels and
+    on the keys' (12a, 12d-12f); 12e also times B4 · T at N=4M beside its
+    plain version and its bytes bound, launches it twice (bit-equal) and
+    catches one planted split level; 12g holds it on its edges: 48 bodies
+    of 5,000 at one point each (overfull max-depth cells, groups longer
+    than a block), random and all-zero split levels that spill past the
+    tile budget, N=1, 300 < walk_tile, walk_tile 1 and 2, N off and on the
+    block size;
 13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
     group walk, N=4,000,000) and check that each step launched K1, K2 and
-    the build (B5: its other three kernels, one launcher call) once, both B4
-    kernels once and B3 once (its fallback over the deferred mask), the
-    diagnostics (nothing deferred, none for the pool), the checkpoint and
-    the mass multiset; and that the tiles made from the build's split levels
-    equal those of the plain split levels on the last state;
+    the build (B5: its other three kernels, one launcher call) once, B4 · T
+    once, both B4 kernels once and B3 once (its fallback over the deferred
+    mask), the diagnostics (nothing deferred, none for the pool), the
+    checkpoint and the mass multiset; and that B4 · T's tiles from the
+    build's split levels equal the plain tile_setup's on the last state;
 14. the tree-host path, where B3 is the whole force: one host build of the
     N=4M uniform scene (``native/octree.cpp``), B3 on its arena for 4096
     consecutive and 4096 sampled receivers against the plain walk on the same
@@ -118,16 +128,22 @@ Phases (any failure exits non-zero):
     uniform in octant 0 of [-1, 1]^3, theta=0.75, let_cap = auto_let_cap
     (98,304), the other octants' boxes as destinations at P=8 and P=4 (the
     geometry of the JAX package's ``tools/measure_let.py --geometry
-    octants``), both timed beside the plain version and the bytes bound;
-    theta=0 (every row to every other octant, N=262144) and a planted
-    overflow (let_cap 4096: the DFS prefix kept, the flags set);
+    octants``), both timed (by CUDA events with the enqueue, and the device
+    time of each launch from the profiler) beside the plain version and the
+    bytes bound; P=12 (octants 0-3 again as destinations 8-11, self 8: two
+    launches of the scan-and-emit kernel, destinations 9-11 bit-equal to
+    1-3, the own octant as a foreign box overflowing); theta=0 (every row to every other octant,
+    N=262144) and a planted overflow (let_cap 4096: the DFS prefix kept, the
+    flags set);
 17. the LET step of P=4 ranks of 4,000,000 bodies (N=16M, the four top
     Morton quadrants' slabs of the uniform scene) emulated on one card: the
     port's per-rank stages (``parallel/sharded_tree.py``: sort and build,
-    B7, the local and the import walk) in turn, the boxes' gather and the
-    all_to_all done by hand, each stage timed per rank beside the
-    single-device default step at N=16M; forces on 4,096 sampled receivers
-    held to ``tests/test_let.py:68``'s criteria against float64 all-pairs;
+    B7, the tiles both walks share, the local and the import walk) in turn,
+    the boxes' gather and the all_to_all done by hand, each stage timed per
+    rank beside the single-device default step at N=16M; ``let_forces``
+    launching B4 · T once per rank and B4 twice; forces on 4,096 sampled
+    receivers held to ``tests/test_let.py:68``'s criteria against float64
+    all-pairs;
     B3 over an import forest with self_idx past every source against the
     plain walk, and as the group walk's fallback; 17b the exports' rows of a
     uniform N=16M scene owned as four slices of the global Morton order (a
@@ -136,8 +152,8 @@ Phases (any failure exits non-zero):
     ``ShardedNaiveSim`` (allgather, ring; N=262144) and ``ShardedTreeSim``
     (replicated, let; N=4,000,000) through ``OfflineHeadless`` for 6 steps
     in chunks of 3, each held to its single-device sim (pos rtol 1e-5, vel
-    and acc rtol 1e-4) with its launches counted (B7 once per LET step) and
-    its time per step beside the single-device one.
+    and acc rtol 1e-4) with its launches counted (B7 and B4 · T once per LET
+    step, B4 twice) and its time per step beside the single-device one.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
@@ -149,7 +165,14 @@ scene's (raster and blend), its launches those of ``cli visualize`` and,
 as ``launches_blend``, those of the served frames.
 B7's bound is its bytes (the arena rows some destination visits, the
 member rows it copies and every output slot) at 3.35 TB/s; its record's
-times are phase 16's at P=8, its launches phase 18's.
+times are phase 16's at P=8, its launches phase 18's. B4 · T's bound is its
+bytes (the split levels read; tile_id (int64), slot (int32) and deferred per
+receiver and two int32 per tile written) at 3.35 TB/s; its times are phase 12e's at
+N=4M, its launches phase 13's. B7's ``ms`` is the CUDA-event time per call,
+as in every earlier record of it, with ``device_ms`` (its launches' device
+time from the profiler) and ``device_share`` beside it. B4 · T, whose
+wrapper takes longer to enqueue than the card to run it, has the device
+time as ``ms`` and the CUDA-event time as ``events_ms``.
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
@@ -331,6 +354,7 @@ def zero_launch_counts():
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
+    tree_walk_group_cuda.LAUNCHES_TILES = 0
     tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
     raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BLEND = let_export_cuda.LAUNCHES = 0
 
@@ -338,9 +362,11 @@ def zero_launch_counts():
 def launch_counts():
     """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
     reorder (B5's first kernel), B5 the builds, each of which enqueues its
-    other three kernels once; B6 the frames' rasters (raster_kernel, then
-    raster_big_kernel for triangles), "B6 blend" their u8 blends; B7 the LET
-    exports (each enqueues four kernels and two CUB scans)."""
+    other three kernels once; "B4 tiles" the group walk's tile set-ups
+    (B4 · T: a memset and two kernels each); B6 the frames' rasters
+    (raster_kernel, then raster_big_kernel for triangles), "B6 blend" their
+    u8 blends; B7 the LET exports (each a memset, the scan-and-emit kernel
+    per 8 destinations and the tail kernel)."""
     from wgpu_n_body_tpu_torch.ops import (
         let_export_cuda,
         morton_cuda,
@@ -353,7 +379,8 @@ def launch_counts():
 
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
-            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL, "B5": tree_build_cuda.LAUNCHES,
+            "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL,
+            "B4 tiles": tree_walk_group_cuda.LAUNCHES_TILES, "B5": tree_build_cuda.LAUNCHES,
             "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
             "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND,
             "B7": let_export_cuda.LAUNCHES}
@@ -361,8 +388,9 @@ def launch_counts():
 
 def expected_counts(**counts):
     """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
-    ``B6_blend`` for "B6 blend")."""
-    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B5", "K1", "K2", "B6", "B6 blend", "B7")
+    ``B4_tiles`` for "B4 tiles", ``B6_blend`` for "B6 blend")."""
+    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B4 tiles", "B5", "K1", "K2", "B6", "B6 blend",
+            "B7")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -1313,9 +1341,10 @@ def phase_tree_cli(dev, smi):
         counts = launch_counts()
         # one sort stage (K1, K2), one build (B5) and one B3 launch per step;
         # the diagnostics line at the last step sorts and builds once more and
-        # runs one group walk (B4, then B3 over its deferred mask), as in JAX
-        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B5=STEPS + 1, K1=STEPS + 1,
-                                     K2=STEPS + 1):
+        # runs one group walk (its tiles, B4, then B3 over its deferred mask),
+        # as in JAX
+        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B4_tiles=1, B5=STEPS + 1,
+                                     K1=STEPS + 1, K2=STEPS + 1):
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1334,6 +1363,95 @@ def phase_tree_cli(dev, smi):
           f"{counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; "
           f"[{smi}]")
     return counts
+
+
+def tiles_differ(a, b):
+    """The fields of two ``Tiles`` that differ (a tensor in dtype, shape or
+    any element)."""
+    out = []
+    for f, x, y in zip(a._fields, a, b):
+        same = (x.dtype == y.dtype and torch.equal(x, y)) if torch.is_tensor(x) else x == y
+        if not same:
+            out.append(f)
+    return out
+
+
+def held_tiles(what, split, n, tp, keys=None):
+    """B4 · T (``tile_setup_cuda``) on the card against the plain
+    ``tile_setup`` on the same split levels and, given ``keys``, on
+    ``morton.split_levels`` of the keys: every field of ``Tiles`` equal.
+    Returns the kernel's tiles."""
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import tile_setup
+
+    got = gcuda.tile_setup_cuda(split, n, tp)
+    torch.cuda.synchronize()
+    wants = [tile_setup(None, n, tp, split=split)]
+    if keys is not None:
+        wants.append(tile_setup(keys, n, tp))
+    for want in wants:
+        bad = tiles_differ(got, want)
+        if bad:
+            fail(f"{what}: B4 · T's {bad} differ from the plain tile_setup's")
+    return got
+
+
+def tile_bytes(tiles, n):
+    """Bytes the tile set-up must move: n split levels read (1 byte each),
+    tile_id (int64), slot (int32) and deferred (bool) written per receiver,
+    piece_start and piece_len (int32) per tile."""
+    return n + n * 13 + tiles.t_cap * 8
+
+
+def phase_tiles(dev, smi):
+    """12g. B4 · T on the inputs that reach its edges: overfull max-depth
+    cells (groups longer than a block), split levels that spill past the
+    tile budget, n < walk_tile, walk_tile 1, n off the block size."""
+    from wgpu_n_body_tpu_torch.ops import morton
+    from wgpu_n_body_tpu_torch.ops.tree_build import morton_order
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+
+    block = 2048  # receivers per block of csrc/tile_setup.cu's scan kernel
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # 48 points each held by 5,000 bodies (overfull max-depth cells) among
+    # uniform ones, through the build kernels
+    n = 262144
+    pos = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
+    pos[: 48 * 5000] = pos[:48].repeat_interleave(5000, 0)
+    params, tp = SimParams(particle_num=n), TreeParams()
+    z = torch.zeros_like(pos)
+    _, tree, keys, _ = sorted_scene(ParticleState(pos, z, z, torch.ones(n, device=dev)), params,
+                                    tp)
+    tiles = held_tiles("12g duplicates", tree.split, n, tp, keys)
+    same = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), keys[1:] != keys[:-1]])
+    run = int(torch.diff(torch.nonzero(torch.cat([same, same.new_ones(1)])).flatten()).max())
+    if run <= block:
+        fail(f"12g the duplicates scene's longest run of equal keys is {run}")
+    lines = [f"duplicates N={n} (longest run of one key {run}, {int(tiles.deferred.sum())} "
+             f"deferred)"]
+    del pos, z, tree, keys, same
+    # synthetic split levels: random, and every receiver a group start
+    for name, n, s in (
+        ("random split levels", 100_003,
+         torch.randint(0, 18, (100_003,), generator=gen, device=dev).to(torch.uint8)),
+        ("all split levels 0", 50_000, torch.zeros(50_000, dtype=torch.uint8, device=dev)),
+    ):
+        tp = TreeParams(walk_tile=256)
+        tiles = held_tiles(f"12g {name}", s, n, tp)
+        spilled = int(tiles.deferred.sum())
+        if not spilled:
+            fail(f"12g {name}: nothing spilled past the tile budget")
+        lines.append(f"{name} N={n} walk_tile 256 ({spilled} spilled past t_cap {tiles.t_cap})")
+    # small and ragged sizes, split levels of a uniform draw's sorted keys
+    for n, walk_tile in ((1, 512), (300, 512), (5000, 1), (2047, 256), (3 * block + 17, 256),
+                         (3 * block + 17, 2), (block, 512)):
+        tp = TreeParams(walk_tile=walk_tile)
+        pos = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
+        keys = morton_order(pos, tp.max_depth)[2]
+        split = morton.split_levels(keys, tp.max_depth).to(torch.uint8)
+        held_tiles(f"12g N={n} walk_tile {walk_tile}", split, n, tp, keys)
+        lines.append(f"N={n} walk_tile {walk_tile}")
+    print(f"12g B4 · T bit-equal to the plain tile_setup: " + "; ".join(lines))
 
 
 def phase_b4(dev, smi, mhz):
@@ -1369,7 +1487,7 @@ def phase_b4(dev, smi, mhz):
                                                params, TreeParams())
         for g_tile in (128, 256, 512):
             tp = TreeParams(walk_tile=g_tile)  # otherwise the defaults: theta 0.75
-            tiles = tile_setup(keys, N_MAIN, tp)
+            tiles = held_tiles(f"12a {name} walk_tile {g_tile}", tree.split, N_MAIN, tp, keys)
             ms_k, (k_acc, k_bad, k_steps, k_rows) = time_ms(
                 lambda: gcuda.group_walk_tiles_cuda(pos_new, ss.pos, ss.mass, tree, tiles,
                                                     params, tp), 3)
@@ -1450,12 +1568,57 @@ def phase_b4(dev, smi, mhz):
         lambda: group(pos_new, ss.pos, ss.mass, tree, keys, params, tp), 3)
     if not torch.equal(acc2, acc) or not torch.isfinite(acc).all():
         fail("the N=4M group walk is non-finite or differs between two runs")
-    tiles = tile_setup(keys, N_TREE, tp)
+    tiles = held_tiles("12e N=4M", tree.split, N_TREE, tp, keys)
     ms_walk, lists = time_ms(lambda: gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp), 3)
     ms_eval, _ = time_ms(lambda: gcuda.group_eval_lists_cuda(
         pos_new, ss.pos, ss.mass, tree, tiles, lists, params), 3)
     ms_kern = ms_walk + ms_eval
-    ms_setup, _ = time_ms(lambda: tile_setup(keys, N_TREE, tp), 3)
+    # B4 · T: timed beside its plain version (on the build's split levels, as
+    # the card's step ran it before the kernel) and its bytes bound; two
+    # launches bit-equal; one split level changed must change the tiles
+    # (its ms: the device time of its launches; CUDA events around a call
+    # also time the wrapper's enqueue, which is longer)
+    ms_events, again = time_ms(lambda: gcuda.tile_setup_cuda(tree.split, N_TREE, tp), 20)
+    t_split = launch_split(lambda: gcuda.tile_setup_cuda(tree.split, N_TREE, tp), 20)
+    ms_setup = sum(t_split.values())
+    ms_setup_plain, _ = time_ms(lambda: tile_setup(keys, N_TREE, tp, split=tree.split), 3)
+    if tiles_differ(again, tiles):
+        fail(f"12e two B4 · T launches differ in {tiles_differ(again, tiles)}")
+    k = N_TREE // 2 + int(torch.nonzero(tiles.slot[N_TREE // 2:] != 0)[0])  # not a break
+    planted = tree.split.clone()
+    planted[k] = 0  # a group start there
+    if not tiles_differ(gcuda.tile_setup_cuda(planted, N_TREE, tp), tiles):
+        fail("12e a changed split level left B4 · T's tiles as they were")
+    del again, planted
+    t_bytes = tile_bytes(tiles, N_TREE)
+    t_bound = t_bytes / HBM_PEAK * 1e3
+    print(f"12e B4 · T at N={N_TREE} (walk_tile {tiles.g}, t_cap {tiles.t_cap}): bit-equal to "
+          f"the plain tile_setup on the build's split levels and on the keys', two launches "
+          f"bit-equal, a planted split level (receiver {k}) caught; kernel {ms_setup:.4f} ms of "
+          f"device time (" + ", ".join(f"{k} {v:.4f}" for k, v in t_split.items())
+          + f"; {ms_events:.4f} ms by events with the enqueue), plain {ms_setup_plain:.3f} ms, "
+          f"bound {t_bound:.4f} ms ({t_bytes} bytes at 3.35 TB/s): {t_bound / ms_setup:.2%}; "
+          f"[{smi}]")
+    tile_rec = {
+        "name": "tile_setup",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/tile_setup.cu",
+        "replaces": "wgpu_n_body_tpu/ops/tree_walk_group.py:184",
+        "launches": 0,  # set from the main path's run (phase 13)
+        "max_abs_err": 0.0,  # integers, compared for equality
+        "ms": ms_setup,
+        "events_ms": ms_events,
+        "device_ms_by_launch": t_split,
+        "plain_ms": ms_setup_plain,
+        "bound_ms": t_bound,
+        "bound_by": "bytes",
+        "bound_unit": "HBM",
+        "bound_bytes": t_bytes,
+        "library_ms": None,
+        "library": ("none: no single PyTorch call computes the density-adaptive tiles (sliding "
+                    "windows of split levels and two dependent scans)"),
+        "ms_receivers": N_TREE,
+    }
     ms_b3, _ = time_ms(
         lambda: tree_walk_cuda.tree_forces_cuda(pos_new, ss.pos, ss.mass, tree, params, tp), 2)
     nt = int((tiles.piece_len > 0).sum())
@@ -1480,7 +1643,7 @@ def phase_b4(dev, smi, mhz):
     b4_bound = bound(pairs, 2, 20, N_TREE * (12 + 16 + 12) + tree.nodes_f32.numel() * 4 + 3 * m * 4,
                      mhz)
     print(f"12e N={N_TREE} group walk (tiles of {tiles.g}, r_cap {tiles.r_cap}): {ms_group:.3f} ms "
-          f"per call (tile set-up {ms_setup:.3f} ms; B4 {ms_kern:.3f} ms = walk kernel "
+          f"per call (tile set-up {ms_setup:.4f} ms; B4 {ms_kern:.3f} ms = walk kernel "
           f"{ms_walk:.3f} + evaluation kernel with its table {ms_eval:.3f}; the rest B3 over the "
           f"deferred mask and the merge); B3 full per-particle walk {ms_b3:.3f} ms; "
           f"{nt} tiles, {int(lists.bad.sum())} bad, {int(lists.pool_full.sum())} without pool "
@@ -1531,7 +1694,7 @@ def phase_b4(dev, smi, mhz):
     ktp, st3 = group(pn16, ss16.pos, ss16.mass, tree16, keys16, p16, tpp)
     if int(st3.deferred) != 0:
         fail(f"theta=0.3 with a roomy pool deferred {int(st3.deferred)} receivers")
-    tiles16 = tile_setup(keys16, 16384, tpp)
+    tiles16 = held_tiles("12d", tree16.split, 16384, tpp, keys16)
     roomy = gcuda.group_walk_lists_cuda(pn16, tree16, tiles16, tpp)
     n_small = int((roomy.chunks >= 0).sum()) - 1
     with pool_of(gcuda, n_small):
@@ -1562,7 +1725,7 @@ def phase_b4(dev, smi, mhz):
     p2, tp5 = SimParams(particle_num=n2), TreeParams(theta=0.5)  # walk_tile resolves to 512
     ss, tree, keys, pos_new = sorted_scene(
         disc_init(torch.Generator().manual_seed(0), p2, dev), p2, tp5)
-    tiles = tile_setup(keys, n2, tp5)
+    tiles = held_tiles("12f N=2M disc theta=0.5", tree.split, n2, tp5, keys)
     worst = tiles.t_cap * max_chunks(tiles)  # every tile's list at its step budget
     with pool_of(gcuda, worst):
         need = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp5)
@@ -1582,7 +1745,8 @@ def phase_b4(dev, smi, mhz):
         fail("the default list pool is too small for the N=2M disc theta=0.5 scene")
     del ss, tree, keys, pos_new, tiles, need
     torch.cuda.empty_cache()
-    return {
+    phase_tiles(dev, smi)
+    return tile_rec, {
         "name": "tree_walk_group",
         "route": "cuda",
         "source": "wgpu_n_body_tpu_torch/csrc/tree_walk_group.cu",
@@ -1915,7 +2079,6 @@ def phase_group_cli(dev, smi):
     from wgpu_n_body_tpu_torch.ops.morton import split_levels
     from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
     from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
-    from wgpu_n_body_tpu_torch.ops.tree_walk_group import tile_setup
     from wgpu_n_body_tpu_torch.params import SimParams
     from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -1931,7 +2094,8 @@ def phase_group_cli(dev, smi):
         # then B3 over its deferred mask), and so does each diagnostics line
         walks = STEPS + len(diags)
         if len(diags) != 1 or counts != expected_counts(B3=walks, B4=walks, B4_eval=walks,
-                                                        B5=walks, K1=walks, K2=walks):
+                                                        B4_tiles=walks, B5=walks, K1=walks,
+                                                        K2=walks):
             fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1946,26 +2110,25 @@ def phase_group_cli(dev, smi):
         init = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
         if not torch.equal(torch.sort(st.mass).values, torch.sort(init.mass).values):
             fail("the group-walk run changed the mass multiset")
-    # the step's tiles come from the build's split levels: on the last state,
-    # integer-equal to those of the plain split levels of the keys
+    # the step's tiles come from the build's split levels through B4 · T: on
+    # the last state, equal to the plain tile_setup's on those levels and on
+    # the plain split levels of the keys
     tp = sim.add_params
     perm, bound_, keys = morton_order_cuda(st.pos, tp.max_depth)
     _, tree = build_tree_cuda(st, perm, keys, bound_, tp)
-    got, want = tile_setup(keys, N_TREE, tp, split=tree.split), tile_setup(keys, N_TREE, tp)
-    if not (torch.equal(tree.split.long(), split_levels(keys, tp.max_depth))
-            and all(torch.equal(a, b) if torch.is_tensor(a) else a == b
-                    for a, b in zip(got, want))):
-        fail("the tiles from the build's split levels differ from the plain split levels' tiles")
-    del perm, keys, tree, got, want
+    if not torch.equal(tree.split.long(), split_levels(keys, tp.max_depth)):
+        fail("the build's split levels differ from the plain split levels of the keys")
+    held_tiles("13 the last state", tree.split, N_TREE, tp, keys)
+    del perm, keys, tree
     pool = re.findall(r"'walk_pool_deferred': (\d+)", out)
     if pool != ["0"]:
         fail(f"the N=4M diagnostics report pool deferrals {pool}")
     print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): K1 "
-          f"{counts['K1']}, K2 {counts['K2']}, B5 builds {counts['B5']}, B4 walk {counts['B4']} "
-          f"and evaluation {counts['B4 eval']}, B3 {counts['B3']} launches in {STEPS} steps + "
-          f"{len(diags)} diagnostics (walk_deferred {diags[0]}, walk_pool_deferred {pool[0]}), "
-          f"{us:.1f} us/step; the tiles from the build's split levels equal the plain ones; "
-          f"[{smi}]")
+          f"{counts['K1']}, K2 {counts['K2']}, B5 builds {counts['B5']}, B4 · T "
+          f"{counts['B4 tiles']}, B4 walk {counts['B4']} and evaluation {counts['B4 eval']}, B3 "
+          f"{counts['B3']} launches in {STEPS} steps + {len(diags)} diagnostics (walk_deferred "
+          f"{diags[0]}, walk_pool_deferred {pool[0]}), {us:.1f} us/step; B4 · T's tiles from the "
+          f"build's split levels equal the plain ones; [{smi}]")
     return counts
 
 
@@ -2076,29 +2239,38 @@ def raster_bound(rec):
             "operations", "bound_bytes": nbytes, "bound_ops": ops, "bound_ops_ms": t_ops}
 
 
+PROFILER_TRIES = 3  # windows before an empty trace fails the run
+
+
 def device_ms(fn, reps):
     """(mean device ms per call of ``fn``, {kernel or memset name: ms}):
     the durations of the kernels and memsets in a ``torch.profiler`` trace
-    of ``reps`` calls, without the host's enqueue time between them."""
+    of ``reps`` calls, without the host's enqueue time between them. A
+    window in which the profiler saw no kernel (CUPTI drops one now and
+    then) is taken again, up to ``PROFILER_TRIES`` windows."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    parts = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memset"):
-            name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].strip()[:40]
-            parts[name] = parts.get(name, 0.0) + e["dur"] / reps / 1e3
-    if not parts:
-        fail("the profiler saw no kernel on the card")
-    return sum(parts.values()), parts
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(PROFILER_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        parts = {}
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memset"):
+                name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].strip()[:40]
+                parts[name] = parts.get(name, 0.0) + e["dur"] / reps / 1e3
+        if parts:
+            return sum(parts.values()), parts
+        print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no kernel; "
+              "taking it again", file=sys.stderr)
+    fail(f"the profiler saw no kernel on the card in {PROFILER_TRIES} windows")
 
 
 def timed_frame(rec, pos, cam, reps=20):
@@ -2210,8 +2382,8 @@ def phase_visualize_cli(dev, smi):
             fail(f"15c cli visualize wrote {len(frames)} frames and a GIF of "
                  f"{os.path.getsize(gif) if os.path.exists(gif) else 0} bytes")
         steps = 60  # --frames 60 x --steps-per-frame 1, the group walk's step
-        if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B5=steps, K1=steps,
-                                     K2=steps, B6=60):
+        if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B4_tiles=steps,
+                                     B5=steps, K1=steps, K2=steps, B6=60):
             fail(f"15c cli visualize launched {counts}")
         last = os.path.join(tmp, "host.png")
         renderer.write_png(last, renderer.render_frame(seen[0].cpu().numpy()))
@@ -2314,7 +2486,8 @@ def phase_serve(dev, smi):
         frames = 2 * len(script) + 1
         counts = launch_counts()
         if counts != expected_counts(B3=steps - steps0, B4=steps - steps0,
-                                     B4_eval=steps - steps0, B5=steps - steps0,
+                                     B4_eval=steps - steps0, B4_tiles=steps - steps0,
+                                     B5=steps - steps0,
                                      K1=steps - steps0, K2=steps - steps0, B6=frames,
                                      B6_blend=frames):
             fail(f"15e {frames} frames and {steps - steps0} steps launched {counts}")
@@ -2380,7 +2553,7 @@ NO_EXPORT_LIBRARY = "none: no single PyTorch call prunes a tree against boxes"
 
 
 def octant_boxes(p, dev):
-    """(lo, hi) (p, 3): destination d is octant d of the global [-1, 1]^3
+    """(lo, hi) (p, 3): destination d is octant d % 8 of the global [-1, 1]^3
     cube, x lowest (octant 0, this rank's own, is [-1, 0]^3): the geometry
     of the JAX package's ``tools/measure_let.py --geometry octants``."""
     lo = torch.tensor([[-1.0 + (d & 1), -1.0 + ((d >> 1) & 1), -1.0 + ((d >> 2) & 1)]
@@ -2426,8 +2599,24 @@ def held_export(what, local, blo, bhi, me, theta, cap):
     return k, visited, err
 
 
+def launch_split(fn, reps):
+    """{launch name: device ms per call} of ``fn``'s kernels and memsets
+    (``utils/profile_step.py::launch_ms``); a window in which the profiler
+    saw no device activity is taken again, up to ``PROFILER_TRIES`` windows."""
+    from wgpu_n_body_tpu_torch.utils.profile_step import launch_ms
+
+    for attempt in range(PROFILER_TRIES):
+        out = launch_ms(fn, reps)
+        if out:
+            return out
+        print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no device "
+              "activity; taking it again", file=sys.stderr)
+    fail(f"the profiler saw no device activity in {PROFILER_TRIES} windows of launches")
+
+
 def phase_let_kernel(dev, smi):
-    """16. B7 (``csrc/let_export.cu``) against its plain version, timed."""
+    """16. B7 (``csrc/let_export.cu``) against its plain version, timed, on
+    the octant geometry."""
     from wgpu_n_body_tpu_torch.ops import let_export, let_export_cuda
     from wgpu_n_body_tpu_torch.params import TreeParams
     from wgpu_n_body_tpu_torch.parallel.let_tree import auto_let_cap
@@ -2448,14 +2637,40 @@ def phase_let_kernel(dev, smi):
             local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap), 2)
         nbytes = let_export.export_bytes(exp, visited)
         bound_ms = nbytes / HBM_PEAK * 1e3
-        rec[p] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_bytes": nbytes,
-                  "max_abs_err": err, "n_rows": exp.n_rows.tolist(),
-                  "visited_rows": int(visited.any(0).sum())}
+        # ms by CUDA events, as every earlier record of B7; beside it the
+        # device time of its launches (events also time the enqueue)
+        split = launch_split(lambda: let_export_cuda.export_walk_cuda(
+            local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap), 10)
+        dev_ms = sum(split.values())
+        rec[p] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
+                  "device_share": bound_ms / dev_ms, "max_abs_err": err,
+                  "n_rows": exp.n_rows.tolist(), "visited_rows": int(visited.any(0).sum()),
+                  "device_ms_by_launch": split}
         print(f"16a B7 octants n_local={N_LOCAL} ({m} arena rows) theta={tp.theta} P={p} "
               f"let_cap={cap}: bit-equal to the plain version; rows per destination "
-              f"{exp.n_rows.tolist()}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): {bound_ms / ms:.2%}; [{smi}]")
+              f"{exp.n_rows.tolist()}; kernel {ms:.4f} ms by CUDA events "
+              f"({dev_ms:.4f} ms of device time), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): {bound_ms / ms:.2%} by events, "
+              f"{bound_ms / dev_ms:.2%} of the device time; device ms per launch "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; [{smi}]")
         del exp, visited
+    # P > 8 takes one scan-and-emit launch per 8 destinations: P=12 repeats
+    # octants 0-3 as destinations 8-11, self at 8 (the second launch), so
+    # destination 0 (the own octant as a foreign box) takes the whole tree
+    # and overflows, and destinations 9-11 must carry 1-3's bits
+    blo, bhi = octant_boxes(12, dev)
+    exp12, _, _ = held_export("octants P=12, self 8", local, blo, bhi, 8, tp.theta, cap)
+    same = all(bits_equal(getattr(exp12, f)[1:4], getattr(exp12, f)[9:12])
+               for f in exp12._fields)
+    rows12 = exp12.n_rows.tolist()
+    if not same or int(exp12.n_rows[8]) != 0 or not bool(exp12.overflow[0]):
+        fail(f"16 P=12: destinations 9-11 equal 1-3 {same}, n_rows {rows12}, overflow "
+             f"{exp12.overflow.tolist()}")
+    print(f"16a B7 octants P=12 (two launches of 8 and 4 destinations), self 8: bit-equal to "
+          f"the plain version; rows per destination {rows12}; destinations 9-11 bit-equal to "
+          f"1-3; overflow {exp12.overflow.tolist()}")
+    del exp12
     # theta = 0 opens every row (each destination takes the whole tree), and
     # a let_cap below the face neighbours' rows must overflow, keeping the
     # DFS prefix
@@ -2485,6 +2700,8 @@ def phase_let_kernel(dev, smi):
         "launches": 0,  # set from the main path's run (phase 18)
         "max_abs_err": max(r["max_abs_err"] for r in rec.values()),
         "ms": rec[8]["ms"],
+        "device_ms": rec[8]["device_ms"],
+        "device_share": rec[8]["device_share"],
         "plain_ms": rec[8]["plain_ms"],
         "bound_ms": rec[8]["bound_ms"],
         "bound_by": "bytes",
@@ -2518,6 +2735,7 @@ def phase_let_emulated(dev, smi):
     from wgpu_n_body_tpu_torch.ops import let_export_cuda, tree_walk_group_cuda
     from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
     from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_ref
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import step_budget
     from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
     from wgpu_n_body_tpu_torch.parallel import sharded_tree as st
     from wgpu_n_body_tpu_torch.parallel.let_tree import assemble_import_forest, auto_let_cap
@@ -2546,7 +2764,7 @@ def phase_let_emulated(dev, smi):
     bound = torch.stack([st.let_bound(s.pos) for s in ranks]).amax(0)  # the all_reduce
     tp_imp = dataclasses.replace(tp, walk_list_cap=tp.effective_import_list_cap())
     for _ in range(2):  # the ranks' stages twice: the second pass is timed
-        t = {k: [] for k in ("build", "export", "local_walk", "import_walk")}
+        t = {k: [] for k in ("build", "export", "tiles", "local_walk", "import_walk")}
         locals_ = []
         for s in ranks:
             loc, ms = stage_ms(lambda: st.let_sort_build(s, bound, params, tp))
@@ -2560,23 +2778,33 @@ def phase_let_emulated(dev, smi):
             exp, ms = stage_ms(lambda: st.let_export(loc, blo, bhi, r, tp, cap))
             exps.append(exp)
             t["export"].append(ms)
+        counts = launch_counts()
         imps = st.exchange_by_hand(exps)
-        accs, deferred = [], 0
         for r, loc in enumerate(locals_):
-            # each walk alone, timed, then the product's let_forces for the forces
+            # each stage of let_forces alone, timed: the tiles both walks share,
+            # the local walk, the import walk
+            tiles, ms = stage_ms(lambda: tree_walk_group_cuda.tile_setup_cuda(
+                loc.tree.split, n_l, tp))
+            t["tiles"].append(ms)
             _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
-                loc.pos_new, loc.pos_s, loc.mass_s, loc.tree, loc.keys, params, tp))
+                loc.pos_new, loc.pos_s, loc.mass_s, loc.tree, loc.keys, params, tp, tiles=tiles))
             t["local_walk"].append(ms)
             imp = imps[r]
             _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
                 loc.pos_new, imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
                 imp.parts[:, :, 3].reshape(-1).contiguous(), assemble_import_forest(imp),
-                loc.keys, params, tp_imp, gid_offset=p * cap, recv_split=loc.tree.split))
+                loc.keys, params, tp_imp, gid_offset=p * cap,
+                tiles=tiles._replace(r_cap=step_budget(tp_imp.walk_list_cap))))
             t["import_walk"].append(ms)
-            acc, d = st.let_forces(loc, imp, params, tp, p, cap)
+        # the product's let_forces for the forces: one tile set-up per rank,
+        # two group walks
+        zero_launch_counts()
+        accs, deferred = [], 0
+        for r, loc in enumerate(locals_):
+            acc, d = st.let_forces(loc, imps[r], params, tp, p, cap)
             accs.append(acc)
             deferred += int(d)
-        counts = launch_counts()
+        forces_counts = launch_counts()
     # B3 over an import forest, its receivers numbered past every source
     # (self_idx = P * let_cap + i): against the plain walk, and as the group
     # walk's fallback when every tile is deferred (no room in the list pool)
@@ -2591,7 +2819,8 @@ def phase_let_emulated(dev, smi):
     with pool_of(tree_walk_group_cuda, 0):
         k_def, stats = tree_walk_group_cuda.group_tree_forces_cuda(
             loc.pos_new[:b], src.pos, src.mass, forest, loc.keys[:b], params, tp_imp,
-            gid_offset=p * cap, recv_split=loc.tree.split[:b])
+            gid_offset=p * cap,
+            tiles=tree_walk_group_cuda.tile_setup_cuda(loc.tree.split[:b], b, tp_imp))
     if int(stats.deferred) != b or not torch.equal(k_def, k_b3):
         fail(f"17 the import walk's fallback ({int(stats.deferred)} of {b} deferred) differs "
              "from B3 with self_idx past the sources")
@@ -2601,8 +2830,10 @@ def phase_let_emulated(dev, smi):
     rows = [e.n_rows.tolist() for e in exps]
     if any(bool(e.overflow.any()) for e in exps) or any(bool(l.tree.overflowed) for l in locals_):
         fail(f"17 emulated LET step overflowed: rows {rows}")
-    if counts["B7"] != p:
-        fail(f"17 {p} exports launched B7 {counts['B7']} times")
+    if counts != expected_counts(B7=p):
+        fail(f"17 {p} exports launched {counts}")
+    if forces_counts != expected_counts(B4_tiles=p, B4=2 * p, B4_eval=2 * p, B3=2 * p):
+        fail(f"17 let_forces of {p} ranks launched {forces_counts}")
     # the single-device default step on the same bodies
     sim = TreeSim(params, tp)
     step = sim.make_step()
@@ -2636,7 +2867,8 @@ def phase_let_emulated(dev, smi):
     print(f"17 emulated LET step, P={p} x n_local={n_l} (N={n}, uniform, the four top Morton "
           f"quadrants' slabs), theta={tp.theta}, let_cap={cap}: rows per export {rows} (the "
           f"largest {need}: auto_let_cap {auto} {'holds' if need <= auto else 'overflows'}); "
-          f"deferred {deferred}; launches {counts}")
+          f"deferred {deferred}; launches: exports {counts['B7']} B7, let_forces "
+          f"{({k: v for k, v in forces_counts.items() if v})}")
     for k, v in t.items():
         print(f"17 {k}: " + ", ".join(f"{x:.3f}" for x in v) + f" ms per rank (mean {mean[k]:.3f})")
     print(f"17 single-device default step at N={n}: {single_ms:.3f} ms synchronised, "
@@ -2708,9 +2940,10 @@ def phase_sharded(dev, smi):
         runs = [("naive", s, N_MAIN, expected_counts(B1=steps)) for s in ("allgather", "ring")]
         tree_counts = {
             "replicated": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
-                                          B4_eval=steps, B3=steps),
+                                          B4_eval=steps, B4_tiles=steps, B3=steps),
+            # the LET step's two walks share one tile set-up
             "let": expected_counts(K1=steps, K2=steps, B5=steps, B4=2 * steps,
-                                   B4_eval=2 * steps, B3=2 * steps, B7=steps),
+                                   B4_eval=2 * steps, B4_tiles=steps, B3=2 * steps, B7=steps),
         }
         runs += [("tree", s, N_TREE, c) for s, c in tree_counts.items()]
         singles = {}
@@ -2797,10 +3030,11 @@ def main() -> None:
         "B1/B2": pool.submit(naive_cuda.build),
         "B3": pool.submit(tree_walk_cuda.build),
         "B4": pool.submit(tree_walk_group_cuda.build),
+        "B4 T": pool.submit(tree_walk_group_cuda.build_tiles),
         "B5": pool.submit(tree_build_cuda.build),
         "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
         "B6": pool.submit(raster_cuda.build),
-        "B7": pool.submit(let_export_cuda.build),  # with CUB's scans
+        "B7": pool.submit(let_export_cuda.build),
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -2962,7 +3196,7 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B5", "K1", "B6", "B7"):
+    for key in ("B3", "B4", "B4 T", "B5", "K1", "B6", "B7"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -2992,9 +3226,15 @@ def main() -> None:
     b3["launches_per_particle_path"] = per_particle["B3"]
     b5["launches_per_particle_path"] = per_particle["B5"]
     k1["launches_per_particle_path"] = per_particle["K1"]
-    b4 = phase_b4(dev, smi, mhz)
+    b4t, b4 = phase_b4(dev, smi, mhz)
     main_path = phase_group_cli(dev, smi)
     b4["launches"], b4["launches_eval"] = main_path["B4"], main_path["B4 eval"]
+    b4t["launches"] = main_path["B4 tiles"]
+    for name, regs, stores, _ in tree_ptxas["B4 T"]:
+        short = re.search(r"tile_[a-z]+_kernel", name)
+        if short:
+            b4t.setdefault("registers", {})[short.group(0)] = regs
+            b4t.setdefault("spill_store_bytes", {})[short.group(0)] = stores
     b5["launches"], b5["reorder_launches"] = main_path["B5"], main_path["K2"]
     k1["launches"] = main_path["K1"]
     # this slice's main path: B3 is the whole force of the tree-host backend
@@ -3020,7 +3260,7 @@ def main() -> None:
     b7["launches_emulated_p4"] = b7["emulated_p4"].pop("launches")
     b7["sharded_p1"] = sharded
 
-    kernels = [b1, b2, b3, b4, b5, k1, b6, b7]
+    kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7]
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")

@@ -59,6 +59,9 @@ def _boxes(pos, geometry):
         blo = np.stack([lo + np.array(s) * (hi - lo) for s in shifts])
         bhi = np.stack([hi + np.array(s) * (hi - lo) for s in shifts])
         me = 0
+    elif geometry == "octants12":  # B7's kernel takes 8 destinations a launch: 0-3 again
+        blo, bhi, _ = _boxes(pos, "octants")  # as 8-11, self at 8 (the second launch)
+        blo, bhi, me = np.concatenate([blo, blo[:4]]), np.concatenate([bhi, bhi[:4]]), 8
     elif geometry == "overlap":  # Morton quarters of the rank's own bodies
         qs = np.array_split(pos, 4)
         blo, bhi, me = np.stack([q.min(0) for q in qs]), np.stack([q.max(0) for q in qs]), 3
@@ -70,6 +73,7 @@ def _boxes(pos, geometry):
 CASES = {
     # (seed, n, bucket, theta, geometry, let_cap)
     "octants": (0, 4096, 16, 0.75, "octants", 8192),
+    "octants12": (0, 4096, 16, 0.75, "octants12", 8192),
     "overlap": (1, 1024, 4, 0.4, "overlap", 2048),
     "theta0": (2, 512, 4, 0.0, "overlap", 1024),
     # tests/test_let.py:170: theta = 0 against an overlapping box needs ~n
@@ -99,6 +103,10 @@ def test_plain_export_walk_equals_jax_bit_for_bit(case):
         assert got.dtype == want.dtype, field
         np.testing.assert_array_equal(got, want, err_msg=field)
     assert int(texp.n_rows[me]) == 0 and not bool(texp.overflow[me])
+    if case == "octants12":  # box 0 is a foreign box over every body; 9-11 are 1-3
+        assert int(texp.n_rows[0]) > int(texp.n_rows[1:8].max())
+        for field in texp._fields:
+            assert torch.equal(getattr(texp, field)[9:12], getattr(texp, field)[1:4]), field
     if case == "overflow":
         assert bool(texp.overflow[0]) and int(texp.n_rows[0]) == 64
     else:

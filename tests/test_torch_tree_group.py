@@ -26,6 +26,7 @@ from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
     _window,
     group_tree_forces,
     group_walk_tiles,
+    step_budget,
     tile_setup,
 )
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
@@ -118,6 +119,87 @@ def test_tile_assignment_equals_jax(kind, g):
         assert got[1].max() > got[1].min() + 3  # the cluster's cells are deeper
 
 
+def _pileup_state(seed, n):
+    """n bodies, 3000 of them exact copies of one point: one overfull cell at
+    max_depth, whose receivers make one tile group longer than a block of
+    the tile kernel (2048 receivers)."""
+    s = _np_state(seed, n)
+    s["pos"][n - 3000 :] = s["pos"][0]
+    return s
+
+
+# the tile kernel's edges (csrc/tile_setup.cu: blocks of 2048 receivers):
+# n at and past a multiple of the block, a group longer than a block, n < g,
+# walk_tile 1
+@pytest.mark.parametrize("n, g, kind", [
+    (2048, 256, "uniform"), (2049, 256, "uniform"), (4097, 512, "clustered"),
+    (5000, 32, "pileup"), (5000, 512, "pileup"), (5000, 1, "pileup"),
+    (300, 512, "uniform"), (17, 32, "duplicates"),
+])
+def test_tile_assignment_edges_equal_jax(n, g, kind):
+    s = _pileup_state(8, n) if kind == "pileup" else _np_state(8, n, kind)
+    _, _, keys = morton_order(torch.from_numpy(s["pos"]), DEPTH)
+    hi, lo = morton.unpack_keys(keys, DEPTH)
+    want = jax_tile_assignment(
+        (jnp.asarray(hi.numpy(), jnp.uint32), jnp.asarray(lo.numpy(), jnp.uint32)),
+        n, DEPTH, g, 64,
+    )
+    split = morton.split_levels(keys, DEPTH)
+    got = _tile_assignment(split, n, DEPTH, g, 64)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))  # tile_id
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))  # lstar
+    assert got[2:] == tuple(want[2:])  # t_cap, t_blk, ta_blk
+    # the same tiles from the build's one-byte split levels
+    t8 = tile_setup(None, n, TreeParams(max_depth=DEPTH, walk_tile=g), split=split.to(torch.uint8))
+    assert (t8.tile_id.dtype, t8.slot.dtype) == (torch.int64, torch.int32)
+    np.testing.assert_array_equal(t8.tile_id.numpy(), np.minimum(np.asarray(want[0]), t8.t_cap - 1))
+    if kind == "pileup":  # the pile-up's max-depth cell: one group longer than a block
+        assert (np.asarray(want[1]) == DEPTH).sum() > 2048
+
+
+def _np_tiles(s, n, depth, g, t_cap):
+    """The tile rules in numpy, one receiver at a time: (tile_id, slot,
+    piece_start, piece_len, deferred)."""
+    s = s.astype(np.int64)
+    if g == 1:
+        lstar = np.full(n, depth)
+    elif n < g:
+        lstar = np.zeros(n, np.int64)
+    else:
+        shared = np.lib.stride_tricks.sliding_window_view(s[1:], g - 1).min(1) - 1  # a in [0, n-g]
+        lstar = np.array([shared[max(0, i - g + 1) : min(i, n - g) + 1].max(initial=-1)
+                          for i in range(n)])
+        lstar = np.clip(lstar, 0, depth)
+    tile_raw, rs, t = np.zeros(n, np.int64), -1, -1
+    for i in range(n):
+        start = i == 0 or lstar[i] != lstar[i - 1] or s[i] <= lstar[i]
+        rs = i if start else rs
+        t += start or (i - rs) % g == 0
+        tile_raw[i] = t
+    tile_id = np.minimum(tile_raw, t_cap - 1)
+    piece_start = np.array([np.searchsorted(tile_id, k) for k in range(t_cap)])
+    piece_len = np.diff(np.append(piece_start, n))
+    slot = np.arange(n) - piece_start[tile_id]
+    return tile_id, slot, piece_start, piece_len, (tile_raw >= t_cap) | (slot >= g)
+
+
+@pytest.mark.parametrize("levels", ["random", "zero"])
+def test_tiles_spilling_past_the_budget_follow_the_rules(levels):
+    # split levels that start a group at most receivers: far more tiles than
+    # t_cap, merged into the last tile and deferred. JAX needs keys, so a
+    # numpy loop of the same rules is the reference.
+    n, g = 3000, 32
+    rng = np.random.default_rng(9)
+    s = rng.integers(0, 4, n) if levels == "random" else np.zeros(n, np.int64)
+    s[0] = 0
+    tp = TreeParams(max_depth=DEPTH, walk_tile=g)
+    got = tile_setup(None, n, tp, split=torch.from_numpy(s.astype(np.uint8)))
+    want = _np_tiles(s, n, DEPTH, g, got.t_cap)
+    for field, w in zip(("tile_id", "slot", "piece_start", "piece_len", "deferred"), want):
+        np.testing.assert_array_equal(getattr(got, field).numpy(), w, err_msg=field)
+    assert want[4].sum() > n // 4  # many receivers spilled
+
+
 def test_window_is_a_sliding_min_and_max():
     x = torch.from_numpy(np.random.default_rng(2).integers(-50, 50, 300))
     for w in (1, 2, 5, 64, 255, 300):
@@ -203,6 +285,43 @@ def test_group_walk_is_at_least_as_accurate_as_per_particle():
 
 
 # ---------------------------------------------------------------- wrapper
+
+
+def test_tile_setup_cuda_on_cpu_is_the_plain_version_and_checks_its_input():
+    ss, tree, keys, ttp = _port(_np_state(3, 500, "clustered"))
+    before = tree_walk_group_cuda.LAUNCHES_TILES
+    got = tree_walk_group_cuda.tile_setup_cuda(tree.split, 500, ttp)
+    assert tree_walk_group_cuda.LAUNCHES_TILES == before
+    for x, y in zip(got, tile_setup(keys, 500, ttp)):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+    with pytest.raises(TypeError, match="uint8"):
+        tree_walk_group_cuda.tile_setup_cuda(tree.split.long(), 500, ttp)
+    with pytest.raises(ValueError, match="shape"):
+        tree_walk_group_cuda.tile_setup_cuda(tree.split, 499, ttp)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tree_walk_group_cuda.tile_setup_cuda(tree.split.to("meta"), 500, ttp)
+
+
+@pytest.mark.parametrize("list_cap", [2048, 128])
+def test_wrapper_with_given_tiles_equals_its_own(list_cap):
+    # the LET step makes the tiles once and hands them to both walks, each
+    # with its own step budget
+    ss, tree, keys, ttp = _port(_np_state(6, 300, "clustered"), theta=0.5,
+                                walk_list_cap=list_cap)
+    _, params = _sim_params(300)
+    want, want_stats = tree_walk_group_cuda.group_tree_forces_cuda(
+        ss.pos, ss.pos, ss.mass, tree, keys, params, ttp)
+    other = TreeParams(**{**ttp.__dict__, "walk_list_cap": 4096})
+    tiles = tree_walk_group_cuda.tile_setup_cuda(tree.split, 300, other)
+    got, stats = tree_walk_group_cuda.group_tree_forces_cuda(
+        ss.pos, ss.pos, ss.mass, tree, keys, params, ttp,
+        tiles=tiles._replace(r_cap=step_budget(list_cap)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(stats.deferred) == int(want_stats.deferred)
+    assert (int(stats.deferred) > 0) == (list_cap == 128)
+    with pytest.raises(ValueError, match="tiles of 300 receivers for 299"):
+        tree_walk_group_cuda.group_tree_forces_cuda(
+            ss.pos[:299], ss.pos, ss.mass, tree, keys[:299], params, ttp, tiles=tiles)
 
 
 def test_wrapper_on_cpu_takes_plain_version_and_other_devices_raise():

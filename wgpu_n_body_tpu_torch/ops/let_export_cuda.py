@@ -2,10 +2,10 @@
 
 ``export_walk_cuda`` has the signature of ``ops/let_export.py::export_walk``
 (the JAX package's ``parallel/let_tree.py::export_walk``). For CUDA tensors
-it launches the classify kernel, CUB's max scan, the size kernel, CUB's sum
-scan, the emission and the tail kernel, all on the current stream with no
-host read; for CPU tensors it returns the plain version; every other device
-raises. A CUDA tensor never falls back to the plain version.
+it launches, on the current stream with no host read, one memset of the
+scans' status words, the scan-and-emit kernel once per 8 destinations and
+the tail kernel; for CPU tensors it returns the plain version; every other
+device raises. A CUDA tensor never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the theta test rounds by intrinsics
 
 #: Export launches since import (or since a caller set it to 0): one per
-#: call, whose launcher enqueues four kernels and CUB's two scans.
+#: call, whose launcher enqueues a memset, the scan-and-emit kernel per 8
+#: destinations and the tail kernel.
 LAUNCHES = 0
 _lib: ctypes.CDLL | None = None
 
@@ -43,12 +44,12 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.let_export_temp_bytes.argtypes = [i, i, ctypes.POINTER(ctypes.c_size_t)]
-        lib.let_export_temp_bytes.restype = i
+        lib.let_export_scratch_bytes.argtypes = [i, i]
+        lib.let_export_scratch_bytes.restype = ctypes.c_longlong
         lib.let_export_launch.argtypes = [
             p, p, p, p, p, i,  # nodes, skip, first, count, num_nodes, rows
             p, p, p, p, i, i, f, i,  # src_pos, src_mass, box_lo, box_hi, p, self, theta, r_cap
-            p, p, p, p, ctypes.c_size_t,  # kind, scan_a, scan_b, temp, temp_bytes
+            p, p, p,  # scratch, slot, totals
             p, p, p, p, p, p, p,  # out nodes, skip, first, count, parts, n_rows, overflow
             i, p,  # device, stream
         ]
@@ -98,20 +99,16 @@ def export_walk_cuda(
     if device.type != "cuda":
         raise ValueError(f"export_walk_cuda takes CUDA or CPU tensors, got {device}")
     stride = rows + 1
-    if p * (stride + 1 + n) >= 2**31:  # the scans' int32 values
+    if p * (stride + 1 + n) >= 2**31:  # the slots' int32 values and indices
         raise ValueError(f"{p} destinations of {rows} arena rows and {n} sources do not fit "
-                         "the kernels' int32 scans")
+                         "the kernels' int32 slots")
 
     lib = _library()
     index, stream = cuda_build.launch_target(device)
-    temp_bytes = ctypes.c_size_t(0)
-    err = lib.let_export_temp_bytes(p * stride, index, ctypes.byref(temp_bytes))
-    if err != 0:
-        raise RuntimeError(f"the export scans' scratch query failed: cudaError_t {err}")
-    kind = torch.empty(p * stride, dtype=torch.uint8, device=device)
-    scan_a = torch.empty(p * stride, dtype=torch.int32, device=device)
-    scan_b = torch.empty(p * stride, dtype=torch.int32, device=device)
-    temp = torch.empty(max(temp_bytes.value, 1), dtype=torch.uint8, device=device)
+    scratch = torch.empty(lib.let_export_scratch_bytes(rows, p), dtype=torch.uint8,
+                          device=device)
+    slot = torch.empty(p * stride, dtype=torch.int32, device=device)  # visited rows' slots
+    totals = torch.empty(p, dtype=torch.int32, device=device)
     out = LetExport(
         nodes=torch.empty((p, r_cap, NODE_F32_COLS), dtype=torch.float32, device=device),
         skip=torch.empty((p, r_cap), dtype=torch.int32, device=device),
@@ -126,7 +123,7 @@ def export_walk_cuda(
         tree.count.data_ptr(), tree.num_nodes.data_ptr(), rows,
         src_pos.data_ptr(), src_mass.data_ptr(), bbox_lo.data_ptr(), bbox_hi.data_ptr(),
         p, self_index, float(theta), r_cap,
-        kind.data_ptr(), scan_a.data_ptr(), scan_b.data_ptr(), temp.data_ptr(), temp_bytes.value,
+        scratch.data_ptr(), slot.data_ptr(), totals.data_ptr(),
         *(t.data_ptr() for t in out), index, stream,
     )
     if err != 0:

@@ -67,8 +67,8 @@ class Tiles(NamedTuple):
     """The tile partition of the receivers (``tile_setup``).
 
     tile_id:     (n,) int64 tile of each receiver (spills merged into the
-                 last tile).
-    slot:        (n,) int64 position of each receiver in its tile.
+                 last tile); int64, an index that torch gathers take as it is.
+    slot:        (n,) int32 position of each receiver in its tile.
     piece_start: (t_cap,) int32 first receiver of each tile.
     piece_len:   (t_cap,) int32 receivers of each tile (0: unused tile).
     deferred:    (n,) bool receivers deferred by the partition itself
@@ -135,13 +135,23 @@ def _tile_assignment(s, n, depth, g_tile, ta_blk_max=2048):
     rs_grp = grp_first[grp_id]
     brk = grp_start | ((ii - rs_grp) % g_tile == 0)
     tile_id = torch.cumsum(brk, 0) - 1
-    # static budgets, as the JAX package sizes them
+    return (tile_id, lstar, *tile_budget(n, g_tile, ta_blk_max))
+
+
+def tile_budget(n: int, g_tile: int, ta_blk_max: int = 2048) -> tuple[int, int, int]:
+    """(t_cap, t_blk, ta_blk): the static tile budget of n receivers in
+    tiles of g_tile, as the JAX package sizes it (``tree_walk_group.py:228-241``)."""
     t_cap = -(-n // g_tile) + max(8, 2 * -(-n // g_tile))
     t_blk = min(32, t_cap)
     t_cap = -(-t_cap // t_blk) * t_blk
     ta_blk = min(ta_blk_max, t_cap)
     t_cap = -(-t_cap // ta_blk) * ta_blk
-    return tile_id, lstar, t_cap, t_blk, ta_blk
+    return t_cap, t_blk, ta_blk
+
+
+def step_budget(walk_list_cap: int) -> int:
+    """r_cap: the phase-A steps a tile may take before it is deferred."""
+    return -(-(2 * walk_list_cap) // 256) * 256
 
 
 def tile_setup(keys, n: int, tree_params: TreeParams, split=None) -> Tiles:
@@ -149,7 +159,8 @@ def tile_setup(keys, n: int, tree_params: TreeParams, split=None) -> Tiles:
     (``tree_walk_group.py:287-301``). No host read. ``split``: the
     receivers' split levels where a build already made them (the build
     kernels' ``TreeArrays.split``); by default ``morton.split_levels`` of
-    the keys."""
+    the keys. The plain version of ``csrc/tile_setup.cu``
+    (``tree_walk_group_cuda.tile_setup_cuda``)."""
     depth = tree_params.max_depth
     s = morton.split_levels(keys, depth) if split is None else split
     g = tree_params.effective_walk_tile(n)
@@ -160,16 +171,15 @@ def tile_setup(keys, n: int, tree_params: TreeParams, split=None) -> Tiles:
     piece_start = torch.searchsorted(tile_id, torch.arange(t_cap, device=dev))
     piece_end = torch.cat([piece_start[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
     slot = torch.arange(n, device=dev) - piece_start[tile_id]
-    r_cap = -(-(2 * tree_params.walk_list_cap) // 256) * 256
     return Tiles(
         tile_id=tile_id,
-        slot=slot,
+        slot=slot.to(torch.int32),
         piece_start=piece_start.to(torch.int32),
         piece_len=(piece_end - piece_start).to(torch.int32),
         deferred=spilled | (slot >= g),
         t_cap=t_cap,
         g=g,
-        r_cap=r_cap,
+        r_cap=step_budget(tree_params.walk_list_cap),
     )
 
 
@@ -456,6 +466,7 @@ def group_tree_forces(
     tree_params: TreeParams,
     gid_offset: int = 0,
     imports=None,
+    tiles: Tiles | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk, plain torch.
 
@@ -465,10 +476,14 @@ def group_tree_forces(
     src_mass: (N,) sorted masses.
     keys:     packed Morton keys of the receivers (same slice).
     imports:  the JAX fused-LET import forest; not ported (B8), raises.
+    tiles:    the receivers' tiles where the caller has them (``tile_setup``
+              of the same receivers and walk_tile; r_cap from this walk's
+              walk_list_cap); by default made from ``keys``.
     """
     _check_engine_args(imports)
     n = pos_new.shape[0]
-    tiles = tile_setup(keys, n, tree_params)
+    if tiles is None:
+        tiles = tile_setup(keys, n, tree_params)
     lists = group_walk_lists(pos_new, tree, tiles, tree_params)
     acc = group_eval_lists(pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset)
     bad = tiles.deferred | lists.bad[tiles.tile_id]

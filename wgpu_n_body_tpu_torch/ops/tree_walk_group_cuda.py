@@ -1,14 +1,15 @@
-"""Wrapper of the hand-written group walk kernels (``csrc/tree_walk_group.cu``).
+"""Wrappers of the hand-written group walk kernels (``csrc/tree_walk_group.cu``)
+and of its tile set-up (``csrc/tile_setup.cu``).
 
 ``group_tree_forces_cuda`` has the signature of
 ``ops/tree_walk_group.py::group_tree_forces`` (the JAX package's
-``group_tree_forces``). For CUDA tensors it builds the tiles with torch ops,
-launches the walk kernel (one warp per tile: the interaction lists, as ids
-in a pool), the evaluation kernel (one CTA per tile), and then the
-per-particle walk kernel (``csrc/tree_walk.cu``) once over the deferred
-receivers as a mask, so a step needs no host read. For CPU tensors it
-returns the plain version; every other device raises. A CUDA tensor never
-falls back to the plain version.
+``group_tree_forces``). For CUDA tensors it makes the tiles with the tile
+set-up kernels (``tile_setup_cuda``), launches the walk kernel (one warp per
+tile: the interaction lists, as ids in a pool), the evaluation kernel (one
+CTA per tile), and then the per-particle walk kernel (``csrc/tree_walk.cu``)
+once over the deferred receivers as a mask, so a step needs no host read.
+For CPU tensors it returns the plain version; every other device raises. A
+CUDA tensor never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
     max_chunks,
     pool_chunks,
     source_table,
+    step_budget,
+    tile_budget,
     tile_setup,
 )
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
@@ -38,6 +41,7 @@ from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tree_walk_group.cu"
+TILE_SOURCE = _PKG / "csrc" / "tile_setup.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the theta test rounds by intrinsics
 MAX_TILE = 512  # 128 threads per evaluation CTA, at most four receivers each
@@ -47,7 +51,11 @@ MAX_TILE = 512  # 128 threads per evaluation CTA, at most four receivers each
 LAUNCHES = 0
 #: Evaluation kernel launches, likewise.
 LAUNCHES_EVAL = 0
+#: Tile set-up launches, likewise: one per ``tile_setup_cuda`` on the card,
+#: whose launcher enqueues a memset and its two kernels.
+LAUNCHES_TILES = 0
 _lib: ctypes.CDLL | None = None
+_tile_lib: ctypes.CDLL | None = None
 
 
 def build() -> tuple[Path, str]:
@@ -55,6 +63,66 @@ def build() -> tuple[Path, str]:
     Returns (library path, compiler output); raises RuntimeError with
     nvcc's output when the build fails."""
     return cuda_build.compile_cu(SOURCE, BUILD_DIR, NVCC_FLAGS)
+
+
+def build_tiles() -> tuple[Path, str]:
+    """Compile the tile set-up kernels, as ``build`` does the walk's."""
+    return cuda_build.compile_cu(TILE_SOURCE, BUILD_DIR, NVCC_FLAGS)
+
+
+def _tile_library() -> ctypes.CDLL:
+    global _tile_lib
+    if _tile_lib is None:
+        lib = ctypes.CDLL(str(build_tiles()[0]))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.tile_setup_scratch_bytes.argtypes = [i]
+        lib.tile_setup_scratch_bytes.restype = ctypes.c_longlong
+        lib.tile_setup_launch.argtypes = [
+            p, i, i, i, i,  # split, n, depth, g, t_cap
+            p, p, p, p, p, p,  # scratch, tile_id, slot, deferred, piece_start, piece_len
+            i, p,  # device, stream
+        ]
+        lib.tile_setup_launch.restype = i
+        _tile_lib = lib
+    return _tile_lib
+
+
+def tile_setup_cuda(split: torch.Tensor, n: int, tree_params: TreeParams) -> Tiles:
+    """The tiles of n sorted receivers from their split levels ``split``
+    (n,) uint8 (the build kernels' ``TreeArrays.split``, or a slice of it):
+    ``tree_walk_group.tile_setup``'s ``Tiles``, every integer equal. CUDA
+    tensors go through the kernels, CPU tensors through the plain version;
+    anything else raises, as do inputs of another type, shape or layout."""
+    global LAUNCHES_TILES
+    _check("split", split, torch.uint8, (n,))
+    device = split.device
+    if device.type == "cpu":
+        return tile_setup(None, n, tree_params, split=split)
+    if device.type != "cuda":
+        raise ValueError(f"tile_setup_cuda takes CUDA or CPU tensors, got {device}")
+    g = tree_params.effective_walk_tile(n)
+    if not 1 <= g <= MAX_TILE:
+        raise ValueError(f"walk_tile must be in [1, {MAX_TILE}] on CUDA, got {g}")
+    t_cap = tile_budget(n, g, tree_params.walk_block)[0]
+    lib = _tile_library()
+    index, stream = cuda_build.launch_target(device)
+    scratch = torch.empty(lib.tile_setup_scratch_bytes(n), dtype=torch.uint8, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    tiles = Tiles(
+        tile_id=torch.empty(n, dtype=torch.int64, device=device), slot=torch.empty(n, **i32),
+        piece_start=torch.empty(t_cap, **i32), piece_len=torch.empty(t_cap, **i32),
+        deferred=torch.empty(n, dtype=torch.bool, device=device),
+        t_cap=t_cap, g=g, r_cap=step_budget(tree_params.walk_list_cap),
+    )
+    err = lib.tile_setup_launch(
+        split.data_ptr(), n, tree_params.max_depth, g, t_cap, scratch.data_ptr(),
+        tiles.tile_id.data_ptr(), tiles.slot.data_ptr(), tiles.deferred.data_ptr(),
+        tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"tile set-up kernels' launch failed: cudaError_t {err}")
+    LAUNCHES_TILES += 1
+    return tiles
 
 
 def _library() -> ctypes.CDLL:
@@ -225,18 +293,20 @@ def group_tree_forces_cuda(
     tree_params: TreeParams,
     gid_offset: int = 0,
     imports=None,
-    recv_split: torch.Tensor | None = None,
+    tiles: Tiles | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk (see
     ``tree_walk_group.group_tree_forces``).
 
-    CUDA tensors go through the kernel, then the per-particle kernel over
+    CUDA tensors go through the kernels, then the per-particle kernel over
     the deferred receivers; CPU tensors through the plain version; anything
-    else raises. On the card the tiles come from the split levels the build
-    kernels wrote: the tree's own (``tree.split``) at the receivers' sorted
-    indices [gid_offset, gid_offset + B), or ``recv_split`` (B,) where the
-    receivers are not the tree's bodies (the LET import walk: the receivers'
-    own tree's levels). The plain version derives them from ``keys``. The
+    else raises. ``tiles``: the receivers' tiles where the caller has made
+    them (``tile_setup_cuda``, with r_cap from this walk's walk_list_cap):
+    the LET step's two walks share one set, and the import walk, whose
+    receivers are not the tree's bodies, needs them. Otherwise, on the card,
+    the tile kernels make them from the split levels the build kernels
+    wrote (``tree.split``) at the receivers' sorted indices [gid_offset,
+    gid_offset + B); the plain version derives them from ``keys``. The
     stages carry profiler ranges (``group_tiles``; ``group_kernel`` around
     the walk kernel's ``group_walk`` and the evaluation's ``group_eval``;
     ``group_fallback``), which ``utils/profile_step.py`` reads.
@@ -244,27 +314,30 @@ def group_tree_forces_cuda(
     _check_engine_args(imports)
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
+    if tiles is not None:
+        tensors += [tiles.tile_id, tiles.slot, tiles.piece_start, tiles.piece_len, tiles.deferred]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
     device = pos_new.device
+    n = pos_new.shape[0]
+    if tiles is not None and tiles.tile_id.shape != (n,):
+        raise ValueError(f"tiles of {tiles.tile_id.shape[0]} receivers for {n} receivers")
     if device.type == "cpu":
         return group_tree_forces(
-            pos_new, src_pos, src_mass, tree, keys, params, tree_params, gid_offset
+            pos_new, src_pos, src_mass, tree, keys, params, tree_params, gid_offset, tiles=tiles
         )
     if device.type != "cuda":
         raise ValueError(f"group_tree_forces_cuda takes CUDA or CPU tensors, got {device}")
-    n = pos_new.shape[0]
     g0 = int(gid_offset)
-    if recv_split is None:
+    if tiles is None:
         if tree.split is None:
             raise ValueError("group_tree_forces_cuda on CUDA takes the build's split levels "
-                             "(tree.split or recv_split); this tree has none")
-        # the receivers are sorted bodies [g0, g0 + n); a slice's first split
-        # level is never read (its first receiver starts a piece anyway)
-        recv_split = tree.split[g0 : g0 + n]
-    with trace_scope("group_tiles"):
-        tiles = tile_setup(keys, n, tree_params, split=recv_split)
+                             "(tree.split) or the receivers' tiles; this call has neither")
+        with trace_scope("group_tiles"):
+            # the receivers are sorted bodies [g0, g0 + n); a slice's first split
+            # level is never read (its first receiver starts a piece anyway)
+            tiles = tile_setup_cuda(tree.split[g0 : g0 + n], n, tree_params)
     with trace_scope("group_kernel"):
         with trace_scope("group_walk"):
             lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)

@@ -52,7 +52,8 @@ from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build import FAR, TreeArrays, morton_order, reorder
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
-from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import group_tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import step_budget
+from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import group_tree_forces_cuda, tile_setup_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.parallel import resharding
 from wgpu_n_body_tpu_torch.parallel.let_tree import (
@@ -158,19 +159,24 @@ def let_forces(local: LetLocal, imp: LetExport, params: SimParams, tp: TreeParam
     """(acc, deferred receivers) of the local receivers from the local tree
     and the imports (``sharded_tree.py:126-236``): the split walk for
     ``walk="group"``, one per-particle walk of the concatenated forest
-    otherwise (deferred 0)."""
+    otherwise (deferred 0). Both walks of the split walk have the same
+    receivers, so they share one tile set-up: only their step budgets
+    differ."""
     n_local = local.pos_s.shape[0]
     parts_pos = imp.parts[:, :, :3].reshape(-1, 3).contiguous()
     parts_mass = imp.parts[:, :, 3].reshape(-1).contiguous()
     if tp.walk == "group":
+        with trace_scope("let_tiles"):
+            tiles = tile_setup_cuda(local.tree.split, n_local, tp)
         with trace_scope("let_local_walk"):
             acc_loc, s1 = group_tree_forces_cuda(local.pos_new, local.pos_s, local.mass_s,
-                                                 local.tree, local.keys, params, tp)
+                                                 local.tree, local.keys, params, tp, tiles=tiles)
         with trace_scope("let_import_walk"):
             tp_imp = dataclasses.replace(tp, walk_list_cap=tp.effective_import_list_cap())
             acc_imp, s2 = group_tree_forces_cuda(
                 local.pos_new, parts_pos, parts_mass, assemble_import_forest(imp), local.keys,
-                params, tp_imp, gid_offset=p * let_cap, recv_split=local.tree.split,
+                params, tp_imp, gid_offset=p * let_cap,
+                tiles=tiles._replace(r_cap=step_budget(tp_imp.walk_list_cap)),
             )
         return acc_loc + acc_imp, s1.deferred + s2.deferred
     dev = local.pos_s.device

@@ -37,8 +37,9 @@ With ``--schedule replicated|let`` the step is ``ShardedTreeSim``'s in a
 one-rank NCCL group (the sharded machinery on one card), and its kernel and
 host time are also printed per stage: the sort (``morton_keys``,
 ``morton_sort``), ``tree_build``, B7 (``let_export``), the exchange
-(``let_exchange``), the walks (``let_local_walk``, ``let_import_walk``;
-``theta_walk`` under ``replicated``).
+(``let_exchange``), the tile set-up both walks share (``let_tiles``), the
+walks (``let_local_walk``, ``let_import_walk``; ``theta_walk`` under
+``replicated``).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -47,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,7 +70,7 @@ HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
 #: the stages of a sharded tree step, which do not nest
 STAGES = ("morton_keys", "morton_sort", "tree_build", "let_export", "let_exchange",
-          "let_local_walk", "let_import_walk", "theta_walk")
+          "let_tiles", "let_local_walk", "let_import_walk", "theta_walk")
 
 
 def _smi(query: str) -> str:
@@ -100,6 +102,30 @@ def kernel_breakdown(trace_events, names=RANGES):
             busy += b - max(a, end)
             end = b
     return by_range, by_kernel, busy, intervals[-1][1] - intervals[0][0]
+
+
+def launch_ms(fn, reps) -> dict:
+    """{launch: device ms per call} of the kernels and memsets ``fn``
+    enqueues, from a ``torch.profiler`` window of ``reps`` calls, each
+    named by its kernel (``..._kernel``) or "Memset"; empty when the
+    profiler saw no device activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memset"):
+            m = re.search(r"\w+_kernel|Memset", e["name"])
+            name = m.group(0) if m else e["name"][:60]
+            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / reps
+    return out
 
 
 def host_ranges(trace_events, names=HOST_RANGES):
@@ -209,7 +235,7 @@ def main(argv=None) -> int:
             f"{k} {stages.get(k, 0.0) / STEPS / 1e3:.3f} / {host.get(k, 0.0) / STEPS / 1e3:.3f}"
             for k in STAGES + ("leapfrog",) if k in stages or k in host)
             + f"; the step's host time {host.get('sharded_tree_step', 0.0) / STEPS / 1e3:.3f}")
-        for within in ("let_import_walk", "group_fallback", "group_tiles"):
+        for within in ("let_import_walk", "group_fallback", "let_tiles"):
             ops = host_ops(events, within)
             print(f"  host ms per step directly inside {within}, the longest: " + ", ".join(
                 f"{name} {us / STEPS / 1e3:.3f}" for name, us in ops[:10]))
