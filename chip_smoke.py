@@ -8,8 +8,8 @@ Phases (any failure exits non-zero):
  2. build every kernel from ``wgpu_n_body_tpu_torch/csrc`` (one nvcc per
     source, all started together: B1 and B2 share ``naive_forces.cu``; the
     key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort; the tile
-    set-up B4 · T (``tile_setup.cu``) and B7 (``let_export.cu``) share the
-    chained scan of ``chained_scan.cuh``) and,
+    set-up B4 · T (``tile_setup.cu``) takes its wait limit from B7's chained
+    scan, ``chained_scan.cuh``) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -110,12 +110,16 @@ Phases (any failure exits non-zero):
     (uniform, splat, near-lens, shell, 296 near-lens bodies, NaN and
     behind-camera rows), on the visualize scene (TreeSim N=100,000 disc after
     10 steps) at the default camera and at a camera flown forward until at
-    least 1,000 footprints leave the per-thread 8 x 8 box, and on the N=4M
-    uniform headless scene; the list of bodies the tile kernel drew equal to
-    the plain boxes' wide ones; two launches bit-equal; the u8 blend equal
-    to the plain LUT; 15b each scene's raster and blend timed beside the
-    plain version, with the bytes bound, the atomics, the list's length and
-    the launches per frame; 15c ``cli visualize --gif`` at its defaults (60
+    least 1,000 footprints leave the per-thread 8 x 8 box (also through a
+    fresh workspace that lists only 64 triangles, whose other wide
+    footprints raster_kernel draws itself), and on the N=4M uniform headless
+    scene, unsorted and after one ``cli headless`` step (Morton-sorted, as
+    TreeSim hands the renderer every later state); the triangles the tile
+    kernel drew equal to the plain ones of the bodies whose box passes 8 x 8
+    px; two launches bit-equal; the u8 blend equal to the plain LUT; 15b
+    each scene's raster and blend timed beside the plain version, with the
+    bytes bound, the hits of each kernel, the list's length and the device
+    ops per frame; 15c ``cli visualize --gif`` at its defaults (60
     PNGs and a GIF, 60 raster launches and one tree step each, a frame held
     against the host render of the same positions, µs/step); 15d ``cli
     render`` of a trajectory ``cli headless --trajectory`` wrote; 15e
@@ -172,7 +176,10 @@ N=4M, its launches phase 13's. B7's ``ms`` is the CUDA-event time per call,
 as in every earlier record of it, with ``device_ms`` (its launches' device
 time from the profiler) and ``device_share`` beside it. B4 · T, whose
 wrapper takes longer to enqueue than the card to run it, has the device
-time as ``ms`` and the CUDA-event time as ``events_ms``.
+time as ``ms`` and the CUDA-event time as ``events_ms``. The records of
+B4 · T and B6, redesigned after commit f59feb3, carry ``design`` and their
+device ops per call or frame (the earlier design's times, measured in turns
+by ``utils/tile_raster_study.py``, are in PERF.md, not in the records).
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
@@ -197,6 +204,7 @@ import sys
 import tempfile
 import time
 import types
+from collections import Counter
 
 import numpy as np
 import torch
@@ -363,8 +371,8 @@ def launch_counts():
     """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
     reorder (B5's first kernel), B5 the builds, each of which enqueues its
     other three kernels once; "B4 tiles" the group walk's tile set-ups
-    (B4 · T: a memset and two kernels each); B6 the frames' rasters
-    (raster_kernel, then raster_big_kernel for triangles), "B6 blend" their
+    (B4 · T: one kernel each); B6 the frames' rasters
+    (raster_kernel, then raster_tile_kernel), "B6 blend" their
     u8 blends; B7 the LET exports (each a memset, the scan-and-emit kernel
     per 8 destinations and the tail kernel)."""
     from wgpu_n_body_tpu_torch.ops import (
@@ -1406,12 +1414,15 @@ def tile_bytes(tiles, n):
 def phase_tiles(dev, smi):
     """12g. B4 · T on the inputs that reach its edges: overfull max-depth
     cells (groups longer than a block), split levels that spill past the
-    tile budget, n < walk_tile, walk_tile 1, n off the block size."""
+    tile budget, n < walk_tile, walk_tile 1, 2, 3 and 7 (windows below 8
+    bytes, and widths not a power of 2), n off the block size, split
+    levels at an address off 4 bytes (a slice)."""
     from wgpu_n_body_tpu_torch.ops import morton
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
     from wgpu_n_body_tpu_torch.ops.tree_build import morton_order
     from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 
-    block = 2048  # receivers per block of csrc/tile_setup.cu's scan kernel
+    block = gcuda.tile_block_items()  # receivers per block of csrc/tile_setup.cu
     gen = torch.Generator(device=dev).manual_seed(7)
     # 48 points each held by 5,000 bodies (overfull max-depth cells) among
     # uniform ones, through the build kernels
@@ -1444,13 +1455,17 @@ def phase_tiles(dev, smi):
         lines.append(f"{name} N={n} walk_tile 256 ({spilled} spilled past t_cap {tiles.t_cap})")
     # small and ragged sizes, split levels of a uniform draw's sorted keys
     for n, walk_tile in ((1, 512), (300, 512), (5000, 1), (2047, 256), (3 * block + 17, 256),
-                         (3 * block + 17, 2), (block, 512)):
+                         (3 * block + 17, 2), (3 * block + 17, 3), (3 * block + 17, 7),
+                         (block, 512)):
         tp = TreeParams(walk_tile=walk_tile)
         pos = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
         keys = morton_order(pos, tp.max_depth)[2]
         split = morton.split_levels(keys, tp.max_depth).to(torch.uint8)
         held_tiles(f"12g N={n} walk_tile {walk_tile}", split, n, tp, keys)
         lines.append(f"N={n} walk_tile {walk_tile}")
+    held_tiles(f"12g a slice at byte 1, N={n - 1} walk_tile 512", split[1:], n - 1,
+               TreeParams(walk_tile=512), keys[1:])
+    lines.append(f"a slice at byte 1, N={n - 1}")
     print(f"12g B4 · T bit-equal to the plain tile_setup: " + "; ".join(lines))
 
 
@@ -1580,6 +1595,8 @@ def phase_b4(dev, smi, mhz):
     # also time the wrapper's enqueue, which is longer)
     ms_events, again = time_ms(lambda: gcuda.tile_setup_cuda(tree.split, N_TREE, tp), 20)
     t_split = launch_split(lambda: gcuda.tile_setup_cuda(tree.split, N_TREE, tp), 20)
+    t_ops = sum(c for _, c in t_split.values())
+    t_split = {k: ms for k, (ms, _) in t_split.items()}
     ms_setup = sum(t_split.values())
     ms_setup_plain, _ = time_ms(lambda: tile_setup(keys, N_TREE, tp, split=tree.split), 3)
     if tiles_differ(again, tiles):
@@ -1598,7 +1615,7 @@ def phase_b4(dev, smi, mhz):
           f"device time (" + ", ".join(f"{k} {v:.4f}" for k, v in t_split.items())
           + f"; {ms_events:.4f} ms by events with the enqueue), plain {ms_setup_plain:.3f} ms, "
           f"bound {t_bound:.4f} ms ({t_bytes} bytes at 3.35 TB/s): {t_bound / ms_setup:.2%}; "
-          f"[{smi}]")
+          f"{t_ops} device op(s) per call; [{smi}]")
     tile_rec = {
         "name": "tile_setup",
         "route": "cuda",
@@ -1618,6 +1635,8 @@ def phase_b4(dev, smi, mhz):
         "library": ("none: no single PyTorch call computes the density-adaptive tiles (sliding "
                     "windows of split levels and two dependent scans)"),
         "ms_receivers": N_TREE,
+        "design": "redesign of the kernels of commit f59feb3",
+        "device_ops_per_call": t_ops,
     }
     ms_b3, _ = time_ms(
         lambda: tree_walk_cuda.tree_forces_cuda(pos_new, ss.pos, ss.mass, tree, params, tp), 2)
@@ -2177,16 +2196,21 @@ def render_scenes():
             ("odd rows splat", odd, Camera(aspect=1.0), 96, 64, "splat")]
 
 
-def held_frame(name, pos, cam, width, height, footprint, host=True):
+def held_frame(name, pos, cam, width, height, footprint, host=True, cap=None):
     """15a: B6's counts against its plain version on the card, a second
     launch and (``host``) the host render; its list against the plain
-    boxes; the u8 blend against the plain LUT. Returns the frame's figures:
-    kept bodies, candidate pixels, listed bodies, hits and atomics."""
+    triangles of the wide boxes (``cap``: a workspace that lists at most
+    this many, which must then be full with some of them); the u8 blend
+    against the plain LUT.
+    Returns the frame's figures: kept bodies, candidate pixels, listed
+    bodies, hits by kernel."""
     from wgpu_n_body_tpu_torch.ops import raster, raster_cuda
     from wgpu_n_body_tpu_torch.runners.renderer import render_counts
 
     m = cam.view_proj()
     k, listed, length = raster_cuda.launch_raster(pos, m, width, height, footprint)
+    n_listed = int(length)
+    listed = listed[:n_listed].clone()  # the workspace's: the next frame overwrites it
     again = raster_cuda.raster_counts_cuda(pos, m, width, height, footprint)
     torch.cuda.synchronize()
     plain = raster.raster_counts(pos, m, width, height, footprint)
@@ -2201,28 +2225,41 @@ def held_frame(name, pos, cam, width, height, footprint, host=True):
     u8 = raster_cuda.blend_u8_cuda(k)
     if not torch.equal(u8, raster.blend_u8(k)):
         fail(f"15a {name}: blend_u8_kernel differs from the plain LUT")
-    n_listed = int(length)
     clip, w = raster.project(pos, m)
     keep, cx, cy, sx, sy = raster.triangles(clip, w, width, height, footprint)
     idx = keep.nonzero().flatten()
     if footprint == "splat":
-        tested = atomics = int(k.sum())
+        tested, big = int(k.sum()), torch.zeros_like(k)
     else:
         x0, x1, y0, y1 = raster.boxes(cx[idx], cy[idx], sx[idx], sy[idx], width, height)
         wide = (x1 >= x0) & (y1 >= y0) & (
             (x1 - x0 >= RASTER_SMALL_BOX) | (y1 - y0 >= RASTER_SMALL_BOX))
-        if not torch.equal(torch.sort(listed[:n_listed].long()).values, idx[wide]):
-            fail(f"15a {name}: the tile kernel's list ({n_listed}) is not the bodies whose "
-                 f"box exceeds {RASTER_SMALL_BOX} px ({int(wide.sum())})")
+        want = torch.stack([cx[idx], cy[idx], sx[idx], sy[idx]], 1)[wide]
+        if cap is None:
+            held = n_listed == int(wide.sum()) and np.array_equal(sorted_rows(listed),
+                                                                  sorted_rows(want))
+        else:
+            left = Counter(map(tuple, sorted_rows(want).tolist()))
+            left.subtract(map(tuple, sorted_rows(listed).tolist()))
+            held = n_listed == min(cap, int(wide.sum())) and min(left.values()) >= 0
+        if not held:
+            fail(f"15a {name}: the tile kernel's list ({n_listed} triangles) is not the "
+                 f"triangles of the bodies whose box exceeds {RASTER_SMALL_BOX} px "
+                 f"({int(wide.sum())}{'' if cap is None else f', at most {cap} of them'})")
         tested = int(((x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)).sum())
         big = raster.raster_counts(pos[idx[wide]], m, width, height)
-        # one atomic per hit of a per-thread body, one per listed body on the
-        # list's counter; the tile kernel adds once per pixel with hits
-        atomics = int(k.sum()) - int(big.sum()) + n_listed
     return {"scene": name, "n": int(pos.shape[0]), "width": width, "height": height,
             "footprint": footprint, "kept": int(keep.sum()), "candidate_pixels": tested,
-            "listed": n_listed, "hits": int(k.sum()), "atomics": atomics,
-            "tile_kernel_pixel_adds": 0 if footprint == "splat" else int((big > 0).sum())}
+            "listed": n_listed, "hits": int(k.sum()),
+            "raster_kernel_hits": int(k.sum()) - int(big.sum()),
+            "tile_kernel_hits": int(big.sum())}
+
+
+def sorted_rows(t):
+    """The rows of a float32 (m, 4) tensor as their bits, in lexicographic
+    order: equal multisets of rows give equal arrays."""
+    a = t.cpu().numpy().view(np.uint32)
+    return a[np.lexsort(a.T[::-1])]
 
 
 def raster_bound(rec):
@@ -2243,34 +2280,14 @@ PROFILER_TRIES = 3  # windows before an empty trace fails the run
 
 
 def device_ms(fn, reps):
-    """(mean device ms per call of ``fn``, {kernel or memset name: ms}):
-    the durations of the kernels and memsets in a ``torch.profiler`` trace
-    of ``reps`` calls, without the host's enqueue time between them. A
-    window in which the profiler saw no kernel (CUPTI drops one now and
-    then) is taken again, up to ``PROFILER_TRIES`` windows."""
+    """(device ms per call of ``fn``, {kernel or memset: ms per call}, device
+    ops per call) from a profiler window of ``reps`` calls after one warm
+    call (``launch_split``), without the host's enqueue time between them."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(PROFILER_TRIES):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        parts = {}
-        for e in events:
-            if e.get("cat") in ("kernel", "gpu_memset"):
-                name = e["name"].replace("(anonymous namespace)::", "").split("(")[0].strip()[:40]
-                parts[name] = parts.get(name, 0.0) + e["dur"] / reps / 1e3
-        if parts:
-            return sum(parts.values()), parts
-        print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no kernel; "
-              "taking it again", file=sys.stderr)
-    fail(f"the profiler saw no kernel on the card in {PROFILER_TRIES} windows")
+    split = launch_split(fn, reps)
+    parts = {k: ms for k, (ms, _) in split.items()}
+    return sum(parts.values()), parts, sum(c for _, c in split.values())
 
 
 def timed_frame(rec, pos, cam, reps=20):
@@ -2284,12 +2301,12 @@ def timed_frame(rec, pos, cam, reps=20):
     ms_b, _ = time_ms(lambda: raster_cuda.blend_u8_cuda(k), reps)
     ev_ms, _ = time_ms(lambda: raster_cuda.blend_u8_cuda(raster_cuda.raster_counts_cuda(
         pos, m, w, h, fp)), reps)
-    dev_r, parts = device_ms(lambda: raster_cuda.raster_counts_cuda(pos, m, w, h, fp), reps)
-    dev_b, _ = device_ms(lambda: raster_cuda.blend_u8_cuda(k), reps)
+    dev_r, parts, ops = device_ms(lambda: raster_cuda.raster_counts_cuda(pos, m, w, h, fp), reps)
+    dev_b, _, ops_b = device_ms(lambda: raster_cuda.blend_u8_cuda(k), reps)
     ms_p, _ = time_ms(lambda: raster.blend_u8(raster.raster_counts(pos, m, w, h, fp)), 3)
     rec.update(ms=dev_r + dev_b, raster_ms=dev_r, blend_ms=dev_b, raster_parts_ms=parts,
-               event_ms=ev_ms, event_raster_ms=ms_r, event_blend_ms=ms_b, plain_ms=ms_p,
-               **raster_bound(rec))
+               device_ops_per_frame=ops + ops_b, event_ms=ev_ms, event_raster_ms=ms_r,
+               event_blend_ms=ms_b, plain_ms=ms_p, **raster_bound(rec))
     ms = rec["ms"]
     rec["share_of_bound"] = rec["bound_ms"] / ms
     print(f"15b {rec['scene']}: N={rec['n']} {w}x{h} {fp}: device time raster {dev_r:.4f} ms "
@@ -2298,20 +2315,68 @@ def timed_frame(rec, pos, cam, reps=20):
           f"together {ev_ms:.4f} ms; plain {ms_p:.3f} ms; bound {rec['bound_ms']:.4f} "
           f"ms ({rec['bound_by']}: {rec['bound_bytes']} bytes, {rec['bound_ops']} ops) -> "
           f"{rec['share_of_bound']:.2%} of the device time; kept {rec['kept']}, candidate pixels "
-          f"{rec['candidate_pixels']}, listed {rec['listed']}, hits {rec['hits']}, atomics "
-          f"{rec['atomics']}, tile-kernel pixel adds {rec['tile_kernel_pixel_adds']}; "
-          f"launches per frame: 1 raster call ({2 if fp == 'triangle' else 1} kernels) + 1 "
-          f"blend")
+          f"{rec['candidate_pixels']}, listed {rec['listed']}, hits {rec['hits']} "
+          f"({rec['raster_kernel_hits']} by raster_kernel, {rec['tile_kernel_hits']} by the "
+          f"tile kernel); device ops per frame: {ops} for the raster call + {ops_b} blend")
     return rec
+
+
+def visualize_pos(dev):
+    """The visualize scene: ``cli visualize``'s TreeSim N_VIS disc after
+    STEPS steps."""
+    from wgpu_n_body_tpu_torch.inits import disc_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
+    runner = OfflineHeadless(TreeSim(params, TreeParams(theta=0.75)), disc_init, seed=0,
+                             device=dev)
+    for _ in range(STEPS):
+        runner.step()
+    return runner.state.pos
+
+
+def flythrough_camera(pos):
+    """(camera, moves): the default camera moved forward 0.2 at a time until
+    at least FLY_LISTED footprints of ``pos`` pass the per-thread box (the
+    plain boxes), after at most 12 moves."""
+    from wgpu_n_body_tpu_torch.ops import raster
+    from wgpu_n_body_tpu_torch.runners.renderer import Camera
+
+    cam = Camera(aspect=1.0)
+    for moves in range(13):
+        keep, cx, cy, sx, sy = raster.triangles(*raster.project(pos, cam.view_proj()), 400, 400)
+        x0, x1, y0, y1 = raster.boxes(cx[keep], cy[keep], sx[keep], sy[keep], 400, 400)
+        wide = (x1 >= x0) & (y1 >= y0) & (
+            (x1 - x0 >= RASTER_SMALL_BOX) | (y1 - y0 >= RASTER_SMALL_BOX))
+        if int(wide.sum()) >= FLY_LISTED:
+            return cam, moves
+        cam = cam.moved("forward", 0.2)
+    fail(f"15a: 12 moves forward leave fewer than {FLY_LISTED} footprints past the "
+         f"{RASTER_SMALL_BOX} x {RASTER_SMALL_BOX} box")
+
+
+def headless_after_one_step(dev):
+    """The N_TREE uniform ``cli headless`` state after one step: sorted in
+    Morton order, as TreeSim hands the renderer every state after the
+    first."""
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    sim = OfflineHeadless(TreeSim(SimParams(particle_num=N_TREE), TreeParams()), uniform_init,
+                          seed=0, device=dev)
+    sim.step()
+    return sim.state.pos
 
 
 def phase_render_kernels(dev, smi):
     """15a-b: B6 held and timed on every scene."""
-    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
-    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.ops import raster_cuda
-    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
-    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+    from wgpu_n_body_tpu_torch.params import SimParams
     from wgpu_n_body_tpu_torch.runners.renderer import Camera
 
     records = []
@@ -2320,38 +2385,48 @@ def phase_render_kernels(dev, smi):
         rec = held_frame(name, pos, cam, w, h, fp)
         records.append(timed_frame(rec, pos, cam))
     # the visualize scene after 10 steps, at the default camera and flown in
-    params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
-    runner = OfflineHeadless(TreeSim(params, TreeParams(theta=0.75)), disc_init, seed=0,
-                             device=dev)
-    for _ in range(STEPS):
-        runner.step()
-    pos = runner.state.pos
+    pos = visualize_pos(dev)
     cam = Camera(aspect=1.0)
     vis = timed_frame(held_frame(f"visualize N={N_VIS} disc, {STEPS} steps", pos, cam, 400, 400,
                                  "triangle"), pos, cam)
-    moves = 0
-    while int(raster_cuda.launch_raster(pos, cam.view_proj(), 400, 400)[2]) < FLY_LISTED:
-        if moves == 12:
-            fail(f"15a: 12 moves forward leave fewer than {FLY_LISTED} footprints past the "
-                 f"{RASTER_SMALL_BOX} x {RASTER_SMALL_BOX} box")
-        cam, moves = cam.moved("forward", 0.2), moves + 1
+    cam, moves = flythrough_camera(pos)
     fly = timed_frame(held_frame(f"visualize flythrough ({moves} moves forward, eye "
                                  f"{[round(float(v), 3) for v in cam.eye]})", pos, cam, 400,
                                  400, "triangle"), pos, cam)
-    # the N=4M uniform headless scene
-    big = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev)
-    t0 = time.perf_counter()
-    head = held_frame(f"headless N={N_TREE} uniform", big.pos, Camera(aspect=1.0), 400, 400,
-                      "triangle")
-    print(f"15a the N={N_TREE} frame held against the host render in "
-          f"{time.perf_counter() - t0:.1f} s")
-    head = timed_frame(head, big.pos, Camera(aspect=1.0))
-    del big, runner
+    # a full list: the flythrough through a fresh workspace that lists 64
+    # triangles, so that raster_kernel draws the other wide footprints itself
+    list_cap, raster_cuda.LIST_CAP = raster_cuda.LIST_CAP, 64
+    raster_cuda._workspaces.clear()
+    try:
+        full = held_frame("visualize flythrough, list full at 64", pos, cam, 400, 400,
+                          "triangle", cap=64)
+    finally:
+        raster_cuda.LIST_CAP = list_cap
+        raster_cuda._workspaces.clear()
+    print(f"15a a full list ({full['listed']} of {fly['listed']} wide footprints listed, the "
+          f"rest drawn per thread): the flythrough bit-equal to the plain version, a second "
+          f"launch and the host render")
+    # the N=4M uniform headless scene: the initial draw (unsorted), and the
+    # state after one cli headless step (Morton-sorted, as TreeSim hands the
+    # renderer every state after the first)
+    big = uniform_init(torch.Generator().manual_seed(0), SimParams(particle_num=N_TREE), dev).pos
+    heads = []
+    for label in ("uniform", "uniform after one step (Morton-sorted)"):
+        if heads:
+            del big
+            big = headless_after_one_step(dev)
+        t0 = time.perf_counter()
+        head = held_frame(f"headless N={N_TREE} {label}", big, Camera(aspect=1.0), 400,
+                          400, "triangle")
+        print(f"15a the N={N_TREE} {label} frame held against the host render in "
+              f"{time.perf_counter() - t0:.1f} s")
+        heads.append(timed_frame(head, big, Camera(aspect=1.0)))
+    del big
     torch.cuda.empty_cache()
     print(f"15a B6 bit-equal to its plain version, to a second launch and to the host render "
-          f"on {len(records) + 3} scenes; lists equal the plain boxes' wide footprints; blend "
-          f"equal to the LUT; [{smi}]")
-    return vis, [*records, fly, head]
+          f"on {len(records) + 4} scenes; lists equal the plain triangles of the wide "
+          f"footprints; blend equal to the LUT; [{smi}]")
+    return vis, [*records, fly, *heads]
 
 
 def phase_visualize_cli(dev, smi):
@@ -2532,6 +2607,8 @@ def phase_render(dev, smi, mhz):
         "library": NO_RASTER_LIBRARY,
         "raster_ms": vis["raster_ms"],
         "blend_ms": vis["blend_ms"],
+        "design": "redesign of the kernels of commit f59feb3",
+        "device_ops_per_frame": vis["device_ops_per_frame"],
         "scene": vis["scene"],
         "scenes": scenes,
         "visualize_us_per_step": us,
@@ -2600,13 +2677,14 @@ def held_export(what, local, blo, bhi, me, theta, cap):
 
 
 def launch_split(fn, reps):
-    """{launch name: device ms per call} of ``fn``'s kernels and memsets
-    (``utils/profile_step.py::launch_ms``); a window in which the profiler
-    saw no device activity is taken again, up to ``PROFILER_TRIES`` windows."""
-    from wgpu_n_body_tpu_torch.utils.profile_step import launch_ms
+    """{launch name: (device ms per call, launches per call)} of ``fn``'s
+    kernels and memsets (``utils/profile_step.py::device_launches``); a
+    window in which the profiler saw no device activity is taken again, up
+    to ``PROFILER_TRIES`` windows."""
+    from wgpu_n_body_tpu_torch.utils.profile_step import device_launches
 
     for attempt in range(PROFILER_TRIES):
-        out = launch_ms(fn, reps)
+        out = device_launches(fn, reps)
         if out:
             return out
         print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no device "
@@ -2641,6 +2719,7 @@ def phase_let_kernel(dev, smi):
         # device time of its launches (events also time the enqueue)
         split = launch_split(lambda: let_export_cuda.export_walk_cuda(
             local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap), 10)
+        split = {k: ms for k, (ms, _) in split.items()}
         dev_ms = sum(split.values())
         rec[p] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
@@ -3244,8 +3323,10 @@ def main() -> None:
     b6 = phase_render(dev, smi, mhz)
     # registers and spills of each of B6's kernels (empty when already built)
     for key, col in (("registers", 1), ("spill_store_bytes", 2)):
-        b6[key] = {re.search(r"raster_big_kernel|raster_kernelILb[01]E|blend_u8_kernel",
-                             row[0]).group(0): row[col] for row in tree_ptxas["B6"]}
+        for row in tree_ptxas["B6"]:
+            m = re.search(r"raster_tile_kernel|raster_kernelILb[01]E|blend_u8_kernel", row[0])
+            if m:
+                b6.setdefault(key, {})[m.group(0)] = row[col]
 
     b7 = phase_let_kernel(dev, smi)
     for name, regs, stores, _ in tree_ptxas["B7"]:

@@ -283,6 +283,63 @@ def test_frame_bytes():
     assert raster_cuda.frame_bytes(10, 2, 2, listed=3) == 120 + 36 + 12
 
 
+
+def _tile_pass(cx, cy, sx, sy, width, height, tile=16, chunk=256):
+    """csrc/raster.cu's tile pass on listed triangles, in torch: each tile
+    reads the list ``chunk`` entries at a time, keeps (in order) those whose
+    ``raster.boxes`` box meets it, and each of its pixels tests only those.
+    Returns (hits (H, W) int64, the tiles (tx, ty) that kept each entry)."""
+    x0, x1, y0, y1 = raster.boxes(cx, cy, sx, sy, width, height)
+    hits = torch.zeros((height, width), dtype=torch.int64)
+    landed = [set() for _ in range(len(cx))]
+    for ty in range(0, height, tile):
+        for tx in range(0, width, tile):
+            gy, gx = (a.reshape(-1, 1) for a in torch.meshgrid(
+                torch.arange(ty, ty + tile), torch.arange(tx, tx + tile), indexing="ij"))
+            h = torch.zeros(tile * tile, dtype=torch.int64)
+            for base in range(0, len(cx), chunk):
+                j = torch.arange(base, min(base + chunk, len(cx)))
+                kept = j[(x0[j] <= tx + tile - 1) & (x1[j] >= tx) & (y0[j] <= ty + tile - 1)
+                         & (y1[j] >= ty)]
+                for k in kept.tolist():
+                    landed[k].add((tx // tile, ty // tile))
+                k = kept
+                inbox = (gx >= x0[k]) & (gx <= x1[k]) & (gy >= y0[k]) & (gy <= y1[k])
+                h += (inbox & raster.covers(gx, gy, cx[k], cy[k], sx[k], sy[k])).sum(1)
+            inside = ((gx < width) & (gy < height)).flatten()
+            hits[gy.flatten()[inside], gx.flatten()[inside]] += h[inside]
+    return hits, landed
+
+
+@pytest.mark.parametrize("name, cap", [("shell", 1 << 20), ("shell", 100),
+                                       ("near_lens_296", 1 << 20), ("near_lens", 1 << 20)])
+def test_tile_pass_model_lands_each_footprint_in_its_tiles(name, cap):
+    # the kernel's split: boxes past 8 x 8 px are listed (in the order the
+    # atomics give, here a shuffle) up to the list's capacity and drawn by
+    # the tile pass; the rest, and a full list's overflow, per thread
+    make, cam, width, height, footprint = SCENES[name]
+    pos = torch.from_numpy(make())
+    m = cam.view_proj()
+    keep, cx, cy, sx, sy = raster.triangles(*raster.project(pos, m), width, height, footprint)
+    cx, cy, sx, sy = (a[keep] for a in (cx, cy, sx, sy))
+    x0, x1, y0, y1 = raster.boxes(cx, cy, sx, sy, width, height)
+    wide = ((x1 >= x0) & (y1 >= y0) & ((x1 - x0 >= 8) | (y1 - y0 >= 8))).nonzero().flatten()
+    order = wide[torch.randperm(len(wide), generator=torch.Generator().manual_seed(0))]
+    listed, over = order[:cap], order[cap:]
+    own = torch.ones(len(cx), dtype=torch.bool)
+    own[listed] = False  # drawn per thread: small boxes and the list's overflow
+    hits, landed = _tile_pass(cx[listed], cy[listed], sx[listed], sy[listed], width, height)
+    for k, got in zip(listed.tolist(), landed):
+        want = {(tx, ty) for tx in range(int(x0[k]) // 16, int(x1[k]) // 16 + 1)
+                for ty in range(int(y0[k]) // 16, int(y1[k]) // 16 + 1)}
+        assert got == want
+    counts = raster.triangle_counts(cx[own], cy[own], sx[own], sy[own], width, height) + hits
+    np.testing.assert_array_equal(counts.numpy(),
+                                  raster.raster_counts(pos, m, width, height).numpy())
+    assert len(listed) > 0 and (len(over) > 0) == (cap == 100)
+    if name == "shell":  # many wide footprints, each over several tiles
+        assert len(wide) > 400 and sum(len(t) for t in landed) > 2 * len(listed)
+
 def test_kernel_source_mirrors_the_plain_constants():
     """csrc/raster.cu spells the plain version's constants: the extent, the
     cull's 1 + extent, the JAX window, and no fast math in the build."""

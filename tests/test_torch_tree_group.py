@@ -122,13 +122,13 @@ def test_tile_assignment_equals_jax(kind, g):
 def _pileup_state(seed, n):
     """n bodies, 3000 of them exact copies of one point: one overfull cell at
     max_depth, whose receivers make one tile group longer than a block of
-    the tile kernel (2048 receivers)."""
+    2048 receivers."""
     s = _np_state(seed, n)
     s["pos"][n - 3000 :] = s["pos"][0]
     return s
 
 
-# the tile kernel's edges (csrc/tile_setup.cu: blocks of 2048 receivers):
+# block edges (2048 receivers, and csrc/tile_setup.cu's 4096):
 # n at and past a multiple of the block, a group longer than a block, n < g,
 # walk_tile 1
 @pytest.mark.parametrize("n, g, kind", [
@@ -215,6 +215,217 @@ def test_tile_setup_covers_every_receiver_once():
     assert int(length.sum()) == 500 and (length <= t.g).all() and not t.deferred.any()
     np.testing.assert_array_equal((start[t.tile_id] + t.slot).numpy(), np.arange(500))
     assert t.r_cap == 4096 and t.t_cap % 32 == 0
+
+
+
+# ------------------------------------------- the tile kernel's decomposition
+# A model of csrc/tile_setup.cu's design, in numpy at blocks of K receivers
+# (the kernel's are thousands; K this small cuts groups and spreads a
+# max-depth pile-up over many blocks): the van Herk / Gil-Werman windows of
+# each block over its split levels with a halo, the block summaries
+# (first group start, last group start, breaks from the first start on, the
+# span) scanned as the last scan block scans them (a contiguous run per
+# thread, the runs composed in order, each run absorbed from the state
+# before it) into the state before each block, then each receiver's tile,
+# slot and the pieces from that state alone.
+
+_MIN, _MAX = (np.minimum, 0xFF), (np.maximum, 0)
+
+
+def _vh_window(x, w, op):
+    """y[k] = op(x[k : k + w]) for k in [0, len(x) - w], as the kernel takes
+    it: directly below 8 bytes, else from prefix and suffix ops over
+    segments of w & ~3 bytes (whole words) from byte 0, with one more
+    combine where w is not a multiple of 4."""
+    fn, _ = op
+    n_out = len(x) - w + 1
+    if w < 8:
+        return fn.reduce(np.stack([x[c : c + n_out] for c in range(w)]), axis=0)
+    wp, e = w & ~3, w - (w & ~3)
+    seg = np.arange(len(x)) // wp
+    pre, suf = x.copy(), x.copy()
+    for k in range(1, len(x)):
+        if seg[k] == seg[k - 1]:
+            pre[k] = fn(pre[k - 1], x[k])
+    for k in range(len(x) - 2, -1, -1):
+        if seg[k] == seg[k + 1]:
+            suf[k] = fn(suf[k + 1], x[k])
+    k = np.arange(n_out)
+    y = fn(suf[k], pre[k + wp - 1])
+    return fn(y, fn(suf[k + e], pre[k + e + wp - 1])) if e else y
+
+
+def _block_lstar(s, n, depth, g, base, k_items):
+    """lstar of receivers base - 1 .. base + k_items - 1 (entry v is
+    receiver base - 1 + v), from the block's split levels and halos alone."""
+    if g == 1 or n < g:
+        return np.full(k_items + 1, depth if g == 1 else 0)
+    h = (g + 3) & ~3
+    x = np.zeros(k_items + 2 * h, np.int64)
+    j = np.arange(base - h, base + k_items + h)
+    inside = (j >= 0) & (j < n)
+    x[inside] = s[j[inside]]
+    vh = _vh_window(x, g - 1, _MIN)  # vh[p] = min(x[p : p + g - 1])
+    u = np.arange(k_items + g)
+    y = np.where((u >= g - base) & (u <= n - base), vh[u + 1 + h - g], 0)
+    return np.clip(_vh_window(y, g, _MAX)[: k_items + 1] - 1, 0, depth)
+
+
+def _count_breaks(a, b, rs, g):
+    """The i in [a, b) with (i - rs) % g == 0."""
+    if b <= a:
+        return 0
+    first = a + (-(a - rs)) % g
+    return (b - 1 - first) // g + 1 if first < b else 0
+
+
+_NONE = None  # the empty span's summary
+
+
+def _compose(a, b, g):
+    """The summary (first start or -1, last start, breaks in [first, hi),
+    lo, hi) of span a followed by span b."""
+    if a is _NONE or b is _NONE:
+        return b if a is _NONE else a
+    if a[0] < 0:
+        return (b[0], b[1], b[2], a[3], b[4])
+    k = a[2] + _count_breaks(b[3], b[0] if b[0] >= 0 else b[4], a[1], g)
+    return (a[0], b[1] if b[0] >= 0 else a[1], k + (b[2] if b[0] >= 0 else 0), a[3], b[4])
+
+
+def _absorb(state, a, g):
+    """The state (last group start mod g, breaks so far) after span a."""
+    if a is _NONE:
+        return state
+    rs, t = state
+    t += _count_breaks(a[3], a[0] if a[0] >= 0 else a[4], rs, g)
+    return ((a[1] % g, t + a[2]) if a[0] >= 0 else (rs, t))
+
+
+def _block_summary(starts, lo, hi, g):
+    """A span's summary from its group starts (a bool per receiver)."""
+    idx = np.flatnonzero(starts) + lo
+    if not len(idx):
+        return (-1, -1, 0, lo, hi)
+    k, rs = 0, idx[0]
+    for i in range(idx[0], hi):
+        rs = i if starts[i - lo] else rs
+        k += starts[i - lo] or (i - rs) % g == 0
+    return (int(idx[0]), int(idx[-1]), k, lo, hi)
+
+
+def _model_tiles(s, n, depth, g, t_cap, k_items, threads=4):
+    """(tile_id, slot, piece_start, piece_len, deferred) by the kernel's
+    decomposition into blocks of k_items receivers, whose summaries
+    ``threads`` lanes scan."""
+    s = np.asarray(s, np.int64)
+    blocks = max(1, -(-n // k_items))
+    starts, sums = [], []
+    for b in range(blocks):
+        lo, hi = b * k_items, min(n, (b + 1) * k_items)
+        ls = _block_lstar(s, n, depth, g, lo, k_items)
+        i = np.arange(lo, hi)
+        st = (i == 0) | (ls[1 : hi - lo + 1] != ls[: hi - lo]) | (s[lo:hi] <= ls[1 : hi - lo + 1])
+        starts.append(st)
+        sums.append(_block_summary(st, lo, hi, g))
+    # each block's state: a run of summaries per lane; a lane's run starts
+    # from the composed runs before it, absorbed into the initial state
+    per = -(-blocks // threads)
+    ins, before = [], _NONE
+    for k0 in range(0, blocks, per):
+        state = _absorb((0, 0), before, g)
+        for summ in sums[k0 : k0 + per]:
+            ins.append(state)
+            state = _absorb(state, summ, g)
+            before = _compose(before, summ, g)
+    tile = np.zeros(n, np.int64)
+    slot = np.zeros(n, np.int64)
+    piece_start, piece_len = np.full(t_cap, -1), np.full(t_cap, -1)
+    p0 = None
+    for b, (st, (rs, t)) in enumerate(zip(starts, ins)):
+        for e, i in enumerate(range(b * k_items, min(n, (b + 1) * k_items))):
+            prev_rs = rs
+            rs = i if st[e] else rs
+            brk = st[e] or (i - rs) % g == 0
+            t += brk
+            tile[i], slot[i] = t - 1, (i - rs) % g
+            prev = i - 1 - (i - 1 - prev_rs) % g if st[e] else i - g  # the previous break
+            if brk and t - 1 < t_cap:
+                piece_start[t - 1] = i
+                if t - 1 > 0:
+                    piece_len[t - 2] = i - prev
+            elif brk and t - 1 == t_cap:  # the first spill
+                piece_len[t_cap - 1], p0 = n - prev, prev
+            if i == n - 1 and t - 1 < t_cap:
+                piece_len[t - 1] = n - (i - slot[i])
+    used = min(state[1], t_cap)
+    piece_start[used:], piece_len[used:] = n, 0
+    spilled = tile >= t_cap
+    if spilled.any():
+        slot[spilled] = np.flatnonzero(spilled) - p0
+    return np.minimum(tile, t_cap - 1), slot, piece_start, piece_len, spilled
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 7, 64, 512])
+@pytest.mark.parametrize("k_items", [12, 64])
+def test_tile_kernel_model_equals_plain_and_jax(g, k_items):
+    # a pile-up of 500 copies (one max-depth cell over many blocks) among
+    # uniform bodies; n not a multiple of the block
+    n = 1100
+    s_np = _np_state(12, n)
+    s_np["pos"][n - 500 :] = s_np["pos"][3]
+    _, _, keys = morton_order(torch.from_numpy(s_np["pos"]), DEPTH)
+    split = morton.split_levels(keys, DEPTH)
+    tp = TreeParams(max_depth=DEPTH, walk_tile=g)
+    want = tile_setup(None, n, tp, split=split.to(torch.uint8))
+    got = _model_tiles(split.numpy(), n, DEPTH, g, want.t_cap, k_items)
+    for field, x in zip(("tile_id", "slot", "piece_start", "piece_len", "deferred"), got):
+        np.testing.assert_array_equal(x, getattr(want, field).numpy(), err_msg=field)
+    hi, lo = morton.unpack_keys(keys, DEPTH)
+    jax_tile = jax_tile_assignment(
+        (jnp.asarray(hi.numpy(), jnp.uint32), jnp.asarray(lo.numpy(), jnp.uint32)),
+        n, DEPTH, g, 64)[0]
+    np.testing.assert_array_equal(got[0], np.minimum(np.asarray(jax_tile), want.t_cap - 1))
+    # 501 equal keys: 500 receivers whose key equals the one before, one group
+    assert (split.numpy() > DEPTH).sum() == 500 and not want.deferred.any()
+
+
+@pytest.mark.parametrize("levels, g", [("random", 32), ("zero", 8), ("zero", 32)])
+def test_tile_kernel_model_spills_like_the_plain_version(levels, g):
+    n = 700
+    rng = np.random.default_rng(13)
+    s = rng.integers(0, 4, n) if levels == "random" else np.zeros(n, np.int64)
+    tp = TreeParams(max_depth=DEPTH, walk_tile=g)
+    want = tile_setup(None, n, tp, split=torch.from_numpy(s.astype(np.uint8)))
+    got = _model_tiles(s, n, DEPTH, g, want.t_cap, 16)
+    for field, x in zip(("tile_id", "slot", "piece_start", "piece_len", "deferred"), got):
+        np.testing.assert_array_equal(x, getattr(want, field).numpy(), err_msg=field)
+    assert got[4].sum() > n // 8
+
+
+@pytest.mark.parametrize("g", [2, 7, 64])
+def test_tile_kernel_summaries_compose_associatively(g):
+    # summaries of adjacent spans of one sequence of group starts: composing
+    # them in any grouping, or absorbing them one by one into a state, gives
+    # what the whole span gives
+    rng = np.random.default_rng(g)
+    starts = rng.random(400) < 0.03
+    starts[[0, 150, 151]] = True
+    starts[200:330] = False  # a span with no start at all
+    cuts = [0, 37, 150, 200, 260, 330, 400]
+    spans = [_block_summary(starts[a:b], a, b, g) for a, b in zip(cuts, cuts[1:])]
+    whole = _block_summary(starts, 0, 400, g)
+    for a, b, c in zip(spans, spans[1:], spans[2:]):
+        assert _compose(_compose(a, b, g), c, g) == _compose(a, _compose(b, c, g), g)
+    folded = _NONE
+    for x in spans:
+        folded = _compose(folded, x, g)
+    assert folded == whole
+    for state in ((0, 0), (g - 1, 5)):
+        one_by_one = state
+        for x in spans:
+            one_by_one = _absorb(one_by_one, x, g)
+        assert one_by_one == _absorb(state, whole, g)
 
 
 # ---------------------------------------------------------------- forces

@@ -233,3 +233,27 @@ def test_profile_step_counts_a_kernel_to_its_innermost_range():
     assert by_kernel[("group_walk", "group_lists_kernel")] == 9
     assert by_kernel[("group_eval", "group_eval_kernel")] == 45
     assert busy == 87 and span == 122
+
+
+@pytest.mark.parametrize("dropped", [0, 1, 3])
+def test_launches_of_averages_each_launch_over_the_events_it_kept(dropped):
+    from wgpu_n_body_tpu_torch.utils.profile_step import launches_of
+
+    # 10 calls, each a memset (1 us), one scan kernel (30 us) and two launches
+    # of an emit kernel (20 us each); the profiler lost `dropped` emit events
+    reps, ev = 10, []
+    for _ in range(reps):
+        ev.append({"cat": "gpu_memset", "name": "Memset (Device)", "dur": 1.0})
+        ev.append({"cat": "kernel", "name": "void (anonymous namespace)::scan_kernel(int*)",
+                   "dur": 30.0})
+        ev += [{"cat": "kernel", "name": "emit_kernel<4>(float const*)", "dur": 20.0}] * 2
+        ev.append({"cat": "cpu_op", "name": "aten::empty", "dur": 5.0})
+    emits = [k for k, e in enumerate(ev) if "emit" in e["name"]]
+    lost = set(emits[:dropped])  # the window's first emit events
+    got = launches_of([e for k, e in enumerate(ev) if k not in lost], reps)
+    want = {"Memset": (0.001, 1), "scan_kernel": (0.030, 1), "emit_kernel": (0.040, 2)}
+    assert got.keys() == want.keys()
+    for name, (ms, per_call) in want.items():
+        assert got[name][1] == per_call
+        assert got[name][0] == pytest.approx(ms, rel=1e-12)
+

@@ -6,7 +6,7 @@
 // (:382), the host composite past their caps (raster_resolve, :578) and the
 // u8 blend _combine_blend_u8_fn (:659). Every tier there works around the
 // TPU's slow random scatter; on Hopper an integer atomicAdd is cheap and
-// order-free, so the function is two kernels and a blend:
+// order-free, so a frame is two kernels, and serve adds a blend:
 //
 // 1. raster_kernel, one thread per body: the projection in float64 from the
 //    float32 inputs, ((x m[r,0] + y m[r,1]) + z m[r,2]) + m[r,3] with
@@ -15,39 +15,48 @@
 //    __fadd_rn / __fdiv_rn in the JAX op order (ops/raster.py::triangles);
 //    the pixels it may light as the JAX host tests them (ops/raster.py::
 //    boxes), clipped to the frame. A box of at most kSmallBox x kSmallBox
-//    pixels is tested here by the pixel-centre rule (ops/raster.py::covers)
-//    and each hit is one atomicAdd into the int32 counts. A larger box (a
-//    body near the lens) appends the body's index to a list of capacity N
-//    through one atomic counter, so the list never overflows. A splat is
-//    one atomicAdd at the truncated, clamped pixel of its centre.
-// 2. raster_big_kernel, one CTA per kTile x kTile pixels, a thread per
-//    pixel: the CTA streams the list through shared memory kBlock entries
-//    at a time (each thread recomputes one entry's triangle and box), skips
-//    entries whose box misses the pixel, counts hits in a register and adds
-//    the total once. Its grid is fixed by the frame and it reads the list's
-//    length on the device, so a frame never waits on the host.
+//    pixels is tested here by the pixel-centre rule (ops/raster.py::covers);
+//    a larger one (a body near the lens) appends its triangle (centre and
+//    half-extents, 16 bytes) to the list through one atomic counter, and is
+//    drawn here like a small one only if the list is full. A splat is the
+//    truncated, clamped pixel of its centre. Each hit is one atomicAdd into
+//    the workspace's int32 counts: the card merges a warp's adds to one
+//    address in device memory itself, where shared-memory atomics serialise
+//    them (a block-private patch of counts in shared memory, and lanes merged
+//    by __match_any_sync, were both measured slower: PERF.md).
+// 2. raster_tile_kernel, one CTA per kTile x kTile pixels, a thread per
+//    pixel: the CTA reads the list kBlock triangles at a time, keeps those
+//    whose box meets its tile (a warp ballot and a prefix into shared
+//    memory), and each pixel tests only those, so its work follows the area
+//    the footprints cover and no CTA projects a body. It writes the frame's
+//    counts (the workspace's plus its own hits) and zeroes the workspace's;
+//    its last CTA zeroes the list length. The workspace, one per device,
+//    stream and frame size, is left zero for the next frame: a frame needs
+//    no memset.
 // 3. blend_u8_kernel, a thread per pixel: counts -> u8 through the 256-entry
 //    LUT of ops/raster.py::blend_lut_u8, a __grid_constant__ parameter
 //    (constant memory).
 //
 // No contraction and no fast divide anywhere: the counts are bit-equal to
 // the plain version and to the host render from the same positions,
-// whichever kernel a triangle falls to, and integer atomics make them
-// independent of the order of the adds.
+// whichever kernel a triangle falls to, and integer atomics make
+// them independent of the order of the adds.
 //
-// What bounds it on H100: bytes. A frame reads 12 B per body, writes and
-// reads back 4 B per pixel and 4 B per listed body; the blend reads 4 B and
-// writes 1 B per pixel. At the visualize scene (N=100000, 400x400) that is
-// 3.0 MB, ~1 us at 3.35 TB/s, so a frame is launch-bound; at N=4M it is
-// 49 MB. The atomics of bodies that share a pixel serialise in L2.
+// What bounds it on H100: bytes. A frame reads 12 B per body and writes 4 B
+// per pixel (the record also counts reading the counts back and 4 B per
+// listed body); the blend reads 4 B and writes 1 B per pixel. At the
+// visualize scene (N=100000, 400x400) that is 2.6 MB, ~1 us at 3.35 TB/s, so
+// a frame is launch-bound; at N=4M it is 49.6 MB.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
 constexpr int kSmallBox = 8;  // a box this wide and high is drawn by its own thread
-constexpr int kTile = 16;     // raster_big_kernel: kTile x kTile pixels per CTA
+constexpr int kTile = 16;     // raster_tile_kernel: kTile x kTile pixels per CTA
+constexpr unsigned kFull = 0xffffffffu;
 static_assert(kTile * kTile == kBlock, "one thread per pixel of a tile");
 // ops/raster.py: POINT_EXTENT and the cull's w * (1 + POINT_EXTENT), each
 // rounded once from double as numpy rounds a Python float
@@ -147,8 +156,8 @@ template <bool kSplat>
 __global__ void __launch_bounds__(kBlock)
     raster_kernel(const float* __restrict__ pos, int n,
                   const __grid_constant__ Mat M, int width, int height,
-                  int* __restrict__ counts, int* __restrict__ list,
-                  int* __restrict__ list_len) {
+                  int* __restrict__ acc, float4* __restrict__ tris, int cap,
+                  int* __restrict__ meta) {
   const int i = blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
   const Tri t = triangle<kSplat>(pos, i, M, width, height);
@@ -156,65 +165,87 @@ __global__ void __launch_bounds__(kBlock)
   if (kSplat) {
     const int px = min(max(__float2int_rz(t.cx), 0), width - 1);
     const int py = min(max(__float2int_rz(t.cy), 0), height - 1);
-    atomicAdd(counts + py * width + px, 1);
+    atomicAdd(acc + py * width + px, 1);
     return;
   }
   const Box b = box_of(t, width, height);
   if (b.x1 < b.x0 || b.y1 < b.y0) return;
   if (b.x1 - b.x0 >= kSmallBox || b.y1 - b.y0 >= kSmallBox) {
-    list[atomicAdd(list_len, 1)] = i;
-    return;
+    const int slot = atomicAdd(meta, 1);
+    if (slot < cap) {
+      tris[slot] = make_float4(t.cx, t.cy, t.sx, t.sy);
+      return;
+    }  // the list is full: drawn here like a small one
   }
   for (int gy = b.y0; gy <= b.y1; ++gy) {
     float hw;
     if (!row_of(gy, t.cy, t.sx, t.sy, hw)) continue;
     for (int gx = b.x0; gx <= b.x1; ++gx) {
-      if (col_in(gx, t.cx, hw)) atomicAdd(counts + gy * width + gx, 1);
+      if (col_in(gx, t.cx, hw)) atomicAdd(acc + gy * width + gx, 1);
     }
   }
 }
 
 __global__ void __launch_bounds__(kBlock)
-    raster_big_kernel(const float* __restrict__ pos,
-                      const int* __restrict__ list,
-                      const int* __restrict__ list_len,
-                      const __grid_constant__ Mat M, int width, int height,
-                      int* __restrict__ counts) {
+    raster_tile_kernel(const float4* __restrict__ tris, int cap, int* __restrict__ meta,
+                       int width, int height, int* __restrict__ acc,
+                       int* __restrict__ counts) {
   __shared__ float4 s_tri[kBlock];
   __shared__ int4 s_box[kBlock];
-  const int gx = blockIdx.x * kTile + threadIdx.x % kTile;
-  const int gy = blockIdx.y * kTile + threadIdx.x / kTile;
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_len;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tx0 = blockIdx.x * kTile, ty0 = blockIdx.y * kTile;
-  const int n = *list_len;
-  int hits = 0;
-  for (int base = 0; base < n; base += kBlock) {
-    const int j = base + threadIdx.x;
-    int4 bx = make_int4(1, 0, 1, 0);  // empty: misses every pixel
-    float4 tr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (j < n) {
-      const Tri t = triangle<false>(pos, list[j], M, width, height);
-      const Box b = box_of(t, width, height);
-      if (b.x0 <= tx0 + kTile - 1 && b.x1 >= tx0 && b.y0 <= ty0 + kTile - 1 &&
-          b.y1 >= ty0) {
-        bx = make_int4(b.x0, b.x1, b.y0, b.y1);
-        tr = make_float4(t.cx, t.cy, t.sx, t.sy);
-      }
-    }
-    __syncthreads();  // the previous chunk's reads are done
-    s_tri[threadIdx.x] = tr;
-    s_box[threadIdx.x] = bx;
-    __syncthreads();
-    const int m = min(kBlock, n - base);
-    for (int k = 0; k < m; ++k) {
-      const int4 b = s_box[k];
-      if (gx < b.x || gx > b.y || gy < b.z || gy > b.w) continue;
-      const float4 t = s_tri[k];
-      float hw;
-      if (row_of(gy, t.y, t.z, t.w, hw) && col_in(gx, t.x, hw)) ++hits;
+  const int gx = tx0 + threadIdx.x % kTile, gy = ty0 + threadIdx.x / kTile;
+  if (threadIdx.x == 0) {
+    const int len = min(*meta, cap);
+    s_len = len;
+    // the last CTA to read the length leaves it zero for the next frame
+    if (atomicAdd(meta + 1, 1) == static_cast<int>(gridDim.x * gridDim.y) - 1) {
+      meta[2] = len;  // the frame's listed count, for the caller
+      meta[0] = 0;
+      meta[1] = 0;
     }
   }
-  // each pixel has one owner here, and raster_kernel ended before this began
-  if (hits && gx < width && gy < height) counts[gy * width + gx] += hits;
+  __syncthreads();
+  const int len = s_len;
+  int hits = 0;
+  for (int base = 0; base < len; base += kBlock) {
+    const int j = base + threadIdx.x;
+    bool meets = false;
+    float4 tr;
+    Box b;
+    if (j < len) {
+      tr = tris[j];
+      b = box_of(Tri{true, tr.x, tr.y, tr.z, tr.w}, width, height);
+      meets = b.x0 <= tx0 + kTile - 1 && b.x1 >= tx0 && b.y0 <= ty0 + kTile - 1 && b.y1 >= ty0;
+    }
+    const unsigned ballot = __ballot_sync(kFull, meets);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();  // also: the previous chunk's reads of s_tri are done
+    int at = __popc(ballot & ((1u << lane) - 1)), m = 0;
+    for (int k = 0; k < kWarps; ++k) {
+      if (k < warp) at += s_warp[k];
+      m += s_warp[k];
+    }
+    if (meets) {
+      s_tri[at] = tr;
+      s_box[at] = make_int4(b.x0, b.x1, b.y0, b.y1);
+    }
+    __syncthreads();
+    for (int k = 0; k < m; ++k) {
+      const int4 c = s_box[k];
+      if (gx < c.x || gx > c.y || gy < c.z || gy > c.w) continue;
+      const float4 u = s_tri[k];
+      float hw;
+      if (row_of(gy, u.y, u.z, u.w, hw) && col_in(gx, u.x, hw)) ++hits;
+    }
+  }
+  if (gx < width && gy < height) {
+    const int p = gy * width + gx;
+    counts[p] = acc[p] + hits;
+    acc[p] = 0;
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -229,42 +260,41 @@ __global__ void __launch_bounds__(kBlock)
 
 }  // namespace
 
-// One frame on `stream`: zero the (height, width) int32 counts and the list
-// length, then raster_kernel over n float32 bodies and, for triangles,
-// raster_big_kernel over the frame's tiles. view_proj is 16 host floats,
-// row-major; list holds at least max(n, 1) int32. Returns the cudaError_t
-// of the launches (0 = success).
+// One frame on `stream`: raster_kernel over n float32 bodies, then
+// raster_tile_kernel over the frame's tiles, which writes the (height,
+// width) int32 counts. view_proj is 16 host floats, row-major. The
+// workspace, which every frame of this size on this stream shares and
+// leaves as it found it: acc, (height, width) int32, and meta, 3 int32,
+// zero when first given; tris, cap float4 (the listed triangles; a frame
+// with more than cap draws the rest in raster_kernel). After the frame
+// meta[2] holds its listed count and tris[0, meta[2]) its listed triangles.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int raster_launch(const void* pos, int n, const float* view_proj,
                              int width, int height, int splat, void* counts,
-                             void* list, void* list_len, int device,
-                             void* stream) {
+                             void* acc, void* tris, int cap, void* meta,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counts, 0, sizeof(int) * static_cast<size_t>(width) * height, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(list_len, 0, sizeof(int), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Mat M;
   for (int k = 0; k < 16; ++k) M.m[k] = view_proj[k];
   const float* p = static_cast<const float*>(pos);
-  int* c = static_cast<int*>(counts);
-  int* l = static_cast<int*>(list);
-  int* len = static_cast<int*>(list_len);
+  int* a = static_cast<int*>(acc);
+  float4* l = static_cast<float4*>(tris);
+  int* mt = static_cast<int*>(meta);
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
     if (splat) {
-      raster_kernel<true><<<grid, kBlock, 0, s>>>(p, n, M, width, height, c, l, len);
+      raster_kernel<true><<<grid, kBlock, 0, s>>>(p, n, M, width, height, a, l, cap, mt);
     } else {
-      raster_kernel<false><<<grid, kBlock, 0, s>>>(p, n, M, width, height, c, l, len);
+      raster_kernel<false><<<grid, kBlock, 0, s>>>(p, n, M, width, height, a, l, cap, mt);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (!splat) {
-    const dim3 tiles((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
-    raster_big_kernel<<<tiles, kBlock, 0, s>>>(p, l, len, M, width, height, c);
-  }
+  const dim3 tiles((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
+  raster_tile_kernel<<<tiles, kBlock, 0, s>>>(l, cap, mt, width, height, a,
+                                              static_cast<int*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,6 +5,10 @@ and ``blend_u8_cuda`` that of ``raster.blend_u8``. For CUDA tensors they
 launch the kernels on the current stream with no host read; for CPU tensors
 they return the plain version; every other device raises. A CUDA tensor
 never falls back to the plain version.
+
+A frame's kernels share a workspace per device, stream and frame size
+(``_Workspace``), which each frame leaves zero for the next: a frame is two
+launches and no memset.
 """
 
 from __future__ import annotations
@@ -24,8 +28,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # no fast math: the counts are bit-exact
 
 #: Raster launches since import (or since a caller set it to 0): one per
-#: frame, whose launcher enqueues raster_kernel and, for triangles,
-#: raster_big_kernel.
+#: frame, whose launcher enqueues raster_kernel and raster_tile_kernel.
 LAUNCHES = 0
 #: blend_u8_kernel launches, counted the same way.
 LAUNCHES_BLEND = 0
@@ -44,7 +47,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.raster_launch.argtypes = [p, i, p, i, i, i, p, p, p, i, p]
+        lib.raster_launch.argtypes = [p, i, p, i, i, i, p, p, p, i, p, i, p]
         lib.raster_launch.restype = i
         lib.raster_blend_launch.argtypes = [p, p, i, p, i, p]
         lib.raster_blend_launch.restype = i
@@ -81,28 +84,58 @@ def raster_counts_cuda(pos: torch.Tensor, view_proj, width: int, height: int,
     return launch_raster(pos, view_proj, width, height, footprint)[0]
 
 
+#: Listed triangles a workspace holds at most; a frame with more draws the
+#: rest in raster_kernel, one thread per footprint.
+LIST_CAP = 1 << 20
+
+
+class _Workspace:
+    """One device's, stream's and frame size's workspace: the counts of
+    the small footprints (zero between frames), the list's length, CTA
+    count and last frame's listed count (``meta``; the first two zero
+    between frames) and the listed triangles."""
+
+    def __init__(self, width: int, height: int, cap: int, device: torch.device):
+        self.acc = torch.zeros((height, width), dtype=torch.int32, device=device)
+        self.meta = torch.zeros(3, dtype=torch.int32, device=device)
+        self.tris = torch.empty((cap, 4), dtype=torch.float32, device=device)
+
+
+#: (device index, stream handle, width, height) -> _Workspace
+_workspaces: dict[tuple[int, int, int, int], _Workspace] = {}
+
+
 def launch_raster(pos: torch.Tensor, view_proj, width: int, height: int,
                   footprint: str = "triangle"):
     """The raster kernels alone on checked CUDA positions: (counts (H, W)
-    int32, list (max(N, 1),) int32 of the bodies raster_big_kernel drew,
-    list length () int32; both left on the device)."""
+    int32, listed triangles (cap, 4) float32 (cx, cy, sx, sy) of which the
+    first ``listed`` are this frame's, listed () int32). The last two are
+    the workspace's: the next frame on this stream and size overwrites
+    them."""
     global LAUNCHES
     n = pos.shape[0]
     if n >= 2**31:
         raise ValueError(f"the raster takes fewer than 2^31 bodies, got {n}")
     m = np.ascontiguousarray(raster.view_proj_array(view_proj))
+    index, stream = cuda_build.launch_target(pos.device)
+    key = (index, stream, width, height)
+    cap = max(1, min(n, LIST_CAP))
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = _Workspace(width, height, cap, pos.device)
+    elif ws.tris.shape[0] < cap:
+        ws.tris = torch.empty((cap, 4), dtype=torch.float32, device=pos.device)
     counts = torch.empty((height, width), dtype=torch.int32, device=pos.device)
-    listed = torch.empty(max(n, 1), dtype=torch.int32, device=pos.device)
-    length = torch.empty((), dtype=torch.int32, device=pos.device)
     err = _library().raster_launch(
         pos.data_ptr(), n, m.ctypes.data, width, height, int(footprint == "splat"),
-        counts.data_ptr(), listed.data_ptr(), length.data_ptr(),
-        *cuda_build.launch_target(pos.device),
+        counts.data_ptr(), ws.acc.data_ptr(), ws.tris.data_ptr(), ws.tris.shape[0],
+        ws.meta.data_ptr(), index, stream,
     )
     if err != 0:
-        raise RuntimeError(f"raster_kernel launch failed: cudaError_t {err}")
+        del _workspaces[key]  # a launch that did not run leaves it unknown
+        raise RuntimeError(f"raster kernels' launch failed: cudaError_t {err}")
     LAUNCHES += 1
-    return counts, listed, length
+    return counts, ws.tris, ws.meta[2]
 
 
 def blend_u8_cuda(counts: torch.Tensor, alpha: float = 0.25) -> torch.Tensor:

@@ -52,7 +52,7 @@ LAUNCHES = 0
 #: Evaluation kernel launches, likewise.
 LAUNCHES_EVAL = 0
 #: Tile set-up launches, likewise: one per ``tile_setup_cuda`` on the card,
-#: whose launcher enqueues a memset and its two kernels.
+#: whose launcher enqueues its two kernels.
 LAUNCHES_TILES = 0
 _lib: ctypes.CDLL | None = None
 _tile_lib: ctypes.CDLL | None = None
@@ -77,6 +77,7 @@ def _tile_library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.tile_setup_scratch_bytes.argtypes = [i]
         lib.tile_setup_scratch_bytes.restype = ctypes.c_longlong
+        lib.tile_setup_block_items.restype = i
         lib.tile_setup_launch.argtypes = [
             p, i, i, i, i,  # split, n, depth, g, t_cap
             p, p, p, p, p, p,  # scratch, tile_id, slot, deferred, piece_start, piece_len
@@ -87,12 +88,23 @@ def _tile_library() -> ctypes.CDLL:
     return _tile_lib
 
 
+def tile_block_items() -> int:
+    """Receivers per block of the tile set-up kernels (builds them first)."""
+    return _tile_library().tile_setup_block_items()
+
+
+#: (device index, stream handle) -> the tile kernels' scratch on that stream:
+#: zero when made, each call leaves its counter at zero for the next.
+_tile_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
 def tile_setup_cuda(split: torch.Tensor, n: int, tree_params: TreeParams) -> Tiles:
     """The tiles of n sorted receivers from their split levels ``split``
     (n,) uint8 (the build kernels' ``TreeArrays.split``, or a slice of it):
     ``tree_walk_group.tile_setup``'s ``Tiles``, every integer equal. CUDA
-    tensors go through the kernels, CPU tensors through the plain version;
-    anything else raises, as do inputs of another type, shape or layout."""
+    tensors go through the kernels (two launches), CPU tensors through the
+    plain version; anything else raises, as do inputs of another type, shape
+    or layout."""
     global LAUNCHES_TILES
     _check("split", split, torch.uint8, (n,))
     device = split.device
@@ -106,7 +118,10 @@ def tile_setup_cuda(split: torch.Tensor, n: int, tree_params: TreeParams) -> Til
     t_cap = tile_budget(n, g, tree_params.walk_block)[0]
     lib = _tile_library()
     index, stream = cuda_build.launch_target(device)
-    scratch = torch.empty(lib.tile_setup_scratch_bytes(n), dtype=torch.uint8, device=device)
+    key, size = (index, stream), lib.tile_setup_scratch_bytes(n)
+    scratch = _tile_scratch.get(key)
+    if scratch is None or scratch.numel() < size:
+        scratch = _tile_scratch[key] = torch.zeros(size, dtype=torch.uint8, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     tiles = Tiles(
         tile_id=torch.empty(n, dtype=torch.int64, device=device), slot=torch.empty(n, **i32),
@@ -120,6 +135,7 @@ def tile_setup_cuda(split: torch.Tensor, n: int, tree_params: TreeParams) -> Til
         tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), index, stream,
     )
     if err != 0:
+        del _tile_scratch[key]  # a launch that did not run leaves it unknown
         raise RuntimeError(f"tile set-up kernels' launch failed: cudaError_t {err}")
     LAUNCHES_TILES += 1
     return tiles

@@ -1,30 +1,27 @@
-"""Development measurements of the chained-scan kernels on a CUDA card: the
-tile set-up (B4 · T, ``csrc/tile_setup.cu``) and the LET export walk (B7,
-``csrc/let_export.cu``), both built on ``csrc/chained_scan.cuh``.
+"""Development measurements of the chained-scan kernel on a CUDA card: the
+LET export walk (B7, ``csrc/let_export.cu``), built on
+``csrc/chained_scan.cuh``. (The tile set-up, B4 · T, no longer scans across
+blocks with a look-back; ``utils/tile_raster_study.py`` measures
+it.)
 
-    python -m wgpu_n_body_tpu_torch.utils.chained_scan_study [--reps R] [--variants A,B]
+    python -m wgpu_n_body_tpu_torch.utils.chained_scan_study [--reps R] [--probe]
 
-Each kernel is timed on the device (its launches summed over a
+The kernel is timed on the device (its launches summed over a
 ``torch.profiler`` window) as built and as copies of its source
 and of ``chained_scan.cuh`` changed for the measurement only, whose results
 are wrong by design (only their times count):
   nowait     no look-back: every block takes its carry as the identity, so
              no block waits on another;
-  nowindows  (B4 · T) the sliding windows skipped (every tile cell at the
-             root);
-  noemit     (B7) the scan kernel writes no output row;
+  noemit     the scan kernel writes no output row;
 and as copies with other block sizes, whose results are the built ones:
-  per16      (B4 · T) 16 receivers per lane (4096 per block, not 2048);
-  rows1, rows4  (B7) one or four arena rows per thread (256 or 1024 per
-             block, not 512);
-  min8       (B7) launch bounds asking for 8 resident blocks per SM (at most
-             32 registers a thread).
+  rows1, rows4  one or four arena rows per thread (256 or 1024 per block,
+             not 512);
+  min8       launch bounds asking for 8 resident blocks per SM (at most 32
+             registers a thread).
 The copies and the source as built run in turns (built, copies..., built)
-on the main path's shapes: the split levels of the N=4M uniform scene's
-build (walk_tile 512), and ``chip_smoke.py`` phase 16's octant geometry at
-P=8 and P=4. Builds go to the git-ignored ``_build/study/``. Prints one JSON
-line per kernel and shape with the card's name and power limit. Needs a
-CUDA device.
+on ``chip_smoke.py`` phase 16's octant geometry at P=8 and P=4. Builds go to
+the git-ignored ``_build/study/``. Prints one JSON line per shape with the
+card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,14 +37,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from wgpu_n_body_tpu_torch.inits import uniform_init
 from wgpu_n_body_tpu_torch.ops import cuda_build, let_export_cuda
-from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
-from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
-from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
-from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+from wgpu_n_body_tpu_torch.params import TreeParams
 from wgpu_n_body_tpu_torch.parallel.let_tree import auto_let_cap
-from wgpu_n_body_tpu_torch.utils.profile_step import launch_ms
+from wgpu_n_body_tpu_torch.utils.profile_step import device_launches
 
 HEADER = cuda_build.CSRC / "chained_scan.cuh"
 #: (file, text, replacement) edits of each variant; each text occurs once
@@ -57,11 +50,9 @@ EDITS = {
         ("chained_scan.cuh", "    for (int end = block - 1;; end -= kThreads) {",
          "    for (int end = block - 1; end < 0; end -= kThreads) {"),
     ],
-    "nowindows": [("tile_setup.cu", "  if (g == 1 || n < g) {", "  if (true) {")],
     "noemit": [("let_export.cu", "      all += max(0, min(total_s[d], o.r_cap - carry_s[d]));",
                 "")],
     # other block sizes (these copies give the built kernel's results)
-    "per16": [("tile_setup.cu", "constexpr int kPer = 8;", "constexpr int kPer = 16;")],
     "rows1": [("let_export.cu", "constexpr int kRowsPer = 2;", "constexpr int kRowsPer = 1;")],
     "rows4": [("let_export.cu", "constexpr int kRowsPer = 2;", "constexpr int kRowsPer = 4;")],
     "min8": [("let_export.cu", "__global__ void __launch_bounds__(kThreads) let_export_kernel(",
@@ -91,14 +82,13 @@ EDITS = {
     ],
 }
 PHASES = ("classify", "reach scan", "sizes", "slot scan", "slots", "emission")
-KERNELS = {"tiles": ("tile_setup.cu", ("nowait", "nowindows", "per16")),
-           "let": ("let_export.cu", ("nowait", "noemit", "rows1", "rows4", "min8"))}
+KERNELS = {"let": ("let_export.cu", ("nowait", "noemit", "rows1", "rows4", "min8"))}
 
 
 def variant(source: str, name: str) -> Path:
     """The library of ``source`` (a file of csrc/) with variant ``name``'s
     edits, built in _build/study/<name>/ beside its own copy of the header."""
-    out = gcuda.BUILD_DIR / "study" / name
+    out = let_export_cuda.BUILD_DIR / "study" / name
     out.mkdir(parents=True, exist_ok=True)
     texts = {f: (cuda_build.CSRC / f).read_text() for f in (source, HEADER.name)}
     for f, old, new in EDITS.get(name, []):
@@ -109,7 +99,7 @@ def variant(source: str, name: str) -> Path:
         texts[f] = texts[f].replace(old, new)
     for f, text in texts.items():
         (out / f).write_text(text)
-    return cuda_build.compile_cu(out / source, out, gcuda.NVCC_FLAGS)[0]
+    return cuda_build.compile_cu(out / source, out, let_export_cuda.NVCC_FLAGS)[0]
 
 
 def use(module, build_fn: str, lib: Path) -> None:
@@ -126,7 +116,7 @@ def device_ms(fn, reps):
     of these wrappers would time the host's enqueue, which is longer.)"""
     fn()
     torch.cuda.synchronize()
-    ms = sum(launch_ms(fn, reps).values())
+    ms = sum(ms for ms, _ in device_launches(fn, reps).values())
     return ms if ms > 0 else "not measured: the profiler saw no device activity"
 
 
@@ -156,7 +146,7 @@ def probe(fn) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="chained_scan_study")
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--kernels", default="tiles,let")
+    parser.add_argument("--kernels", default="let")
     parser.add_argument("--probe", action="store_true", help="B7's phases by timestamps")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -165,32 +155,23 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    shutil.rmtree(gcuda.BUILD_DIR / "study", ignore_errors=True)
+    shutil.rmtree(let_export_cuda.BUILD_DIR / "study", ignore_errors=True)
     tp = TreeParams()
     for kernel in args.kernels.split(","):
         source, names = KERNELS[kernel]
         libs = {name: variant(source, name) for name in ("built",) + names}
         order = ["built", *names, "built"]
-        if kernel == "tiles":
-            n = 4_000_000
-            params = SimParams(particle_num=n)
-            state = uniform_init(torch.Generator().manual_seed(0), params, dev)
-            perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
-            split = build_tree_cuda(state, perm, keys, bound, tp)[1].split
-            shapes = {"N=4M walk_tile 512": lambda: gcuda.tile_setup_cuda(split, n, tp)}
-            module, build_fn = gcuda, "build_tiles"
-        else:
-            sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-            from chip_smoke import N_LOCAL, octant_boxes, octant_local  # phase 16's geometry
+        sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+        from chip_smoke import N_LOCAL, octant_boxes, octant_local  # phase 16's geometry
 
-            local, cap = octant_local(N_LOCAL, dev, tp), auto_let_cap(N_LOCAL, tp.theta)
-            shapes = {}
-            for p in (8, 4):
-                blo, bhi = octant_boxes(p, dev)
-                shapes[f"octants P={p}"] = (
-                    lambda blo=blo, bhi=bhi: let_export_cuda.export_walk_cuda(
-                        local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap))
-            module, build_fn = let_export_cuda, "build"
+        local, cap = octant_local(N_LOCAL, dev, tp), auto_let_cap(N_LOCAL, tp.theta)
+        shapes = {}
+        for p in (8, 4):
+            blo, bhi = octant_boxes(p, dev)
+            shapes[f"octants P={p}"] = (
+                lambda blo=blo, bhi=bhi: let_export_cuda.export_walk_cuda(
+                    local.tree, local.pos_s, local.mass_s, blo, bhi, 0, tp.theta, cap))
+        module, build_fn = let_export_cuda, "build"
         for shape, fn in shapes.items():
             times = []
             for name in order:
@@ -198,7 +179,7 @@ def main(argv=None) -> int:
                 times.append((name, device_ms(fn, args.reps)))
             print(json.dumps({"kernel": source, "shape": shape, "ms_in_turns": times,
                               "card": smi}))
-            if kernel == "let" and args.probe:
+            if args.probe:
                 print(json.dumps({"kernel": source, "shape": shape, "probe": probe(fn),
                                   "card": smi}))
     return 0

@@ -104,11 +104,11 @@ def kernel_breakdown(trace_events, names=RANGES):
     return by_range, by_kernel, busy, intervals[-1][1] - intervals[0][0]
 
 
-def launch_ms(fn, reps) -> dict:
-    """{launch: device ms per call} of the kernels and memsets ``fn``
-    enqueues, from a ``torch.profiler`` window of ``reps`` calls, each
-    named by its kernel (``..._kernel``) or "Memset"; empty when the
-    profiler saw no device activity."""
+def device_launches(fn, reps) -> dict:
+    """{launch: (device ms per call, launches per call)} of the kernels and
+    memsets ``fn`` enqueues, from a ``torch.profiler`` window of ``reps``
+    calls (``launches_of``); empty when the profiler saw no device
+    activity."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
@@ -118,13 +118,25 @@ def launch_ms(fn, reps) -> dict:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    out = {}
-    for e in events:
+            return launches_of(json.load(f)["traceEvents"], reps)
+
+
+def launches_of(trace_events, reps) -> dict:
+    """{launch: (device ms per call, launches per call)} of a trace of
+    ``reps`` calls, each launch named by its kernel (``..._kernel``) or
+    "Memset". A launch's ms is the mean of its events times its launches per
+    call (its events over ``reps``, to the nearest whole number, at least
+    1): CUPTI drops an event now and then, often at a window's edge, which a
+    sum over the window would read as a shorter call."""
+    durs = {}
+    for e in trace_events:
         if e.get("cat") in ("kernel", "gpu_memset"):
             m = re.search(r"\w+_kernel|Memset", e["name"])
-            name = m.group(0) if m else e["name"][:60]
-            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / reps
+            durs.setdefault(m.group(0) if m else e["name"][:60], []).append(e["dur"] / 1e3)
+    out = {}
+    for name, d in durs.items():
+        per_call = max(1, round(len(d) / reps))
+        out[name] = (sum(d) / len(d) * per_call, per_call)
     return out
 
 
