@@ -9,7 +9,7 @@ Phases (any failure exits non-zero):
     source, all started together: B1 and B2 share ``naive_forces.cu``; the
     key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort; the tile
     set-up B4 · T (``tile_setup.cu``) takes its wait limit from B7's chained
-    scan, ``chained_scan.cuh``) and,
+    scan, ``chained_scan.cuh``; E1 is ``energy.cu``) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -24,8 +24,9 @@ Phases (any failure exits non-zero):
     version on sampled rows and against one unsplit launch, with a gate
     that a planted fault (one ring stage's or one slice's sources dropped)
     must exceed;
- 5. run ``cli headless --sim naive --n 262144 --steps 10`` in-process and
-    check that each step launched B1 once and the state is sane;
+ 5. run ``cli headless --sim naive --n 262144 --steps 10 --energy-every 5``
+    in-process and check that each step launched B1 once, each of the two
+    energy lines E1 once, and the state is sane;
  6. three NaiveSim steps at N=16384, kernel vs plain version;
  7. report the tree kernels' builds (B3, B4, B4 · T, B5 with K2, K1, B6,
     B7): registers and spills;
@@ -157,7 +158,27 @@ Phases (any failure exits non-zero):
     (replicated, let; N=4,000,000) through ``OfflineHeadless`` for 6 steps
     in chunks of 3, each held to its single-device sim (pos rtol 1e-5, vel
     and acc rtol 1e-4) with its launches counted (B7 and B4 · T once per LET
-    step, B4 twice) and its time per step beside the single-device one.
+    step, B4 twice) and its time per step beside the single-device one; the
+    naive runs log the total energy at their last step (E1 over the rank's
+    share, summed by ``all_reduce``), equal to the single device's at rtol
+    1e-6;
+19. the potential energy (E1, ``csrc/energy.cu``): 19a the whole state at N=16384 of the uniform, disc and
+    spherical scenes against the plain version in float64 (relative error
+    <= 1e-5, the plain float32 version's beside it), each with one body made
+    massless, which must fail that gate; 19b N=262144 (the naive main
+    path's energy) timed beside the plain float32 version, two launches
+    bit-equal, five shares summing to the whole within 1e-12, share 7 of 32
+    against float64; 19c the N=4,000,000 uniform scene of ``cli headless``
+    evaluated once, timed by CUDA events beside its bound, and share 1234
+    of 4096 against float64;
+20. 20a ``cli headless --steps 10 --energy-every 10`` at the defaults
+    (TreeSim N=4M): the step's launches and one E1, one finite energy; 20b
+    ``python -m wgpu_n_body_tpu_torch.bench`` in a subprocess, its one JSON
+    line parsed (``bench.py``'s keys); 20c the drift proxy of
+    ``tests/test_runners.py:146-160`` (N=512 spherical, 10,000 steps in
+    chunks of 1000, |dE/E| < 3e-2) and BASELINE config 5 (N=4096, 100,000
+    steps, |dE/E| finite and < 0.1), both through ``OfflineHeadless`` with
+    B1 and E1, the drift and the wall seconds printed.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
@@ -180,6 +201,11 @@ time as ``ms`` and the CUDA-event time as ``events_ms``. The records of
 B4 · T and B6, redesigned after commit f59feb3, carry ``design`` and their
 device ops per call or frame (the earlier design's times, measured in turns
 by ``utils/tile_raster_study.py``, are in PERF.md, not in the records).
+E1's bound is ``bound``'s, from the operations that the softened pair
+integral needs per pair (``ENERGY_MUFU_PER_PAIR``, ``ENERGY_FLOPS_PER_PAIR``)
+and its bytes (16 per body); its record's times are phase 19b's at N=262144 (the N=4M
+evaluation as ``n4m``), its launches those of 20a (``cli headless
+--energy-every`` at the defaults) and, as ``launches_naive_cli``, phase 5's.
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
@@ -351,6 +377,7 @@ def pool_of(gcuda, n_chunks):
 
 def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import (
+        energy_cuda,
         let_export_cuda,
         morton_cuda,
         naive_cuda,
@@ -365,6 +392,7 @@ def zero_launch_counts():
     tree_walk_group_cuda.LAUNCHES_TILES = 0
     tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
     raster_cuda.LAUNCHES = raster_cuda.LAUNCHES_BLEND = let_export_cuda.LAUNCHES = 0
+    energy_cuda.LAUNCHES = 0
 
 
 def launch_counts():
@@ -374,8 +402,10 @@ def launch_counts():
     (B4 · T: one kernel each); B6 the frames' rasters
     (raster_kernel, then raster_tile_kernel), "B6 blend" their
     u8 blends; B7 the LET exports (each a memset, the scan-and-emit kernel
-    per 8 destinations and the tail kernel)."""
+    per 8 destinations and the tail kernel); E1 the potential energies
+    (the pair kernel, then the blocks' sum)."""
     from wgpu_n_body_tpu_torch.ops import (
+        energy_cuda,
         let_export_cuda,
         morton_cuda,
         naive_cuda,
@@ -391,14 +421,14 @@ def launch_counts():
             "B4 tiles": tree_walk_group_cuda.LAUNCHES_TILES, "B5": tree_build_cuda.LAUNCHES,
             "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
             "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND,
-            "B7": let_export_cuda.LAUNCHES}
+            "B7": let_export_cuda.LAUNCHES, "E1": energy_cuda.LAUNCHES}
 
 
 def expected_counts(**counts):
     """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
     ``B4_tiles`` for "B4 tiles", ``B6_blend`` for "B6 blend")."""
     keys = ("B1", "B2", "B3", "B4", "B4 eval", "B4 tiles", "B5", "K1", "K2", "B6", "B6 blend",
-            "B7")
+            "B7", "E1")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -2985,17 +3015,20 @@ def phase_let_emulated(dev, smi):
             "launches": counts["B7"]}
 
 
-def sharded_run(make, steps, chunk, dev):
-    """(runner, launches, ms per step of the last chunk) of a headless run on
-    ``dev`` of ``steps`` steps in chunks of ``chunk`` (each chunk ends in a
-    synchronisation)."""
+def sharded_run(make, steps, chunk, dev, energy_every=0):
+    """(runner, launches, ms per step of the last chunk, the logged total
+    energies) of a headless run on ``dev`` of ``steps`` steps in chunks of
+    ``chunk`` (each chunk ends in a synchronisation; the energy, if any, is
+    evaluated after it, outside the timed chunk)."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 
     runner = OfflineHeadless(make(), uniform_init, seed=0, device=dev)
+    lines = []
     zero_launch_counts()
-    runner.run(steps=steps, chunk=chunk, log_fn=lambda line: None)
-    return runner, launch_counts(), runner.timer.times_s[-1] / chunk * 1e3
+    runner.run(steps=steps, chunk=chunk, energy_every=energy_every, log_fn=lines.append)
+    energies = [float(x) for line in lines for x in re.findall(r"total energy (\S+)", line)]
+    return runner, launch_counts(), runner.timer.times_s[-1] / chunk * 1e3, energies
 
 
 def phase_sharded(dev, smi):
@@ -3016,7 +3049,10 @@ def phase_sharded(dev, smi):
         if mesh.device != dev or dist.get_backend() != backend:
             fail(f"18 the one-rank group runs on {mesh.device} under {dist.get_backend()}")
         steps, chunk = 6, 3
-        runs = [("naive", s, N_MAIN, expected_counts(B1=steps)) for s in ("allgather", "ring")]
+        # the naive runs log the total energy at their last step: one E1
+        # launch over the one rank's share (0, 1), the single device's sum
+        runs = [("naive", s, N_MAIN, expected_counts(B1=steps, E1=1))
+                for s in ("allgather", "ring")]
         tree_counts = {
             "replicated": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
                                           B4_eval=steps, B4_tiles=steps, B3=steps),
@@ -3034,12 +3070,17 @@ def phase_sharded(dev, smi):
             else:
                 make = lambda: ShardedTreeSim(params, mesh, TreeParams(), schedule)
                 make_single = lambda: TreeSim(params, TreeParams())
-            runner, counts, ms = sharded_run(make, steps, chunk, dev)
+            every = steps if kind == "naive" else 0
+            runner, counts, ms, energies = sharded_run(make, steps, chunk, dev, every)
             if counts != want:
                 fail(f"18 {kind} {schedule}: {steps} steps launched {counts}, not {want}")
             if kind not in singles:
-                singles[kind] = sharded_run(make_single, steps, chunk, dev)
-            single, _, single_ms = singles[kind]
+                singles[kind] = sharded_run(make_single, steps, chunk, dev, every)
+            single, _, single_ms, single_energies = singles[kind]
+            if len(energies) != (1 if every else 0) or not np.allclose(
+                    energies, single_energies, rtol=1e-6, atol=0):
+                fail(f"18 {kind} {schedule}: energies {energies} against the single device's "
+                     f"{single_energies}")
             a, b = runner.state, single.state
             torch.testing.assert_close(a.pos, b.pos, rtol=1e-5, atol=1e-7)
             torch.testing.assert_close(a.vel, b.vel, rtol=1e-4, atol=1e-7)
@@ -3049,15 +3090,215 @@ def phase_sharded(dev, smi):
             print(f"18 one-rank NCCL {kind} {schedule} N={n}: {steps} steps in chunks of {chunk}, "
                   f"launches {({k: v for k, v in counts.items() if v})}; held to the "
                   f"single-device sim (bit-equal: {same}); {ms:.3f} ms/step against "
-                  f"{single_ms:.3f} ({ms / single_ms - 1:+.2%}); health {health}; [{smi}]")
+                  f"{single_ms:.3f} ({ms / single_ms - 1:+.2%}); health {health}; total "
+                  f"energy {energies} against the single device's {single_energies}; [{smi}]")
             out[f"{kind} {schedule}"] = {"ms": ms, "single_ms": single_ms, "counts": counts,
-                                         "bit_equal": same}
+                                         "bit_equal": same, "energies": energies}
             del runner
         del singles
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------- the energy (E1)
+
+#: E1 against the plain version in float64: the gate of 19a-19c, relative.
+ENERGY_RTOL = 1e-5
+N_ENERGY = 16_384
+#: E1's operations per pair of the softened integral as
+#: ``ops/energy.py::softened_pair_integral`` writes it, each division by a
+#: constant a product with its reciprocal: MUFU, sqrt(r^2), the reciprocal
+#: 1/x of arctan(1/x), the reciprocal of the log's quotient and the log;
+#: float32 flops, d (3), r^2 (5), x (3), arctan of min(x, 1/x) by a degree-8
+#: polynomial in its square and the pi/2 reflection (19), the log's quotient
+#: (6), the two terms' sum (3), m_j I accumulated (2).
+ENERGY_MUFU_PER_PAIR = 4
+ENERGY_FLOPS_PER_PAIR = 41
+NO_ENERGY_LIBRARY = "none: no single PyTorch call sums a pair potential over the pairs i < j"
+
+
+def energy_bound(n, mhz):
+    """E1's ``bound`` over the n (n - 1) / 2 pairs of n bodies: the softened
+    integral's operations per pair, the bodies' 16 bytes each and the
+    float64 out."""
+    return bound(n * (n - 1) / 2, ENERGY_MUFU_PER_PAIR, ENERGY_FLOPS_PER_PAIR, n * 16 + 8, mhz)
+
+
+def phase_energy(dev, smi, mhz):
+    """19. E1 against the plain version in float64 on three scenes, a planted
+    fault, N=262144 timed beside the plain version, launches and shares,
+    N=4M timed."""
+    from wgpu_n_body_tpu_torch.inits import disc_init, spherical_init, uniform_init
+    from wgpu_n_body_tpu_torch.ops import energy_cuda
+    from wgpu_n_body_tpu_torch.ops.energy import potential_energy_plain
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams
+
+    def e1(state, params, share=(0, 1)):
+        out = energy_cuda.potential_energy_cuda(state.pos, state.mass, params, True, share)
+        torch.cuda.synchronize()
+        return out
+
+    def plain(state, params, share=(0, 1), block=1024, double=False):
+        if double:
+            state = ParticleState(*(t.double() for t in state))
+        return potential_energy_plain(state, params, block, True, share)
+
+    def rel(got, want):
+        return abs(float(got) - float(want)) / abs(float(want))
+
+    # -- 19a. three scenes, whole, against float64; one body made massless --
+    scenes = {}
+    for name, init in (("uniform", uniform_init), ("disc", disc_init),
+                       ("spherical", spherical_init)):
+        params = SimParams(particle_num=N_ENERGY)
+        st = init(torch.Generator().manual_seed(1), params, dev)
+        want = plain(st, params, double=True)
+        got, plain32 = e1(st, params), plain(st, params)
+        err, err_plain = rel(got, want), rel(plain32, want)
+        mass = st.mass.clone()
+        mass[N_ENERGY // 3] = 0
+        planted = rel(e1(st._replace(mass=mass), params), want)
+        print(f"19a {name} N={N_ENERGY}: E1 {float(got):.12e}, float64 {float(want):.12e}: "
+              f"rel err {err:.3e} (plain float32 {err_plain:.3e}); one body massless moves it "
+              f"{planted:.3e}; gate {ENERGY_RTOL:.0e}")
+        if not np.isfinite(float(got)) or err > ENERGY_RTOL:
+            fail(f"19a E1 on the {name} scene is {err:.3e} from float64")
+        if planted <= ENERGY_RTOL:
+            fail(f"19a the planted fault on the {name} scene ({planted:.3e}) passes the gate")
+        scenes[name] = {"rel_err": err, "plain_rel_err": err_plain, "planted": planted}
+        del st, mass
+
+    # -- 19b. N=262144 (the naive main path's energy): timed, launches, shares --
+    params = SimParams(particle_num=N_MAIN)
+    st = uniform_init(torch.Generator().manual_seed(0), params, dev)  # cli headless --sim naive
+    ms, whole = time_ms(lambda: energy_cuda.potential_energy_cuda(st.pos, st.mass, params), 3)
+    plain_ms, whole32 = time_ms(lambda: plain(st, params), 1)
+    again = e1(st, params)
+    max_abs = abs(float(whole) - float(whole32))
+    if not torch.equal(whole, again):
+        fail(f"19b two E1 launches differ: {float(whole)!r} {float(again)!r}")
+    parts = [float(e1(st, params, (k, 5))) for k in range(5)]
+    share_err = rel(sum(parts), whole)
+    if share_err > 1e-12:
+        fail(f"19b five shares sum to {sum(parts)!r}, the whole is {float(whole)!r}")
+    share = (7, 32)
+    got = e1(st, params, share)
+    want = plain(st, params, share, block=64, double=True)
+    err = rel(got, want)
+    if err > ENERGY_RTOL:
+        fail(f"19b E1 on share {share} at N={N_MAIN} is {err:.3e} from float64")
+    b = energy_bound(N_MAIN, mhz)
+    print(f"19b N={N_MAIN} uniform: E1 {ms:.3f} ms, plain float32 {plain_ms:.3f} ms, |E1 - "
+          f"plain| {max_abs:.3e} (rel {rel(whole, whole32):.3e}); bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_unit']}; float32 {b['bound_fp32_ms']:.3f} ms), E1 at {b['bound_ms'] / ms:.2%}; two "
+          f"launches bit-equal; 5 shares sum to the whole within {share_err:.3e}; share {share} "
+          f"against float64 {err:.3e}; [{smi}]")
+    rec = {"name": "potential_energy", "route": "cuda",
+           "source": "wgpu_n_body_tpu_torch/csrc/energy.cu",
+           "replaces": "wgpu_n_body_tpu/ops/energy.py:62", "max_abs_err": max_abs, "ms": ms,
+           "plain_ms": plain_ms, **b, "library_ms": None, "library": NO_ENERGY_LIBRARY,
+           "n": N_MAIN, "scenes": scenes, "shares_rel_err": share_err,
+           "share_rel_err_f64": err}
+    del st, whole32
+
+    # -- 19c. N=4M, the headless default's scene: one evaluation, timed --
+    params = SimParams(particle_num=N_TREE)
+    st = uniform_init(torch.Generator().manual_seed(0), params, dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = energy_cuda.potential_energy_cuda(st.pos, st.mass, params)
+    end.record()
+    torch.cuda.synchronize()
+    s_4m = start.elapsed_time(end) / 1e3
+    share = (1234, 4096)
+    err = rel(e1(st, params, share), plain(st, params, share, block=16, double=True))
+    b4m = energy_bound(N_TREE, mhz)
+    print(f"19c N={N_TREE} uniform: E1 {float(out):.9e} in {s_4m:.3f} s; bound "
+          f"{b4m['bound_ms'] / 1e3:.3f} s ({b4m['bound_unit']}; float32 {b4m['bound_fp32_ms'] / 1e3:.3f} s), E1 at "
+          f"{b4m['bound_ms'] / 1e3 / s_4m:.2%}; share {share} against float64 {err:.3e}; [{smi}]")
+    if not np.isfinite(float(out)) or err > ENERGY_RTOL:
+        fail(f"19c E1 at N={N_TREE}: {float(out)!r}, share against float64 {err:.3e}")
+    rec["n4m"] = {"s": s_4m, "bound_s": b4m["bound_ms"] / 1e3, "bound_unit": b4m["bound_unit"],
+                  "share_of_bound": b4m["bound_ms"] / 1e3 / s_4m, "share_rel_err_f64": err}
+    del st
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drift_run(n, steps, chunk, dev):
+    """(|dE/E|, wall s, launches) of ``steps`` naive steps of the spherical
+    scene (tests/test_runners.py:146-160's parameters) through the runner,
+    in chunks of ``chunk``; the energies by E1."""
+    from wgpu_n_body_tpu_torch.inits import spherical_init
+    from wgpu_n_body_tpu_torch.models import NaiveSim
+    from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    params = SimParams(particle_num=n, g=1e-6, e=1e-4, dt=0.016)
+    runner = OfflineHeadless(NaiveSim(params, NaiveParams()), spherical_init, seed=2, device=dev)
+    zero_launch_counts()
+    e0 = runner.total_energy()
+    t0 = time.perf_counter()
+    runner.run(steps=steps, chunk=chunk, log_fn=lambda line: None)
+    wall = time.perf_counter() - t0
+    e1 = runner.total_energy()
+    return abs(e1 - e0) / abs(e0), wall, launch_counts()
+
+
+def phase_energy_runs(dev, smi):
+    """20. ``cli headless --energy-every`` at the defaults (N=4M), the bench
+    module, the drift proxy and BASELINE config 5."""
+    from wgpu_n_body_tpu_torch import cli
+
+    # -- 20a. the headless default with an energy line ----------------------
+    argv = ["headless", "--steps", str(STEPS), "--energy-every", str(STEPS)]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = run_cli(cli, argv)
+    cli_s = time.perf_counter() - t0
+    cli_counts = launch_counts()
+    want = expected_counts(K1=STEPS, K2=STEPS, B5=STEPS, B4=STEPS, B4_eval=STEPS,
+                           B4_tiles=STEPS, B3=STEPS, E1=1)
+    if cli_counts != want:
+        fail(f"20a cli headless --energy-every {STEPS} launched {cli_counts}, not {want}")
+    energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
+    if len(energies) != 1 or not np.isfinite(energies).all():
+        fail(f"20a energies {energies}")
+    print(f"20a cli headless --steps {STEPS} --energy-every {STEPS} (N={N_TREE}): total energy "
+          f"{energies[0]!r}, E1 {cli_counts['E1']} launch, {cli_s:.3f} s for the run; [{smi}]")
+
+    # -- 20b. the bench module, as a user runs it -----------------------------
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "wgpu_n_body_tpu_torch.bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"20b python -m wgpu_n_body_tpu_torch.bench exited {proc.returncode}:\n"
+             f"{proc.stderr[-2000:]}")
+    lines = proc.stdout.strip().splitlines()
+    bench = json.loads(lines[-1]) if len(lines) == 1 else {}
+    if set(bench) != {"metric", "value", "unit", "vs_baseline", "device"} or not (
+            bench["metric"] == f"naive_pairwise_interactions_per_sec_n{N_MAIN}"
+            and np.isfinite(bench["value"]) and bench["value"] > 0):
+        fail(f"20b the bench module printed {proc.stdout!r}")
+    print(f"20b python -m wgpu_n_body_tpu_torch.bench: {lines[0]}; [{smi}]")
+
+    # -- 20c. the drift proxy and BASELINE config 5 ---------------------------
+    drift = {}
+    for name, n, steps, gate in (("proxy", 512, 10_000, 3e-2), ("config5", 4096, 100_000, 0.1)):
+        d, wall, counts = drift_run(n, steps, 1000, dev)
+        if counts != expected_counts(B1=steps, E1=2):
+            fail(f"20c {name}: {counts}")
+        print(f"20c drift {name}: N={n} spherical, {steps} steps in chunks of 1000: |dE/E| "
+              f"{d:.6e} (gate {gate:.0e}), {wall:.3f} s ({wall / steps * 1e6:.1f} us/step); "
+              f"launches B1 {counts['B1']}, E1 {counts['E1']}; [{smi}]")
+        if not np.isfinite(d) or d >= gate:
+            fail(f"20c drift {name} {d!r} not below {gate}")
+        drift[name] = {"n": n, "steps": steps, "drift": d, "s": wall}
+    return {"launches": cli_counts["E1"], "cli_s": cli_s, "energy": energies[0], "bench": bench,
+            "drift": drift}
 
 
 def main() -> None:
@@ -3071,6 +3312,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch.models import NaiveSim
         from wgpu_n_body_tpu_torch.native import build as native_build
         from wgpu_n_body_tpu_torch.ops import (
+            energy_cuda,
             let_export_cuda,
             morton_cuda,
             naive_cuda,
@@ -3114,6 +3356,7 @@ def main() -> None:
         "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
         "B6": pool.submit(raster_cuda.build),
         "B7": pool.submit(let_export_cuda.build),
+        "E1": pool.submit(energy_cuda.build),
     }
     pool.shutdown(wait=True)
     t_build = time.perf_counter() - t0
@@ -3224,9 +3467,10 @@ def main() -> None:
         zero_launch_counts()
         out = run_cli(cli, argv)
         counts = launch_counts()
-        launches = counts["B1"]
+        launches, e1_naive_launches = counts["B1"], counts["E1"]
         plan = naive_cuda.LAST_PLAN  # the plan of the run's last launch
-        if counts != expected_counts(B1=STEPS):
+        # two energy lines (steps 5 and 10), each one E1 launch
+        if counts != expected_counts(B1=STEPS, E1=2):
             fail(f"{STEPS} headless naive steps launched {counts}")
         energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
         if len(energies) != 2 or not np.isfinite(energies).all():
@@ -3275,7 +3519,7 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B4 T", "B5", "K1", "B6", "B7"):
+    for key in ("B3", "B4", "B4 T", "B5", "K1", "B6", "B7", "E1"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -3341,7 +3585,18 @@ def main() -> None:
     b7["launches_emulated_p4"] = b7["emulated_p4"].pop("launches")
     b7["sharded_p1"] = sharded
 
-    kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7]
+    e1 = phase_energy(dev, smi, mhz)
+    for name, regs, stores, _ in tree_ptxas["E1"]:
+        short = re.search(r"energy_[a-z]*_?kernel(ILb[01]E)?", name)
+        if short:
+            e1.setdefault("registers", {})[short.group(0)] = regs
+            e1.setdefault("spill_store_bytes", {})[short.group(0)] = stores
+    runs = phase_energy_runs(dev, smi)
+    # the main path: `cli headless --energy-every` at the defaults (20a)
+    e1["launches"], e1["launches_naive_cli"] = runs.pop("launches"), e1_naive_launches
+    e1.update(runs)
+
+    kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7, e1]
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")

@@ -37,7 +37,6 @@ import dataclasses
 import json
 import os
 import sys
-import time
 
 import torch
 import torch.distributed as dist
@@ -55,7 +54,7 @@ from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 from wgpu_n_body_tpu_torch.runners.online import OnlineViewer, serve
 from wgpu_n_body_tpu_torch.runners.renderer import Camera, render_frame_on_device, write_png
 from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryReader, TrajectoryWriter
-from wgpu_n_body_tpu_torch.utils.profiling import sync
+from wgpu_n_body_tpu_torch.utils.profiling import time_steps
 
 
 SIMS = ("naive", "tree", "tree-host")
@@ -368,14 +367,7 @@ def cmd_bench(args) -> int:
             state = sim.init_state(
                 torch.Generator().manual_seed(args.seed), uniform_init, device
             )
-            step = sim.make_step()
-            state = step(state)  # warm-up (builds the kernel on first use)
-            sync(state.pos)
-            t0 = time.perf_counter()
-            for _ in range(args.reps):
-                state = step(state)
-            sync(state.pos)
-            dt = (time.perf_counter() - t0) / args.reps
+            _, dt = time_steps(sim.make_step(), state, args.reps)
             print(json.dumps({
                 "sim": sim_name,
                 "n": n,

@@ -24,7 +24,10 @@ per chunk (``read_health``), after the reshard due at that boundary, if
 any; an overflow in the batch a reshard just ended is logged and not
 raised (the JAX rule: the reshard exists to bound it, and the next batch
 confirms). Trajectory, checkpoint and energy read the whole state gathered
-from every rank, and rank 0 alone writes and logs them.
+from every rank, and rank 0 alone writes and logs them. The potential
+energy's O(N^2) pairs are split: every rank evaluates its share of them on
+the gathered state and one ``all_reduce`` sums the float64 parts (the JAX
+runner evaluates ``total_energy`` on the global sharded array).
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ from typing import Callable
 import torch
 
 from wgpu_n_body_tpu_torch.models.base import InitFn, Simulator
-from wgpu_n_body_tpu_torch.ops.energy import total_energy
+from wgpu_n_body_tpu_torch.ops.energy import kinetic_energy, potential_energy
 from wgpu_n_body_tpu_torch.params import ParticleState
-from wgpu_n_body_tpu_torch.parallel.mesh import gather_state
+from wgpu_n_body_tpu_torch.parallel.mesh import all_reduce, gather_state
 from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
 from wgpu_n_body_tpu_torch.utils.checkpoint import save_checkpoint
 from wgpu_n_body_tpu_torch.utils.profiling import StepTimer
@@ -73,6 +76,18 @@ class OfflineHeadless:
         collective), the state itself otherwise."""
         mesh = getattr(self.sim, "mesh", None)
         return self.state if mesh is None else gather_state(self.state, mesh)
+
+    def total_energy(self) -> float:
+        """Kinetic plus potential energy of the whole state. A sharded
+        backend's ranks each evaluate their share of the pairs and sum the
+        parts (a collective: every rank calls it)."""
+        whole = self.whole_state()
+        mesh = getattr(self.sim, "mesh", None)
+        share = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+        pe = potential_energy(whole, self.sim.sim_params, share=share)
+        if mesh is not None:
+            pe = all_reduce(pe.reshape(1), "sum")[0]
+        return float(kinetic_energy(whole) + pe)
 
     def _check_batch(self, k: int, reshard_every: int, log_fn) -> None:
         """The end of a batch of ``k`` steps: the reshard due now, then the
@@ -185,8 +200,7 @@ class OfflineHeadless:
                         sim=self.sim,
                     )
             if energy_every and self.step_num % energy_every == 0:
-                whole = self.whole_state()
+                e = self.total_energy()
                 if self.is_root:
-                    e = float(total_energy(whole, self.sim.sim_params))
                     log_fn(f"step {self.step_num}: total energy {e:.9e}")
         return self.state

@@ -23,6 +23,19 @@ def sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def time_steps(step, state, reps: int):
+    """(last state, mean wall s per step) of ``reps`` calls of ``step``
+    queued back to back after one warm-up call (which builds the kernel on
+    first use), closed by one ``sync``."""
+    state = step(state)
+    sync(state.pos)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state = step(state)
+    sync(state.pos)
+    return state, (time.perf_counter() - t0) / reps
+
+
 @dataclass
 class StepTimer:
     """Accumulates per-step wall times, each closed by ``sync``."""
