@@ -168,9 +168,16 @@ Phases (any failure exits non-zero):
     massless, which must fail that gate; 19b N=262144 (the naive main
     path's energy) timed beside the plain float32 version, two launches
     bit-equal, five shares summing to the whole within 1e-12, share 7 of 32
-    against float64; 19c the N=4,000,000 uniform scene of ``cli headless``
-    evaluated once, timed by CUDA events beside its bound, and share 1234
-    of 4096 against float64;
+    against float64, and the disc scene timed (the most near pairs); 19c
+    the N=4,000,000 uniform scene of ``cli headless`` evaluated once, timed
+    by CUDA events beside its bound, and share 1234 of 4096 against
+    float64; 19d E1's pair arithmetic (``energy_probe``: the kernel's tile
+    pass over one source at each r, so its clamp, near-pair bits and the
+    closed form after the tile) at r = 0, both sides of r_s and
+    geomspace(1e-3 a, 4) against float64 I(r) (relative <= 1e-5) for
+    e = 1e-4, 1e-5, 1e-2, 1/r too, with the switch planted at 1.2a, which
+    must fail; 19e SASS instructions and MUFU ops per far pair of its pair
+    loop (``cuobjdump``, where the toolkit has it);
 20. 20a ``cli headless --steps 10 --energy-every 10`` at the defaults
     (TreeSim N=4M): the step's launches and one E1, one finite energy; 20b
     ``python -m wgpu_n_body_tpu_torch.bench`` in a subprocess, its one JSON
@@ -201,9 +208,11 @@ time as ``ms`` and the CUDA-event time as ``events_ms``. The records of
 B4 · T and B6, redesigned after commit f59feb3, carry ``design`` and their
 device ops per call or frame (the earlier design's times, measured in turns
 by ``utils/tile_raster_study.py``, are in PERF.md, not in the records).
-E1's bound is ``bound``'s, from the operations that the softened pair
-integral needs per pair (``ENERGY_MUFU_PER_PAIR``, ``ENERGY_FLOPS_PER_PAIR``)
-and its bytes (16 per body); its record's times are phase 19b's at N=262144 (the N=4M
+E1's bound is ``bound``'s, from the operations of a far-field pair of the
+function (``ENERGY_MUFU_PER_PAIR``, ``ENERGY_FLOPS_PER_PAIR``: 1 MUFU and
+21 float32 flops), and its bytes (16 per body); PR 13's count (the closed
+form's 4 MUFU and 41 flops, which the series beats, so no bound of the
+function) is printed beside it. Its record's times are phase 19b's at N=262144 (the N=4M
 evaluation as ``n4m``), its launches those of 20a (``cli headless
 --energy-every`` at the defaults) and, as ``launches_naive_cli``, phase 5's.
 K1's and B5's times are on the main path's input (the N=4M state one step
@@ -225,6 +234,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2306,7 +2316,7 @@ def raster_bound(rec):
             "operations", "bound_bytes": nbytes, "bound_ops": ops, "bound_ops_ms": t_ops}
 
 
-PROFILER_TRIES = 3  # windows before an empty trace fails the run
+PROFILER_TRIES = 5  # windows before an empty trace fails the run
 
 
 def device_ms(fn, reps):
@@ -2710,15 +2720,18 @@ def launch_split(fn, reps):
     """{launch name: (device ms per call, launches per call)} of ``fn``'s
     kernels and memsets (``utils/profile_step.py::device_launches``); a
     window in which the profiler saw no device activity is taken again, up
-    to ``PROFILER_TRIES`` windows."""
+    to ``PROFILER_TRIES`` windows, each of twice the calls and after a
+    pause (CUPTI loses a whole short window now and then: a window of 20
+    frames at N=4M is ~1.4 ms of device time)."""
     from wgpu_n_body_tpu_torch.utils.profile_step import device_launches
 
     for attempt in range(PROFILER_TRIES):
-        out = device_launches(fn, reps)
+        out = device_launches(fn, reps << attempt)
         if out:
             return out
         print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no device "
-              "activity; taking it again", file=sys.stderr)
+              "activity; taking it again", file=sys.stderr, flush=True)
+        time.sleep(1.0)
     fail(f"the profiler saw no device activity in {PROFILER_TRIES} windows of launches")
 
 
@@ -3104,32 +3117,104 @@ def phase_sharded(dev, smi):
 
 # ---------------------------------------------------------- the energy (E1)
 
-#: E1 against the plain version in float64: the gate of 19a-19c, relative.
+#: E1 against the plain version in float64: the gate of 19a-19d, relative.
 ENERGY_RTOL = 1e-5
 N_ENERGY = 16_384
-#: E1's operations per pair of the softened integral as
-#: ``ops/energy.py::softened_pair_integral`` writes it, each division by a
-#: constant a product with its reciprocal: MUFU, sqrt(r^2), the reciprocal
-#: 1/x of arctan(1/x), the reciprocal of the log's quotient and the log;
-#: float32 flops, d (3), r^2 (5), x (3), arctan of min(x, 1/x) by a degree-8
-#: polynomial in its square and the pi/2 reflection (19), the log's quotient
-#: (6), the two terms' sum (3), m_j I accumulated (2).
-ENERGY_MUFU_PER_PAIR = 4
-ENERGY_FLOPS_PER_PAIR = 41
+#: E1's operations per pair, counted from the function: a pair beyond
+#: r_s = 3a by the series I = r^-2 sum_{k<5} c_k r^-3k, c_k = (-e)^k / (3k + 2)
+#: (u = e r^-3 <= 1/27 there, so five terms are the fewest whose truncation
+#: stays under 1e-8 of I over the whole far field; a pair far beyond r_s
+#: would need fewer, which this count does not credit), e folded into the
+#: coefficients on the host. MUFU: rsqrt(r^2). Float32 flops: d (3), r^2 (a
+#: product and two FMAs, 5), ri^2 (1), t = ri^2 ri (1), Horner over five
+#: coefficients (4 FMAs, 8), I = ri^2 P (1), m_j I accumulated (2): 21.
+ENERGY_MUFU_PER_PAIR = 1
+ENERGY_FLOPS_PER_PAIR = 21
+#: PR 13's count, from the closed form: MUFU, sqrt(r^2), 1/x for
+#: arctan(1/x), the reciprocal of the log's quotient and the log; float32
+#: flops, d (3), r^2 (5), x (3), arctan by a degree-8 polynomial and the
+#: pi/2 reflection (19), the log's quotient (6), the two terms' sum (3),
+#: accumulation (2). Printed beside the bound, so the two PRs' shares can be
+#: set side by side; the series needs less, so it bounds nothing.
+PR13_MUFU_PER_PAIR = 4
+PR13_FLOPS_PER_PAIR = 41
 NO_ENERGY_LIBRARY = "none: no single PyTorch call sums a pair potential over the pairs i < j"
 
 
-def energy_bound(n, mhz):
-    """E1's ``bound`` over the n (n - 1) / 2 pairs of n bodies: the softened
-    integral's operations per pair, the bodies' 16 bytes each and the
-    float64 out."""
-    return bound(n * (n - 1) / 2, ENERGY_MUFU_PER_PAIR, ENERGY_FLOPS_PER_PAIR, n * 16 + 8, mhz)
+def energy_bound(n, mhz, pr13=False):
+    """E1's ``bound`` over the n (n - 1) / 2 pairs of n bodies: the
+    function's operations per pair (or, with ``pr13``, PR 13's count), the
+    bodies' 16 bytes each and the float64 out."""
+    mufu, flops = ((PR13_MUFU_PER_PAIR, PR13_FLOPS_PER_PAIR) if pr13
+                   else (ENERGY_MUFU_PER_PAIR, ENERGY_FLOPS_PER_PAIR))
+    return bound(n * (n - 1) / 2, mufu, flops, n * 16 + 8, mhz)
 
 
-def phase_energy(dev, smi, mhz):
+def far_pair_sass(lib_path, sass_dir=None):
+    """(SASS instructions per pair, MUFU ops per pair, pairs per trip) of
+    E1's far loop: the innermost loop of the softened kernel with the fewest
+    instructions per MUFU.RSQ (``utils/group_walk_study.sass_loops``; the far
+    loop has no branch and one RSQ a pair). None without ``cuobjdump``."""
+    from wgpu_n_body_tpu_torch.utils.group_walk_study import sass_loops
+
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    loops = sass_loops(lib_path, "energy_kernelILb1E", sass_dir) if os.path.exists(exe) else []
+    if not loops:
+        return None
+    _, n_ins, rsq, mufu = min(loops, key=lambda loop: loop[1] / loop[2])
+    return n_ins / rsq, mufu / rsq, rsq
+
+
+def probe_sweep(e, dev):
+    """float32 r on the card for E1's pair probe: 0, geomspace(1e-3 a, 4)
+    and r_s (1 -+ 1e-6), a = e^(1/3); beside it I(r) in float64 at the r the
+    float32 r^2 stands for, and the near field's mask."""
+    from wgpu_n_body_tpu_torch.ops.energy import RS_OVER_A, pair_constants, softened_pair_integral
+
+    a = e ** (1.0 / 3.0)
+    rs = RS_OVER_A * a
+    r = np.concatenate([[0.0, rs * (1 - 1e-6), rs * (1 + 1e-6)],
+                        np.geomspace(1e-3 * a, 4.0, 200_001)])
+    r = torch.from_numpy(r).float().to(dev)
+    r2 = (r * r).double()
+    return r, softened_pair_integral(torch.sqrt(r2), e), r2 < pair_constants(e).rs2
+
+
+def phase_energy_probe(dev, smi):
+    """19d. E1's pair arithmetic on the card (``energy_probe``: the kernel's
+    tile pass, one source at each r) against float64 I(r) over the sweep,
+    for three softening values, with the switch planted at 1.2a, which must
+    fail."""
+    from wgpu_n_body_tpu_torch.ops import energy_cuda
+    from wgpu_n_body_tpu_torch.ops.energy import pair_constants
+
+    out = {}
+    for e in (1e-4, 1e-5, 1e-2):
+        r, want, near = probe_sweep(e, dev)
+        rel = ((energy_cuda.pair_probe(r, e).double() - want) / want).abs()
+        newton = ((energy_cuda.pair_probe(r[1:], e, softened=False).double()
+                   - torch.rsqrt((r[1:] * r[1:]).double())) * torch.sqrt((r[1:] * r[1:]).double())
+                  ).abs().max().item()
+        bad = pair_constants(e)._replace(rs2=(1.2 * e ** (1.0 / 3.0)) ** 2)
+        planted = ((energy_cuda.pair_probe(r, e, constants=bad).double() - want) / want
+                   ).abs().max().item()
+        far, near_err, worst = rel[~near].max().item(), rel[near].max().item(), rel.max().item()
+        print(f"19d pair probe e={e:g} ({r.numel()} r, {int(near.sum())} near): max rel err far "
+              f"{far:.3e}, near {near_err:.3e} (gate {ENERGY_RTOL:.0e}); 1/r {newton:.3e}; the "
+              f"switch at 1.2a {planted:.3e}; [{smi}]")
+        if not (worst <= ENERGY_RTOL and newton <= ENERGY_RTOL):
+            fail(f"19d E1's pair function at e={e:g}: {worst:.3e} (1/r {newton:.3e}) from float64")
+        if planted <= ENERGY_RTOL:
+            fail(f"19d the switch planted at 1.2a ({planted:.3e}) passes the gate at e={e:g}")
+        out[f"{e:g}"] = {"far": far, "near": near_err, "newton": newton, "planted": planted}
+    return out
+
+
+def phase_energy(dev, smi, mhz, lib_path):
     """19. E1 against the plain version in float64 on three scenes, a planted
-    fault, N=262144 timed beside the plain version, launches and shares,
-    N=4M timed."""
+    fault, N=262144 timed beside the plain version (uniform, and disc), launches and shares,
+    N=4M timed, its pair function probed, its far pair's SASS."""
     from wgpu_n_body_tpu_torch.inits import disc_init, spherical_init, uniform_init
     from wgpu_n_body_tpu_torch.ops import energy_cuda
     from wgpu_n_body_tpu_torch.ops.energy import potential_energy_plain
@@ -3189,19 +3274,28 @@ def phase_energy(dev, smi, mhz):
     err = rel(got, want)
     if err > ENERGY_RTOL:
         fail(f"19b E1 on share {share} at N={N_MAIN} is {err:.3e} from float64")
-    b = energy_bound(N_MAIN, mhz)
+    b, b_old = energy_bound(N_MAIN, mhz), energy_bound(N_MAIN, mhz, pr13=True)
     print(f"19b N={N_MAIN} uniform: E1 {ms:.3f} ms, plain float32 {plain_ms:.3f} ms, |E1 - "
           f"plain| {max_abs:.3e} (rel {rel(whole, whole32):.3e}); bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_unit']}; float32 {b['bound_fp32_ms']:.3f} ms), E1 at {b['bound_ms'] / ms:.2%}; two "
-          f"launches bit-equal; 5 shares sum to the whole within {share_err:.3e}; share {share} "
-          f"against float64 {err:.3e}; [{smi}]")
+          f"({b['bound_unit']}; float32 {b['bound_fp32_ms']:.3f} ms), E1 at "
+          f"{b['bound_ms'] / ms:.2%}; PR 13's count (the closed form) {b_old['bound_ms']:.3f} "
+          f"ms, E1 at {b_old['bound_ms'] / ms:.2%}; two launches bit-equal; 5 shares sum to the whole "
+          f"within {share_err:.3e}; share {share} against float64 {err:.3e}; [{smi}]")
     rec = {"name": "potential_energy", "route": "cuda",
            "source": "wgpu_n_body_tpu_torch/csrc/energy.cu",
            "replaces": "wgpu_n_body_tpu/ops/energy.py:62", "max_abs_err": max_abs, "ms": ms,
            "plain_ms": plain_ms, **b, "library_ms": None, "library": NO_ENERGY_LIBRARY,
-           "n": N_MAIN, "scenes": scenes, "shares_rel_err": share_err,
-           "share_rel_err_f64": err}
+           "n": N_MAIN, "scenes": scenes,
+           "shares_rel_err": share_err, "share_rel_err_f64": err}
     del st, whole32
+
+    # -- 19b'. N=262144 disc: the most near pairs, so the most divergence --
+    st = disc_init(torch.Generator().manual_seed(0), params, dev)
+    disc_ms, _ = time_ms(lambda: energy_cuda.potential_energy_cuda(st.pos, st.mass, params), 3)
+    print(f"19b N={N_MAIN} disc: E1 {disc_ms:.3f} ms, at {b['bound_ms'] / disc_ms:.2%} of the "
+          f"bound; [{smi}]")
+    rec["disc_ms"] = disc_ms
+    del st
 
     # -- 19c. N=4M, the headless default's scene: one evaluation, timed --
     params = SimParams(particle_num=N_TREE)
@@ -3214,16 +3308,29 @@ def phase_energy(dev, smi, mhz):
     s_4m = start.elapsed_time(end) / 1e3
     share = (1234, 4096)
     err = rel(e1(st, params, share), plain(st, params, share, block=16, double=True))
-    b4m = energy_bound(N_TREE, mhz)
+    b4m, b4m_old = energy_bound(N_TREE, mhz), energy_bound(N_TREE, mhz, pr13=True)
     print(f"19c N={N_TREE} uniform: E1 {float(out):.9e} in {s_4m:.3f} s; bound "
-          f"{b4m['bound_ms'] / 1e3:.3f} s ({b4m['bound_unit']}; float32 {b4m['bound_fp32_ms'] / 1e3:.3f} s), E1 at "
-          f"{b4m['bound_ms'] / 1e3 / s_4m:.2%}; share {share} against float64 {err:.3e}; [{smi}]")
+          f"{b4m['bound_ms'] / 1e3:.3f} s ({b4m['bound_unit']}; float32 "
+          f"{b4m['bound_fp32_ms'] / 1e3:.3f} s), E1 at {b4m['bound_ms'] / 1e3 / s_4m:.2%}; PR 13's "
+          f"count (the closed form) {b4m_old['bound_ms'] / 1e3:.3f} s, E1 at "
+          f"{b4m_old['bound_ms'] / 1e3 / s_4m:.2%}; share {share} against float64 {err:.3e}; "
+          f"[{smi}]")
     if not np.isfinite(float(out)) or err > ENERGY_RTOL:
         fail(f"19c E1 at N={N_TREE}: {float(out)!r}, share against float64 {err:.3e}")
     rec["n4m"] = {"s": s_4m, "bound_s": b4m["bound_ms"] / 1e3, "bound_unit": b4m["bound_unit"],
                   "share_of_bound": b4m["bound_ms"] / 1e3 / s_4m, "share_rel_err_f64": err}
     del st
     torch.cuda.empty_cache()
+
+    # -- 19d. the pair function alone; 19e. the far pair's SASS --
+    rec["probe"] = phase_energy_probe(dev, smi)
+    sass = far_pair_sass(lib_path)
+    if sass:
+        print(f"19e SASS of E1's pair loop, every pair far: {sass[0]:.2f} instructions and "
+              f"{sass[1]:.2f} MUFU per pair ({sass[2]} pairs per trip); [{smi}]")
+        rec["sass_per_far_pair"], rec["mufu_per_far_pair"] = sass[0], sass[1]
+    else:
+        print("19e SASS of E1's pair loop: not measured (no cuobjdump, or no loop found)")
     return rec
 
 
@@ -3585,7 +3692,7 @@ def main() -> None:
     b7["launches_emulated_p4"] = b7["emulated_p4"].pop("launches")
     b7["sharded_p1"] = sharded
 
-    e1 = phase_energy(dev, smi, mhz)
+    e1 = phase_energy(dev, smi, mhz, built["E1"][0])
     for name, regs, stores, _ in tree_ptxas["E1"]:
         short = re.search(r"energy_[a-z]*_?kernel(ILb[01]E)?", name)
         if short:

@@ -1,13 +1,17 @@
 """PyTorch port, the potential energy (E1, ``csrc/energy.cu``) on the CPU:
 the plain version's shares against the JAX package's ``potential_energy``,
-a model of the kernel's enumeration of tile pairs, the CPU path's routing,
-the sharded runner's energy over two gloo ranks, and the bench module.
+the float32 mirror of E1's split pair function (the far-field series beyond
+r_s, the closed form inside) against float64 and JAX, its host constants, a
+model of the kernel's enumeration of tile pairs, the CPU path's routing, the
+sharded runner's energy over two gloo ranks, and the bench module.
 
-The kernel itself runs on the card only (``chip_smoke.py`` holds it against
-the plain version in float64 there)."""
+The kernel itself runs on the card only (``chip_smoke.py`` holds it and its
+pair function against the plain version in float64 there)."""
 
 import functools
 import json
+import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -66,12 +70,100 @@ def test_plain_row_block_does_not_change_the_sum(block):
     np.testing.assert_allclose(got, whole, rtol=1e-6)
 
 
+E_VALUES = [1e-4, 1e-5, 1e-2]
+#: The mirror against float64, relative: the series beyond r_s (its float32
+#: rounding, ~2.6e-7; the terms left out are under 8.3e-9), the closed form
+#: inside (its two terms cancel most at r_s).
+SPLIT_RTOL = {"far": 1e-6, "near": 1e-5}
+
+
+def _sweep(e):
+    """float32 r = 0 and geomspace(1e-3 a, 4), a = e^(1/3), beside I(r) in
+    float64 at the r the float32 r^2 stands for."""
+    a = e ** (1.0 / 3.0)
+    r = torch.from_numpy(np.concatenate([[0.0], np.geomspace(1e-3 * a, 4.0, 20001)])).float()
+    return r, energy.softened_pair_integral(torch.sqrt((r * r).double()), e)
+
+
+@pytest.mark.parametrize("side", ["far", "near"])
+@pytest.mark.parametrize("e", E_VALUES)
+def test_split_pair_integral_against_float64(e, side):
+    r, want = _sweep(e)
+    near = r * r < energy.pair_constants(e).rs2
+    pick = near if side == "near" else ~near
+    got = energy.split_pair_integral(r, e)
+    assert got.dtype == torch.float32 and int(pick.sum()) > 100
+    rel = ((got.double() - want) / want).abs()[pick]
+    assert float(rel.max()) <= SPLIT_RTOL[side]
+
+
+@pytest.mark.parametrize("e", E_VALUES)
+def test_split_pair_integral_is_continuous_at_rs(e):
+    """The closed form just inside r_s and the series just outside: their
+    step equals float64's across the same two radii within 1e-6 of I."""
+    rs = energy.RS_OVER_A * e ** (1.0 / 3.0)
+    r = torch.tensor([rs * (1 - 1e-6), rs * (1 + 1e-6)], dtype=torch.float32)
+    assert (r * r < energy.pair_constants(e).rs2).tolist() == [True, False]
+    got = energy.split_pair_integral(r, e).double()
+    want = energy.softened_pair_integral(torch.sqrt((r * r).double()), e)
+    assert abs(float((got[1] - got[0]) - (want[1] - want[0]))) <= 1e-6 * float(want[1])
+
+
+@pytest.mark.parametrize("e", E_VALUES)
+def test_split_pair_integral_matches_jax(e):
+    """Within the JAX float32 function's own error against float64 (up to
+    1.7e-3 at large r, where its two terms cancel), plus the mirror's."""
+    r, want = _sweep(e)
+    jax_i = torch.from_numpy(
+        np.asarray(jax_energy.softened_pair_integral(jnp.asarray(r.numpy()), e), np.float64))
+    got = energy.split_pair_integral(r, e).double()
+    jax_err = float(((jax_i - want) / want).abs().max())
+    assert float(((got - jax_i) / want).abs().max()) <= jax_err + SPLIT_RTOL["near"]
+
+
+@pytest.mark.parametrize("e", [*E_VALUES, 0.0])
+def test_pair_constants_are_the_host_doubles(e):
+    c = energy.pair_constants(e)
+    assert all(type(x) is float for x in c.flat())
+    a = e ** (1.0 / 3.0)
+    s3 = math.sqrt(3.0)
+    assert c.rs2 == (energy.RS_OVER_A * a) ** 2 and c.a == a and c.a2 == a * a
+    assert c.series == tuple((-e) ** k / (3 * k + 2) for k in range(energy.TERMS))
+    assert c.x_shift == 1.0 / s3
+    if e:
+        assert c.x_scale == 2.0 / (a * s3)
+        assert c.inv_log == 1.0 / (6.0 * a * a) and c.inv_at == 1.0 / (a * a * s3)
+    else:  # no near field: r^2 < 0 never holds
+        assert c.rs2 == 0.0 and math.isinf(c.x_scale) and math.isinf(c.inv_log)
+    # the launchers' float count: rs2, the series and six products
+    assert len(c.flat()) == 1 + energy.TERMS + 6
+
+
+def test_kernel_source_agrees_with_the_host_constants():
+    src = energy_cuda.SOURCE.read_text()
+    terms = re.search(r"constexpr int kTerms = (\d+);", src)
+    tile = re.search(r"constexpr int kTile = (\d+);", src)
+    assert int(terms.group(1)) == energy.TERMS and int(tile.group(1)) == energy.TILE
+    fields = re.search(r"struct Consts \{(.*?)\};", src, re.S).group(1)
+    names = re.findall(r"float ([a-z0-9_]+(?:\[kTerms\])?(?:, [a-z0-9_]+)*);", fields)
+    flat = [n for group in names for n in group.split(", ")]
+    assert flat == ["rs2", "series[kTerms]", "a", "a2", "x_scale", "x_shift", "inv_log",
+                    "inv_at"]
+    assert tuple(energy.PairConstants._fields) == ("rs2", "series", "a", "a2", "x_scale",
+                                                    "x_shift", "inv_log", "inv_at")
+
+
+def test_pair_probe_takes_cuda_tensors_only():
+    with pytest.raises(ValueError, match="CUDA"):
+        energy_cuda.pair_probe(torch.ones(4), 1e-4)
+
+
 def _kernel_model(n, tile, p, blocks):
     """How many times E1's launches over the P shares, each of ``blocks``
     blocks, count each pair (i, j): each block walks its run of tile pairs
     as ``csrc/energy.cu`` does (one ``tile_pair`` root, then b + 1, and the
     next row's diagonal at the row's end); on the diagonal tile receiver k
-    of the tile starts past itself."""
+    of the tile takes only the sources past itself."""
     nt = -(-n // tile)
     seen = np.zeros((n, n), np.int64)
     for k in range(p):

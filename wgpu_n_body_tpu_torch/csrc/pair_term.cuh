@@ -1,7 +1,9 @@
 // The softened-gravity pair term shared by the all-pairs kernels
 // (csrc/naive_forces.cu, B1 and B2), the group walk's evaluation kernel
 // (csrc/tree_walk_group.cu, B4) and the per-particle walk (csrc/tree_walk.cu,
-// B3, which also takes its theta test's first guess from the same rsqrt):
+// B3, which also takes its theta test's first guess from the same rsqrt).
+// The energy kernel (csrc/energy.cu, E1) takes only rsqrt_ftz, for its far
+// pairs. The pair term:
 //
 //     d = p_j - p_i,  r2 = |d|^2,  inv_r = rsqrt(r2),
 //     w = mgdt_j * inv_r / (r2 * (r2 * inv_r) + e)        mgdt_j = m_j * g * dt

@@ -25,11 +25,21 @@ equal runs (a sharded runner gives each rank its own share and sums the
 results). Partial sums are in the state's float type (E1: a receiver over
 one source tile; the plain version: a block of rows over a run of source
 tiles), their total in float64; the result is a float64 scalar.
+
+E1 evaluates I(r) in two pieces (``split_pair_integral`` is its float32
+mirror): beyond r_s = ``RS_OVER_A`` a the exact far-field series
+
+    I(r) = r^-2 sum_k (-u)^k / (3k + 2) = r^-2 sum_k c_k t^k,
+    u = e / r^3 < 1,  t = r^-3,  c_k = (-e)^k / (3k + 2),
+
+cut after ``TERMS`` terms (e folded into the coefficients), and the closed
+form above inside r_s, each with the constants of ``pair_constants``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +48,49 @@ from wgpu_n_body_tpu_torch.params import ParticleState, SimParams
 #: Bodies per tile of the pair triangle: E1's receivers per block and
 #: sources per shared-memory stage (``csrc/energy.cu`` kTile).
 TILE = 256
+#: E1's switch radius in units of a = e^(1/3), and the series' terms
+#: (``csrc/energy.cu`` kTerms). At r_s = 3a, u <= 1/27: the terms left out
+#: are under 8.3e-9 of I (the float32 evaluation's own error is ~2.6e-7);
+#: ~0.14% of a uniform cube's pairs fall inside at e = 1e-4.
+RS_OVER_A = 3.0
+TERMS = 5
+
+
+class PairConstants(NamedTuple):
+    """E1's pair constants of softening e, in double, in the order of
+    ``csrc/energy.cu``'s Consts (the launcher rounds each to float32)."""
+
+    rs2: float  # r_s^2: a pair with r^2 below it takes the closed form
+    series: tuple[float, ...]  # (-e)^k / (3k + 2): I = r^-2 sum_k series[k] r^-3k
+    a: float  # e^(1/3)
+    a2: float  # a^2
+    x_scale: float  # 2 / (a sqrt3): x = r x_scale - x_shift = (2r - a) / (a sqrt3)
+    x_shift: float  # 1 / sqrt3
+    inv_log: float  # 1 / (6 a^2)
+    inv_at: float  # 1 / (a^2 sqrt3)
+
+    def flat(self) -> tuple[float, ...]:
+        return (self.rs2, *self.series, *self[2:])
+
+
+def pair_constants(e: float) -> PairConstants:
+    """The host side of E1's pair function for softening ``e``: the switch
+    radius, the series' coefficients with e folded in, and the closed
+    form's products and reciprocals, so the kernel divides by no constant
+    and multiplies by no e. With
+    e = 0 there is no near field (r_s = 0; the reciprocals are inf, unused)."""
+    a = e ** (1.0 / 3.0)
+    s3 = math.sqrt(3.0)
+
+    def rcp(x):
+        return 1.0 / x if x else math.inf
+
+    return PairConstants(
+        rs2=(RS_OVER_A * a) ** 2,
+        series=tuple((-e) ** k / (3 * k + 2) for k in range(TERMS)),
+        a=a, a2=a * a, x_scale=2.0 * rcp(a * s3), x_shift=1.0 / s3,
+        inv_log=rcp(6.0 * a * a), inv_at=rcp(a * a * s3),
+    )
 
 
 def kinetic_energy(state: ParticleState) -> torch.Tensor:
@@ -58,6 +111,29 @@ def softened_pair_integral(r: torch.Tensor, e: float) -> torch.Tensor:
     at = torch.where(x > 0, cot, math.pi / 2 - torch.atan(x))
     log_term = torch.log((r * r - a * r + a * a) / ((r + a) * (r + a)))
     return log_term / (6.0 * a * a) + at / (a * a * s3)
+
+
+def split_pair_integral(r: torch.Tensor, e: float) -> torch.Tensor:
+    """I(r) as E1 evaluates it (``csrc/energy.cu`` far_integral and
+    near_integral), in the type of ``r``: from r^2, the series in t = r^-3
+    by Horner beyond r_s, the closed form with ``pair_constants``' products
+    inside (pi/2 - arctan(x) directly: x <= 5 / sqrt3 there), the log of the
+    quotient as num times 1/den. A mirror for the CPU tests; no path on the
+    card runs it."""
+    c = pair_constants(e)
+    r2 = r * r
+    near = r2 < c.rs2
+    ri = torch.rsqrt(torch.where(near, 1.0, r2))
+    ri2 = ri * ri
+    t = ri2 * ri
+    p = torch.full_like(r, c.series[-1])
+    for d in reversed(c.series[:-1]):
+        p = p * t + d
+    rn = torch.sqrt(torch.where(near, r2, 0.0))
+    at = math.pi / 2 - torch.atan(rn * c.x_scale - c.x_shift)
+    den = (rn + c.a) * (rn + c.a)
+    log_term = torch.log((rn * (rn - c.a) + c.a2) * (1.0 / den))
+    return torch.where(near, log_term * c.inv_log + at * c.inv_at, ri2 * p)
 
 
 def check_share(share: tuple[int, int]) -> tuple[int, int]:

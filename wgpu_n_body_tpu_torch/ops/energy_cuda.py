@@ -10,19 +10,22 @@ CUDA tensor never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-import math
 from pathlib import Path
 
 import torch
 
 from wgpu_n_body_tpu_torch.ops import cuda_build
-from wgpu_n_body_tpu_torch.ops.energy import potential_energy_plain, share_range
+from wgpu_n_body_tpu_torch.ops.energy import (
+    pair_constants,
+    potential_energy_plain,
+    share_range,
+)
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "energy.cu"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # accurate sqrtf/logf/atanf, IEEE divisions
+NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the near field's accurate sqrtf/logf/atanf
 
 #: E1 launches since import (or since a caller set it to 0): one per call,
 #: whose launcher enqueues the pair kernel and the blocks' sum.
@@ -42,18 +45,28 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fp = ctypes.POINTER(ctypes.c_float)
         lib.energy_blocks.argtypes = [i, p]
         lib.energy_blocks.restype = i
         lib.energy_launch.argtypes = [
             p, p, ll, ll, ll,  # pos, mass, n, lo, hi
-            f, f, f, f, f,  # a, a sqrt3, a^2, 6 a^2, a^2 sqrt3
-            i, ctypes.c_double, i, p, p,  # softened, scale, blocks, partial, out
+            fp, i, i,  # consts, their count, softened
+            ctypes.c_double, i, p, p,  # scale, blocks, partial, out
             i, p,  # device, stream
         ]
         lib.energy_launch.restype = i
+        lib.energy_probe.argtypes = [p, ll, fp, i, i, p, i, p]
+        lib.energy_probe.restype = i
         _lib = lib
     return _lib
+
+
+def _consts(e: float, constants=None):
+    """(float array, count) of ``constants`` (default ``pair_constants(e)``)
+    for the launchers, which round each double to float32."""
+    flat = (constants or pair_constants(e)).flat()
+    return (ctypes.c_float * len(flat))(*flat), len(flat)
 
 
 def launch_blocks(device: torch.device) -> int:
@@ -67,15 +80,6 @@ def launch_blocks(device: torch.device) -> int:
             raise RuntimeError(f"energy_blocks failed: cudaError_t {err}")
         _blocks[index] = blocks.value
     return _blocks[index]
-
-
-def pair_constants(e: float) -> tuple[float, float, float, float, float]:
-    """(a, a sqrt3, a^2, 6 a^2, a^2 sqrt3) of softening ``e``, a = e^(1/3),
-    in double (ctypes rounds each to float32, as torch rounds the plain
-    version's Python scalars)."""
-    a = e ** (1.0 / 3.0)
-    s3 = math.sqrt(3.0)
-    return a, a * s3, a * a, 6.0 * a * a, a * a * s3
 
 
 def potential_energy_cuda(
@@ -116,7 +120,7 @@ def potential_energy_cuda(
     out = torch.empty(1, dtype=torch.float64, device=device)
     index, stream = cuda_build.launch_target(device)
     err = _library().energy_launch(
-        pos.data_ptr(), mass.data_ptr(), n, lo, hi, *pair_constants(params.e), int(softened),
+        pos.data_ptr(), mass.data_ptr(), n, lo, hi, *_consts(params.e), int(softened),
         -params.g, blocks, partial.data_ptr(), out.data_ptr(), index, stream,
     )
     if err != 0:
@@ -124,3 +128,20 @@ def potential_energy_cuda(
                            f"tile pairs [{lo}, {hi}), {blocks} blocks)")
     LAUNCHES += 1
     return out[0]
+
+
+def pair_probe(r: torch.Tensor, e: float, softened: bool = True, constants=None) -> torch.Tensor:
+    """I(r), or 1/r unless ``softened``, at each of the float32 distances
+    ``r`` (a CUDA tensor) as E1's tile pass evaluates a pair, with
+    ``pair_constants(e)`` or the given ``constants`` (a ``PairConstants``).
+    A check of the kernel's arithmetic; it does not count as an E1 launch."""
+    if r.device.type != "cuda" or r.dtype != torch.float32 or not r.is_contiguous():
+        raise ValueError(f"pair_probe takes a contiguous float32 CUDA tensor, got {r.dtype} "
+                         f"on {r.device}")
+    out = torch.empty_like(r)
+    index, stream = cuda_build.launch_target(r.device)
+    err = _library().energy_probe(r.data_ptr(), r.numel(), *_consts(e, constants), int(softened),
+                                  out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"energy_probe failed: cudaError_t {err}")
+    return out
