@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
     source, all started together: B1 and B2 share ``naive_forces.cu``; the
     key kernel K1 shares ``morton_keys.cu`` with CUB's radix sort; the tile
     set-up B4 · T (``tile_setup.cu``) takes its wait limit from B7's chained
-    scan, ``chained_scan.cuh``; E1 is ``energy.cu``) and,
+    scan, ``chained_scan.cuh``; B8 is ``import_forest.cu``; E1 is
+    ``energy.cu``) and,
     beside them, the host octree library from ``native/octree.cpp`` with g++;
     print each all-pairs instantiation's registers and spills;
  3. hold B1 against its plain torch version on the card: small ragged
@@ -29,7 +30,7 @@ Phases (any failure exits non-zero):
     energy lines E1 once, and the state is sane;
  6. three NaiveSim steps at N=16384, kernel vs plain version;
  7. report the tree kernels' builds (B3, B4, B4 · T, B5 with K2, K1, B6,
-    B7): registers and spills;
+    B7, B8, E1): registers and spills;
  8. B2 against its plain factored version: small ragged inputs and
     shards, N=262144 against float64 (as 3), timed beside the plain version, and
     ``NaiveSim(mxu=True)`` through ``OfflineHeadless`` at N=262144;
@@ -139,7 +140,12 @@ Phases (any failure exits non-zero):
     launches of the scan-and-emit kernel, destinations 9-11 bit-equal to
     1-3, the own octant as a foreign box overflowing); theta=0 (every row to every other octant,
     N=262144) and a planted overflow (let_cap 4096: the DFS prefix kept, the
-    flags set);
+    flags set); 16c the fused LET walk's import forest (B8,
+    ``csrc/import_forest.cu``) against its plain version, every output bit
+    for bit: the P=8 exports as the imports of one rank whose local tree is
+    the n_local=4M octant arena, at the fused walk's cap (2.5 let_caps) and
+    at half the kept rows (a planted overflow), timed by CUDA events and by
+    device time beside its bytes bound;
 17. the LET step of P=4 ranks of 4,000,000 bodies (N=16M, the four top
     Morton quadrants' slabs of the uniform scene) emulated on one card: the
     port's per-rank stages (``parallel/sharded_tree.py``: sort and build,
@@ -150,18 +156,32 @@ Phases (any failure exits non-zero):
     receivers held to ``tests/test_let.py:68``'s criteria against float64
     all-pairs;
     B3 over an import forest with self_idx past every source against the
-    plain walk, and as the group walk's fallback; 17b the exports' rows of a
+    plain walk, and as the group walk's fallback; 17c the fused walk
+    (``let_fused=True``) on the same exports: ``let_forces`` launching
+    B8, B4 · T, B4 and B3 once per rank, each tile's counts of accepted
+    nodes and members equal to the split walk's two where no walk deferred
+    it, forces within a per-row p99 of 1e-4 of the split walk's and
+    within ``tests/test_let.py:68``'s criteria against float64, B8 and the
+    fused walk timed per rank in turns with the split walk's two walks
+    (split, fused, fused, split), and rank 0's local, import and fused walks
+    by kernel (the profiler's device time); 17b the exports' rows of a
     uniform N=16M scene owned as four slices of the global Morton order (a
     reshard's ownership, with ragged ends);
 18. this slice's main path: a one-rank NCCL process group running
     ``ShardedNaiveSim`` (allgather, ring; N=262144) and ``ShardedTreeSim``
-    (replicated, let; N=4,000,000) through ``OfflineHeadless`` for 6 steps
-    in chunks of 3, each held to its single-device sim (pos rtol 1e-5, vel
-    and acc rtol 1e-4) with its launches counted (B7 and B4 · T once per LET
-    step, B4 twice) and its time per step beside the single-device one; the
-    naive runs log the total energy at their last step (E1 over the rank's
-    share, summed by ``all_reduce``), equal to the single device's at rtol
-    1e-6;
+    (replicated, let, and let with the fused walk; N=4,000,000) through
+    ``OfflineHeadless`` for 6 steps in chunks of 3, each held to its
+    single-device sim (pos rtol 1e-5, vel and acc rtol 1e-4) with its
+    launches counted (B7 and B4 · T once per LET step, B4 twice; the fused
+    walk B8 and B4 once) and its time per step beside the single-device one;
+    the naive runs log the total energy at their last step (E1 over the
+    rank's share, summed by ``all_reduce``), equal to the single device's at
+    rtol 1e-6; 18b ``cli bench`` through the group (``cli.run_rank``: each
+    point of the sweep 8192·{1,2,4,8,16} for naive and tree on the sharded
+    sims, JAX's keys, 11 steps a point counted) beside one device's, ``cli visualize`` (60 frames, the
+    last against the host render of the gathered positions) and a 40-frame
+    ``serve`` flight (each frame against the host render of the gathered
+    pre-step state) through the group, beside phase 15's;
 19. the potential energy (E1, ``csrc/energy.cu``): 19a the whole state at N=16384 of the uniform, disc and
     spherical scenes against the plain version in float64 (relative error
     <= 1e-5, the plain float32 version's beside it), each with one body made
@@ -197,7 +217,12 @@ scene's (raster and blend), its launches those of ``cli visualize`` and,
 as ``launches_blend``, those of the served frames.
 B7's bound is its bytes (the arena rows some destination visits, the
 member rows it copies and every output slot) at 3.35 TB/s; its record's
-times are phase 16's at P=8, its launches phase 18's. B4 · T's bound is its
+times are phase 16's at P=8, its launches phase 18's. B8's bound is its
+bytes (each live local arena row, read back after the build, and each kept
+import row read and written once, 44 bytes; the row that jumps to the
+imports written; each local body and kept part, 16 bytes) at 3.35 TB/s; its times are
+16c's (``ms`` by CUDA events, ``device_ms`` beside), its launches those of
+phase 18's fused LET run. B4 · T's bound is its
 bytes (the split levels read; tile_id (int64), slot (int32) and deferred per
 receiver and two int32 per tile written) at 3.35 TB/s; its times are phase 12e's at
 N=4M, its launches phase 13's. B7's ``ms`` is the CUDA-event time per call,
@@ -388,6 +413,7 @@ def pool_of(gcuda, n_chunks):
 def zero_launch_counts():
     from wgpu_n_body_tpu_torch.ops import (
         energy_cuda,
+        import_forest_cuda,
         let_export_cuda,
         morton_cuda,
         naive_cuda,
@@ -398,6 +424,7 @@ def zero_launch_counts():
     )
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
+    import_forest_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
     tree_walk_group_cuda.LAUNCHES_TILES = 0
     tree_build_cuda.LAUNCHES = tree_build_cuda.LAUNCHES_REORDER = morton_cuda.LAUNCHES = 0
@@ -412,10 +439,12 @@ def launch_counts():
     (B4 · T: one kernel each); B6 the frames' rasters
     (raster_kernel, then raster_tile_kernel), "B6 blend" their
     u8 blends; B7 the LET exports (each a memset, the scan-and-emit kernel
-    per 8 destinations and the tail kernel); E1 the potential energies
-    (the pair kernel, then the blocks' sum)."""
+    per 8 destinations and the tail kernel); B8 the fused LET walk's
+    import forests (one kernel each); E1 the potential energies (the pair
+    kernel, then the blocks' sum)."""
     from wgpu_n_body_tpu_torch.ops import (
         energy_cuda,
+        import_forest_cuda,
         let_export_cuda,
         morton_cuda,
         naive_cuda,
@@ -431,14 +460,15 @@ def launch_counts():
             "B4 tiles": tree_walk_group_cuda.LAUNCHES_TILES, "B5": tree_build_cuda.LAUNCHES,
             "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
             "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND,
-            "B7": let_export_cuda.LAUNCHES, "E1": energy_cuda.LAUNCHES}
+            "B7": let_export_cuda.LAUNCHES, "B8": import_forest_cuda.LAUNCHES,
+            "E1": energy_cuda.LAUNCHES}
 
 
 def expected_counts(**counts):
     """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
     ``B4_tiles`` for "B4 tiles", ``B6_blend`` for "B6 blend")."""
     keys = ("B1", "B2", "B3", "B4", "B4 eval", "B4 tiles", "B5", "K1", "K2", "B6", "B6 blend",
-            "B7", "E1")
+            "B7", "B8", "E1")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -2469,8 +2499,11 @@ def phase_render_kernels(dev, smi):
     return vis, [*records, fly, *heads]
 
 
-def phase_visualize_cli(dev, smi):
-    """15c: ``cli visualize --gif`` at its defaults, in-process."""
+def phase_visualize_cli(dev, smi, mesh=None, label="15c"):
+    """15c: ``cli visualize --gif`` at its defaults, in-process; with
+    ``mesh``, the body of ``cli visualize --devices K`` on this rank of it
+    (``cli.run_rank``: the sharded TreeSim, each frame the gathered
+    positions)."""
     from wgpu_n_body_tpu_torch import cli
     from wgpu_n_body_tpu_torch.runners import renderer
 
@@ -2487,27 +2520,37 @@ def phase_visualize_cli(dev, smi):
         try:
             zero_launch_counts()
             t0 = time.perf_counter()
-            text = run_cli(cli, ["visualize", "--out", out, "--gif", gif])
+            argv = ["visualize", "--out", out, "--gif", gif]
+            if mesh is None:
+                text = run_cli(cli, argv)
+            else:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    cli.run_rank(cli.parse_args(argv), mesh)
+                text = buf.getvalue()
+                print("\n".join("  | " + line for line in text.splitlines()))
             wall = time.perf_counter() - t0
             counts = launch_counts()
         finally:
             cli.render_frame_on_device = render
         frames = sorted(os.listdir(out))
         if len(frames) != 60 or not os.path.getsize(gif):
-            fail(f"15c cli visualize wrote {len(frames)} frames and a GIF of "
+            fail(f"{label} cli visualize wrote {len(frames)} frames and a GIF of "
                  f"{os.path.getsize(gif) if os.path.exists(gif) else 0} bytes")
         steps = 60  # --frames 60 x --steps-per-frame 1, the group walk's step
         if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B4_tiles=steps,
                                      B5=steps, K1=steps, K2=steps, B6=60):
-            fail(f"15c cli visualize launched {counts}")
+            fail(f"{label} cli visualize launched {counts}")
         last = os.path.join(tmp, "host.png")
         renderer.write_png(last, renderer.render_frame(seen[0].cpu().numpy()))
         with open(last, "rb") as a, open(os.path.join(out, frames[-1]), "rb") as b:
             if a.read() != b.read():
-                fail("15c the last frame differs from the host render of the same positions")
+                fail(f"{label} the last frame differs from the host render of the same positions")
         gif_bytes = os.path.getsize(gif)
     us = float(re.search(r"mean: (\S+) us/step", text).group(1))
-    print(f"15c cli visualize (TreeSim N={N_VIS} disc, 60 frames, --gif): {counts['B6']} raster "
+    where = "" if mesh is None else f" through a {mesh.size}-rank group (ShardedTreeSim)"
+    print(f"{label} cli visualize{where} (TreeSim N={N_VIS} disc, 60 frames, --gif): "
+          f"{counts['B6']} raster "
           f"launches, {counts['B4']} steps; the last frame equals the host render of its "
           f"positions; GIF {gif_bytes} bytes; {us:.1f} us/step (TreeSim N={N_VIS} disc, mean of "
           f"steps 2-60), whole command {wall:.1f} s; [{smi}]")
@@ -2541,19 +2584,24 @@ def phase_render_cli(dev, smi):
           f"disc): {counts['B6']} raster launches, every PNG equal to the host render's; [{smi}]")
 
 
-def phase_serve(dev, smi):
-    """15e: serve, through make_server(port=0) and http.client."""
+def phase_serve(dev, smi, mesh=None, label="15e"):
+    """15e: serve, through make_server(port=0) and http.client; with
+    ``mesh``, the viewer of the sharded TreeSim on this rank of it (the
+    ticks' commands broadcast, each frame the gathered positions)."""
     import http.client
     import threading
 
     from wgpu_n_body_tpu_torch.inits import disc_init
     from wgpu_n_body_tpu_torch.models import TreeSim
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.parallel import ShardedTreeSim
     from wgpu_n_body_tpu_torch.runners.online import KEYMAP, OnlineViewer, make_server
     from wgpu_n_body_tpu_torch.runners.renderer import png_bytes, render_frame
 
     params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
-    viewer = OnlineViewer(TreeSim(params, TreeParams(theta=0.75)), disc_init, device=dev)
+    sim = (TreeSim(params, TreeParams(theta=0.75)) if mesh is None
+           else ShardedTreeSim(params, mesh, TreeParams(theta=0.75)))
+    viewer = OnlineViewer(sim, disc_init, device=dev)
     viewer.warmup()
     server, done = make_server(viewer, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -2567,7 +2615,7 @@ def phase_serve(dev, smi):
 
         page = get("/")
         if b"frame.png" not in page:
-            fail("15e the page does not load frames")
+            fail(f"{label} the page does not load frames")
         # into the disc (1,551 then 6,067 footprints past the 8 x 8 box at
         # the initial state), back out, orbit, up and down
         script = ["w"] * 10 + ["s"] * 10 + ["a"] * 5 + ["d"] * 5 + ["q"] * 3 + ["e"] * 3 + [""] * 4
@@ -2575,7 +2623,7 @@ def phase_serve(dev, smi):
         steps0 = viewer.runner.step_num
         frame_ms = []
         for i, keys in enumerate(script):
-            pos = viewer.runner.state.pos.cpu().numpy()
+            pos = viewer.runner.whole_state().pos.cpu().numpy()
             cam = viewer.camera
             for k in keys.split(",") if keys else []:
                 cam = cam.moved(KEYMAP[k], viewer.speed)
@@ -2583,7 +2631,7 @@ def phase_serve(dev, smi):
             img = render_frame(pos, cam, viewer.width, viewer.height)
             want = png_bytes((np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8), level=1)
             if png != want:
-                fail(f"15e frame {i} (keys {keys!r}) differs from the host render of its "
+                fail(f"{label} frame {i} (keys {keys!r}) differs from the host render of its "
                      "pre-step state")
             frame_ms.append(json.loads(get("/stats"))["last_frame_ms"])
         checked = len(script)
@@ -2597,7 +2645,7 @@ def phase_serve(dev, smi):
         steps = viewer.runner.step_num
         get("/frame.png?focus=0")
         if json.loads(get("/stats"))["steps"] != steps:
-            fail("15e focus=0 stepped")
+            fail(f"{label} focus=0 stepped")
         frames = 2 * len(script) + 1
         counts = launch_counts()
         if counts != expected_counts(B3=steps - steps0, B4=steps - steps0,
@@ -2605,15 +2653,18 @@ def phase_serve(dev, smi):
                                      B5=steps - steps0,
                                      K1=steps - steps0, K2=steps - steps0, B6=frames,
                                      B6_blend=frames):
-            fail(f"15e {frames} frames and {steps - steps0} steps launched {counts}")
+            fail(f"{label} {frames} frames and {steps - steps0} steps launched {counts}")
         if get("/quit") != b"bye" or not done.wait(timeout=10):
-            fail("15e /quit did not set the done event")
+            fail(f"{label} /quit did not set the done event")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=10)
+        viewer.close()
     p50 = float(np.percentile(frame_ms[checked:], 50))
-    print(f"15e serve (TreeSim N={N_VIS} disc, 400x400): {checked} flythrough frames equal to "
+    where = "" if mesh is None else f" through a {mesh.size}-rank group (ShardedTreeSim)"
+    print(f"{label} serve{where} (TreeSim N={N_VIS} disc, 400x400): {checked} flythrough "
+          f"frames equal to "
           f"the host render of their pre-step state; focus=0 did not step; /quit set done; "
           f"timed flight of {len(script)} frames: frame time p50 {p50:.3f} ms (tick), fps "
           f"{stats['fps']} (server's window), {fps_client:.2f} (client, with /stats); raster "
@@ -2747,6 +2798,7 @@ def phase_let_kernel(dev, smi):
     local = octant_local(N_LOCAL, dev, tp)
     m = int(local.tree.num_nodes)
     rec = {}
+    exp8 = None
     for p in (8, 4):
         blo, bhi = octant_boxes(p, dev)
         exp, visited, err = held_export(f"octants P={p}", local, blo, bhi, 0, tp.theta, cap)
@@ -2776,6 +2828,8 @@ def phase_let_kernel(dev, smi):
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): {bound_ms / ms:.2%} by events, "
               f"{bound_ms / dev_ms:.2%} of the device time; device ms per launch "
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; [{smi}]")
+        if p == 8:
+            exp8 = exp
         del exp, visited
     # P > 8 takes one scan-and-emit launch per 8 destinations: P=12 repeats
     # octants 0-3 as destinations 8-11, self at 8 (the second launch), so
@@ -2812,9 +2866,11 @@ def phase_let_kernel(dev, smi):
           f"n_local={N_LOCAL}: bit-equal, overflow {exp_o.overflow.tolist()}")
     if int(exp0.n_rows[1]) != want0:
         fail(f"16 theta=0 exports {int(exp0.n_rows[1])} rows, not {want0}")
-    del local, small, exp0, exp_o
+    del small, exp0, exp_o
+    b8 = phase_import_forest(dev, smi, local, exp8, cap)
+    del local, exp8
     torch.cuda.empty_cache()
-    return {
+    return b8, {
         "name": "let_export",
         "route": "cuda",
         "source": "wgpu_n_body_tpu_torch/csrc/let_export.cu",
@@ -2836,6 +2892,95 @@ def phase_let_kernel(dev, smi):
     }
 
 
+def held_forest(what, tree, pos_s, mass_s, imp, cap_forest):
+    """B8 on the card against its plain version on the same inputs, every
+    output bit for bit (both copy the same rows and rewrite the same
+    integers). Returns the kernel's ``FusedForest``."""
+    from wgpu_n_body_tpu_torch.ops import import_forest_cuda
+    from wgpu_n_body_tpu_torch.parallel import let_tree
+
+    k = import_forest_cuda.assemble_fused_forest_cuda(tree, pos_s, mass_s, imp, cap_forest)
+    torch.cuda.synchronize()
+    p = let_tree.assemble_fused_forest(tree, pos_s, mass_s, imp, cap_forest)
+    pairs = [(f"forest.{f}", getattr(k.forest, f), getattr(p.forest, f))
+             for f in k.forest._fields[:7]]
+    pairs += [(f, getattr(k, f), getattr(p, f)) for f in k._fields[1:]]
+    bad = [name for name, a, b in pairs if not bits_equal(a, b)]
+    for name, a, b in pairs:
+        if name in bad:
+            where = (a != b).nonzero()[:5].tolist() if a.shape == b.shape else (a.shape, b.shape)
+            print(f"  16c {what}: {name} differs at {where}")
+    if bad:
+        fail(f"16c B8 {what}: the kernel's {bad} differ from the plain version's")
+    return k
+
+
+def phase_import_forest(dev, smi, local, imp, let_cap):
+    """16c. B8 (``csrc/import_forest.cu``) against its plain version: phase
+    16's P=8 exports taken as the imports of one rank whose local tree is the
+    n_local=4M octant arena, every output bit for bit, at the fused walk's
+    cap and at half the kept rows (a planted overflow); timed by CUDA events
+    and by device time beside its bytes bound."""
+    from wgpu_n_body_tpu_torch.ops import import_forest_cuda
+    from wgpu_n_body_tpu_torch.params import TreeParams
+    from wgpu_n_body_tpu_torch.parallel import let_tree
+
+    tp = TreeParams()
+    p = imp.skip.shape[0]
+    cap_forest = tp.let_forest_cap(p, let_cap)
+    args = (local.tree, local.pos_s, local.mass_s, imp)
+    k = held_forest("fits", *args, cap_forest)
+    total = int(torch.clamp(imp.n_rows, max=let_cap).sum())
+    kept = int(k.extents.sum())
+    if bool(k.overflow) or kept != total:
+        fail(f"16c B8 kept {kept} of {total} import rows (overflow {bool(k.overflow)})")
+    over = held_forest("planted overflow", *args, total // 2)
+    if not bool(over.overflow) or int(over.extents.sum()) != total // 2:
+        fail(f"16c B8 at cap {total // 2}: overflow {bool(over.overflow)}, kept "
+             f"{int(over.extents.sum())}")
+    del over
+
+    def call():
+        return import_forest_cuda.assemble_fused_forest_cuda(*args, cap_forest)
+
+    # the earlier phases' cached blocks fragment the allocator: outputs of
+    # ~0.2 GB then cost a cudaMalloc (and its synchronisation) per call
+    torch.cuda.empty_cache()
+    ms, _ = time_ms(call, 20)
+    dev_ms, parts, ops = device_ms(call, 20)
+    plain_ms, _ = time_ms(lambda: let_tree.assemble_fused_forest(*args, cap_forest), 3)
+    base, n = local.tree.nodes_f32.shape[0], local.pos_s.shape[0]
+    live = int(local.tree.num_nodes)
+    nbytes = import_forest_cuda.fused_forest_bytes(n, live, kept)
+    bound_ms = nbytes / HBM_PEAK * 1e3
+    print(f"16c B8 n_local={n} ({base} arena rows, {live} live) with the P={p} exports as imports "
+          f"({kept} kept rows, cap_forest {cap_forest}): bit-equal to the plain version, and at "
+          f"cap {total // 2} (overflow flagged, {total // 2} rows kept); kernel {ms:.4f} ms by CUDA "
+          f"events, {dev_ms:.4f} ms of device time in {ops} ops ({parts}); plain {plain_ms:.3f} "
+          f"ms; bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): {bound_ms / ms:.2%} by "
+          f"events, {bound_ms / dev_ms:.2%} of the device time; [{smi}]")
+    return {
+        "name": "import_forest",
+        "route": "cuda",
+        "source": "wgpu_n_body_tpu_torch/csrc/import_forest.cu",
+        "replaces": "wgpu_n_body_tpu/ops/import_octets.py:86",
+        "launches": 0,  # set from the main path's run (phase 18, the fused let run)
+        "max_abs_err": 0.0,  # every output bit-equal (held_forest)
+        "ms": ms,
+        "device_ms": dev_ms,
+        "device_share": bound_ms / dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "bound_unit": "HBM",
+        "bound_bytes": nbytes,
+        "library_ms": None,
+        "library": "none: no single PyTorch call packs import buffers behind an arena",
+        "geometry": f"octant arena n_local={n} ({base} rows, {live} live), P={p} imports of let_cap "
+                    f"{let_cap}, {kept} kept rows, cap_forest {cap_forest}",
+    }
+
+
 def stage_ms(fn):
     """(fn's result, its ms by CUDA events, one call)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2854,10 +2999,11 @@ def phase_let_emulated(dev, smi):
     import dataclasses
 
     from wgpu_n_body_tpu_torch.models import TreeSim
-    from wgpu_n_body_tpu_torch.ops import let_export_cuda, tree_walk_group_cuda
+    from wgpu_n_body_tpu_torch.ops import import_forest_cuda, let_export_cuda, tree_walk_group_cuda
     from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
     from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_ref
-    from wgpu_n_body_tpu_torch.ops.tree_walk_group import step_budget
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import source_table, step_budget
+    from wgpu_n_body_tpu_torch.utils.group_walk_study import list_counts
     from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
     from wgpu_n_body_tpu_torch.parallel import sharded_tree as st
     from wgpu_n_body_tpu_torch.parallel.let_tree import assemble_import_forest, auto_let_cap
@@ -2885,6 +3031,16 @@ def phase_let_emulated(dev, smi):
     state = ranks[0]  # for its field names
     bound = torch.stack([st.let_bound(s.pos) for s in ranks]).amax(0)  # the all_reduce
     tp_imp = dataclasses.replace(tp, walk_list_cap=tp.effective_import_list_cap())
+    fused_tp = dataclasses.replace(tp, let_fused=True)
+    cap_forest = tp.let_forest_cap(p, cap)
+
+    def import_walk(loc, imp, tiles):
+        return tree_walk_group_cuda.group_tree_forces_cuda(
+            loc.pos_new, imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
+            imp.parts[:, :, 3].reshape(-1).contiguous(), assemble_import_forest(imp),
+            loc.keys, params, tp_imp, gid_offset=p * cap,
+            tiles=tiles._replace(r_cap=step_budget(tp_imp.walk_list_cap)))
+
     for _ in range(2):  # the ranks' stages twice: the second pass is timed
         t = {k: [] for k in ("build", "export", "tiles", "local_walk", "import_walk")}
         locals_ = []
@@ -2912,11 +3068,7 @@ def phase_let_emulated(dev, smi):
                 loc.pos_new, loc.pos_s, loc.mass_s, loc.tree, loc.keys, params, tp, tiles=tiles))
             t["local_walk"].append(ms)
             imp = imps[r]
-            _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
-                loc.pos_new, imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
-                imp.parts[:, :, 3].reshape(-1).contiguous(), assemble_import_forest(imp),
-                loc.keys, params, tp_imp, gid_offset=p * cap,
-                tiles=tiles._replace(r_cap=step_budget(tp_imp.walk_list_cap))))
+            _, ms = stage_ms(lambda: import_walk(loc, imp, tiles))
             t["import_walk"].append(ms)
         # the product's let_forces for the forces: one tile set-up per rank,
         # two group walks
@@ -2927,6 +3079,37 @@ def phase_let_emulated(dev, smi):
             accs.append(acc)
             deferred += int(d)
         forces_counts = launch_counts()
+        # 17c. the fused walk on the same exports: one B8, one tile set-up,
+        # one group walk and B3 once per rank; then its stages timed in turns
+        # with the split walk's (split, fused, fused, split) on each rank
+        zero_launch_counts()
+        accs_f, deferred_f = [], 0
+        for r, loc in enumerate(locals_):
+            acc, d = st.let_forces(loc, imps[r], params, fused_tp, p, cap)
+            accs_f.append(acc)
+            deferred_f += int(d)
+        fused_counts = launch_counts()
+        turns = {k: [] for k in ("split_local", "split_import", "b8", "fused_walk")}
+        for r, loc in enumerate(locals_):
+            imp = imps[r]
+            tiles = tree_walk_group_cuda.tile_setup_cuda(loc.tree.split, n_l, tp)
+            for turn in ("split", "fused", "fused", "split"):
+                if turn == "split":
+                    _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
+                        loc.pos_new, loc.pos_s, loc.mass_s, loc.tree, loc.keys, params, tp,
+                        tiles=tiles))
+                    turns["split_local"].append(ms)
+                    _, ms = stage_ms(lambda: import_walk(loc, imp, tiles))
+                    turns["split_import"].append(ms)
+                else:
+                    f, ms = stage_ms(lambda: import_forest_cuda.assemble_fused_forest_cuda(
+                        loc.tree, loc.pos_s, loc.mass_s, imp, cap_forest))
+                    turns["b8"].append(ms)
+                    _, ms = stage_ms(lambda: tree_walk_group_cuda.group_tree_forces_cuda(
+                        loc.pos_new, f.src_pos, f.src_mass, f.forest, loc.keys, params, tp,
+                        tiles=tiles))
+                    turns["fused_walk"].append(ms)
+                    del f
     # B3 over an import forest, its receivers numbered past every source
     # (self_idx = P * let_cap + i): against the plain walk, and as the group
     # walk's fallback when every tile is deferred (no room in the list pool)
@@ -2956,6 +3139,75 @@ def phase_let_emulated(dev, smi):
         fail(f"17 {p} exports launched {counts}")
     if forces_counts != expected_counts(B4_tiles=p, B4=2 * p, B4_eval=2 * p, B3=2 * p):
         fail(f"17 let_forces of {p} ranks launched {forces_counts}")
+    if fused_counts != expected_counts(B4_tiles=p, B8=p, B4=p, B4_eval=p, B3=p):
+        fail(f"17c the fused let_forces of {p} ranks launched {fused_counts}")
+    # 17c. each receiver's accepted nodes and members: the fused walk's lists
+    # against the split walk's two (massless rows aside), where no walk
+    # deferred its tile
+    gdt = params.g * params.dt
+    compared = deferred_tiles = 0
+    for r, loc in enumerate(locals_):
+        imp = imps[r]
+        tiles = tree_walk_group_cuda.tile_setup_cuda(loc.tree.split, n_l, tp)
+        f = import_forest_cuda.assemble_fused_forest_cuda(loc.tree, loc.pos_s, loc.mass_s, imp,
+                                                         cap_forest)
+        if bool(f.overflow):
+            fail(f"17c rank {r}'s imports overflow the fused forest's {cap_forest} rows")
+        walks = [(f.forest, f.src_pos, f.src_mass, tiles, tp),
+                 (loc.tree, loc.pos_s, loc.mass_s, tiles, tp),
+                 (assemble_import_forest(imp), imp.parts[:, :, :3].reshape(-1, 3).contiguous(),
+                  imp.parts[:, :, 3].reshape(-1).contiguous(),
+                  tiles._replace(r_cap=step_budget(tp_imp.walk_list_cap)), tp_imp)]
+        per_walk = []
+        for forest, sp, sm, tl, tpx in walks:
+            lists = tree_walk_group_cuda.group_walk_lists_cuda(loc.pos_new, forest, tl, tpx)
+            nodes, members = list_counts(lists, source_table(forest, sp, sm, gdt),
+                                         forest.nodes_f32.shape[0] - 1)
+            per_walk.append((nodes, members, lists.bad | lists.pool_full))
+            del lists
+        (nf, mf, bf), (nl, ml, bl), (ni, mi, bi) = per_walk
+        live = tiles.piece_len > 0
+        ok = live & ~(bf | bl | bi)
+        deferred_tiles += int((live & ~ok).sum())
+        compared += int(ok.sum())
+        if not (torch.equal(nf[ok], (nl + ni)[ok]) and torch.equal(mf[ok], (ml + mi)[ok])):
+            bad = int((ok & ((nf != nl + ni) | (mf != ml + mi))).sum())
+            fail(f"17c rank {r}: {bad} tiles' counts of accepted nodes or members differ between "
+                 "the fused walk and the split walk")
+        del f, walks, per_walk
+    rel_fs = row_rel_err(torch.cat(accs_f), torch.cat(accs))
+    p99_fs = float(np.percentile(rel_fs, 99))
+    print(f"17c fused walk, P={p}: let_forces launched "
+          f"{({k: v for k, v in fused_counts.items() if v})}; deferred {deferred_f}; counts of "
+          f"accepted nodes and members equal to the split walk's on {compared} tiles "
+          f"({deferred_tiles} deferred by a walk); forces against the split walk's per-row p99 "
+          f"{p99_fs:.3e}, max {rel_fs.max():.3e} (gate p99 1e-4)")
+    if deferred_f or deferred_tiles or not np.isfinite(rel_fs).all() or p99_fs > 1e-4:
+        fail("17c the fused walk deferred receivers or disagrees with the split walk")
+    # 17c. rank 0's split walks and fused walk (B8 with it) by kernel, device
+    # time from the profiler: where the split walk's second walk spends
+    loc, imp = locals_[0], imps[0]
+    tiles = tree_walk_group_cuda.tile_setup_cuda(loc.tree.split, n_l, tp)
+
+    def local_walk():
+        tree_walk_group_cuda.group_tree_forces_cuda(loc.pos_new, loc.pos_s, loc.mass_s, loc.tree,
+                                                    loc.keys, params, tp, tiles=tiles)
+
+    def fused_walk():
+        f = import_forest_cuda.assemble_fused_forest_cuda(loc.tree, loc.pos_s, loc.mass_s, imp,
+                                                         cap_forest)
+        tree_walk_group_cuda.group_tree_forces_cuda(loc.pos_new, f.src_pos, f.src_mass, f.forest,
+                                                    loc.keys, params, tp, tiles=tiles)
+
+    by_kernel = {}
+    for name, fn in (("split local", local_walk), ("split import", lambda: import_walk(
+            loc, imp, tiles)), ("fused (B8 and the walk)", fused_walk)):
+        _, parts, _ = device_ms(fn, 3)
+        by_kernel[name] = parts
+        print(f"17c rank 0's {name}: {sum(parts.values()):.3f} ms of device time per call; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items(),
+                                                           key=lambda kv: -kv[1])))
+    del tiles
     # the single-device default step on the same bodies
     sim = TreeSim(params, tp)
     step = sim.make_step()
@@ -2983,6 +3235,7 @@ def phase_let_emulated(dev, smi):
     except ValueError:
         fail("17 the sampled receivers are not in the single-device step's drifted state")
     err_let = mean_rel_err(got_let, truth)
+    err_fused = mean_rel_err(torch.cat([a[i] for a, i in zip(accs_f, picks)]), truth)
     err_rep = mean_rel_err(single.acc[at], truth)
     mean = {k: sum(v) / p for k, v in t.items()}
     need = max(max(r) for r in rows)
@@ -3000,7 +3253,18 @@ def phase_let_emulated(dev, smi):
           f"[{smi}]")
     if not (err_let < 0.03 and err_rep < 0.03 and err_let < 3 * err_rep + 1e-4):
         fail("17 the emulated LET step's forces miss tests/test_let.py:68's criteria")
-    del locals_, exps, imps, accs, single, truth
+    mean_f = {k: sum(v) / len(v) for k, v in turns.items()}
+    for k, v in turns.items():
+        print(f"17c {k} (ranks 0-{p - 1}, two turns each): " + ", ".join(f"{x:.3f}" for x in v)
+              + f" ms (mean {mean_f[k]:.3f})")
+    print(f"17c per rank: split {mean_f['split_local'] + mean_f['split_import']:.3f} ms (local "
+          f"{mean_f['split_local']:.3f} + import {mean_f['split_import']:.3f}), fused "
+          f"{mean_f['b8'] + mean_f['fused_walk']:.3f} ms (B8 {mean_f['b8']:.3f} + walk "
+          f"{mean_f['fused_walk']:.3f}), the tile set-up shared; vs float64 on {LET_SAMPLE} "
+          f"receivers: fused {err_fused:.4e} (gates < 0.03 and < 3 x single + 1e-4); [{smi}]")
+    if not (err_fused < 0.03 and err_fused < 3 * err_rep + 1e-4):
+        fail("17c the fused LET step's forces miss tests/test_let.py:68's criteria")
+    del locals_, exps, imps, accs, accs_f, single, truth
     # 17b. the uniform scene (each quadrant's count as it falls) owned as a
     # reshard leaves it: slices of the global Morton order, whose ragged ends
     # poke into the neighbours' slabs; the exports' rows at four times the
@@ -3025,7 +3289,10 @@ def phase_let_emulated(dev, smi):
     return {"stages_ms": t, "single_ms": single_ms, "single_events_ms": single_ev,
             "err_let": err_let, "err_single": err_rep, "rows": rows, "deferred": deferred,
             "let_cap": cap, "auto_let_cap": auto, "morton_slice_rows": morton_rows,
-            "launches": counts["B7"]}
+            "launches": counts["B7"],
+            "fused": {"turns_ms": turns, "err": err_fused, "cap_forest": cap_forest,
+                      "vs_split_p99": p99_fs, "tiles_compared": compared,
+                      "launches": fused_counts["B8"], "device_ms_by_kernel": by_kernel}}
 
 
 def sharded_run(make, steps, chunk, dev, energy_every=0):
@@ -3044,11 +3311,15 @@ def sharded_run(make, steps, chunk, dev, energy_every=0):
     return runner, launch_counts(), runner.timer.times_s[-1] / chunk * 1e3, energies
 
 
-def phase_sharded(dev, smi):
+def phase_sharded(dev, smi, render):
     """18. This slice's main path: a one-rank NCCL group running the sharded
-    sims through the runner, each held to its single-device sim."""
+    sims through the runner, each held to its single-device sim (the LET
+    schedule with the split and with the fused walk); then ``bench``,
+    ``visualize`` and ``serve`` through the group (18b), beside the
+    single-device runs (``render``: phase 15's record)."""
     import torch.distributed as dist
 
+    from wgpu_n_body_tpu_torch import cli
     from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
     from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams, TreeParams
     from wgpu_n_body_tpu_torch.parallel import ShardedNaiveSim, ShardedTreeSim
@@ -3072,6 +3343,10 @@ def phase_sharded(dev, smi):
             # the LET step's two walks share one tile set-up
             "let": expected_counts(K1=steps, K2=steps, B5=steps, B4=2 * steps,
                                    B4_eval=2 * steps, B4_tiles=steps, B3=2 * steps, B7=steps),
+            # the fused walk: one B8 and one group walk per step
+            "let fused": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
+                                         B4_eval=steps, B4_tiles=steps, B3=steps, B7=steps,
+                                         B8=steps),
         }
         runs += [("tree", s, N_TREE, c) for s, c in tree_counts.items()]
         singles = {}
@@ -3081,7 +3356,8 @@ def phase_sharded(dev, smi):
                 make = lambda: ShardedNaiveSim(params, mesh, NaiveParams(), schedule)
                 make_single = lambda: NaiveSim(params, NaiveParams())
             else:
-                make = lambda: ShardedTreeSim(params, mesh, TreeParams(), schedule)
+                tp = TreeParams(let_fused=schedule == "let fused")
+                make = lambda: ShardedTreeSim(params, mesh, tp, schedule.split()[0])
                 make_single = lambda: TreeSim(params, TreeParams())
             every = steps if kind == "naive" else 0
             runner, counts, ms, energies = sharded_run(make, steps, chunk, dev, every)
@@ -3110,6 +3386,46 @@ def phase_sharded(dev, smi):
             del runner
         del singles
         torch.cuda.empty_cache()
+        # 18b. the other commands of --devices through the group: bench's
+        # sweep (each point on the sharded sims) beside one device's,
+        # visualize at its defaults, a serve flight
+        lines = {}
+        for what, argv in (("one device", ["bench"]), ("group", ["bench"])):
+            buf = io.StringIO()
+            zero_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                if what == "group":
+                    cli.run_rank(cli.parse_args(argv), mesh)
+                elif cli.main(argv) != 0:
+                    fail("18b cli bench returned non-zero")
+            lines[what] = [json.loads(x) for x in buf.getvalue().splitlines()
+                           if x.startswith("{")]
+        # five points a backend, each a warm-up step and 10 timed ones
+        k = 5 * 11
+        bench_counts = launch_counts()
+        if bench_counts != expected_counts(B1=k, K1=k, K2=k, B5=k, B4=k, B4_eval=k,
+                                           B4_tiles=k, B3=k):
+            fail(f"18b bench through the group launched {bench_counts}")
+        keys = {"sim", "n", "s_per_step", "bodies_per_sec", "pairs_per_sec"}
+        group, single = lines["group"], lines["one device"]
+        if (len(group) != 10 or [(r["sim"], r["n"]) for r in group]
+                != [(r["sim"], r["n"]) for r in single]
+                or not all(keys <= set(r) and r["s_per_step"] > 0 for r in group)):
+            fail(f"18b bench through the group printed {group}")
+        for a, b in zip(group, single):
+            print(f"18b bench {a['sim']} ({a['schedule']}) N={a['n']}: "
+                  f"{a['s_per_step'] * 1e6:.1f} us/step through the group, "
+                  f"{b['s_per_step'] * 1e6:.1f} on one device")
+        out["bench"] = {"group": group, "single": single, "counts": bench_counts}
+        launches, us, wall = phase_visualize_cli(dev, smi, mesh, label="18b")
+        print(f"18b visualize through the group: {us:.1f} us/step against "
+              f"{render['visualize_us_per_step']:.1f} on one device (15c)")
+        _, served = phase_serve(dev, smi, mesh, label="18b")
+        print(f"18b serve through the group: frame p50 {served['frame_ms_p50']:.3f} ms, fps "
+              f"{served['fps']} against {render['serve']['frame_ms_p50']:.3f} ms, "
+              f"{render['serve']['fps']} on one device (15e)")
+        out["visualize"] = {"us_per_step": us, "wall_s": wall, "launches": launches}
+        out["serve"] = served
     finally:
         dist.destroy_process_group()
     return out
@@ -3420,6 +3736,7 @@ def main() -> None:
         from wgpu_n_body_tpu_torch.native import build as native_build
         from wgpu_n_body_tpu_torch.ops import (
             energy_cuda,
+            import_forest_cuda,
             let_export_cuda,
             morton_cuda,
             naive_cuda,
@@ -3452,7 +3769,7 @@ def main() -> None:
         t = time.perf_counter()
         return (*native_build.build(), time.perf_counter() - t)
 
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=11)
     host_lib = pool.submit(timed_host_build)  # native/octree.cpp, by g++
     builds = {
         "B1/B2": pool.submit(naive_cuda.build),
@@ -3463,6 +3780,7 @@ def main() -> None:
         "K1": pool.submit(morton_cuda.build),  # with CUB's radix sort
         "B6": pool.submit(raster_cuda.build),
         "B7": pool.submit(let_export_cuda.build),
+        "B8": pool.submit(import_forest_cuda.build),
         "E1": pool.submit(energy_cuda.build),
     }
     pool.shutdown(wait=True)
@@ -3626,7 +3944,7 @@ def main() -> None:
 
     # -- 7. the other kernels' builds (made in phase 2) ---------------------
     tree_ptxas = {}
-    for key in ("B3", "B4", "B4 T", "B5", "K1", "B6", "B7", "E1"):
+    for key in ("B3", "B4", "B4 T", "B5", "K1", "B6", "B7", "B8", "E1"):
         lib, blog = built[key]
         print(f"7 {key} built -> {lib.name}")
         print_ptxas(blog)
@@ -3679,14 +3997,20 @@ def main() -> None:
             if m:
                 b6.setdefault(key, {})[m.group(0)] = row[col]
 
-    b7 = phase_let_kernel(dev, smi)
+    b8, b7 = phase_let_kernel(dev, smi)
     for name, regs, stores, _ in tree_ptxas["B7"]:
         short = re.search(r"let_[a-z]+_kernel", name)
         if short:
             b7.setdefault("registers", {})[short.group(0)] = regs
             b7.setdefault("spill_store_bytes", {})[short.group(0)] = stores
+    for name, regs, stores, _ in tree_ptxas["B8"]:
+        if "import_forest_kernel" in name:
+            b8["registers"], b8["spill_store_bytes"] = regs, stores
     b7["emulated_p4"] = phase_let_emulated(dev, smi)
-    sharded = phase_sharded(dev, smi)
+    sharded = phase_sharded(dev, smi, b6)
+    # the fused LET run of the one-rank group: one B8 per step
+    b8["launches"] = sharded["tree let fused"]["counts"]["B8"]
+    b8["emulated_p4"] = b7["emulated_p4"].pop("fused")
     # this slice's main path: one export per LET step of the one-rank group
     b7["launches"] = sharded["tree let"]["counts"]["B7"]
     b7["launches_emulated_p4"] = b7["emulated_p4"].pop("launches")
@@ -3703,7 +4027,7 @@ def main() -> None:
     e1["launches"], e1["launches_naive_cli"] = runs.pop("launches"), e1_naive_launches
     e1.update(runs)
 
-    kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7, e1]
+    kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7, b8, e1]
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(f"chip_smoke elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")

@@ -231,8 +231,8 @@ def test_cli_render_equals_jax_cli_render(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["visualize", "--devices", "2"],
-    ["serve", "--devices", "2"],
+    ["visualize", "--devices", "2", "--sim", "tree-host"],
+    ["serve", "--devices", "2", "--n", "99"],
     ["visualize", "--sim", "naive", "--tree-kw", "theta=0.5"],
 ])
 def test_cli_render_commands_usage_errors_exit_2(argv):

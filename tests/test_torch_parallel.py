@@ -535,7 +535,7 @@ def test_cli_rank_failure_exits_1(capfd):
 
 @pytest.mark.parametrize("extra, says", [
     (["--sim", "naive", "--schedule", "let"], "--schedule 'let' invalid for --sim naive"),
-    (["--sim", "tree", "--schedule", "let", "--fused-let-walk"], "--fused-let-walk"),
+    (["--sim", "tree", "--schedule", "replicated", "--fused-let-walk"], "--fused-let-walk"),
     (["--sim", "tree-host"], "--devices requires --sim naive|tree"),
     (["--sim", "naive", "--n", "66"], "not divisible"),
     (["--sim", "tree", "--let-cap", "100"], "--let-cap"),

@@ -215,10 +215,10 @@ def test_cli_headless_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("extra", [["--sim", "tree", "--devices", "2", "--schedule", "let",
                                     "--fused-let-walk"]])
 def test_cli_not_ported_exits_2(extra, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["headless", "--n", "64", "--device", "cpu", *extra])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """No path of the JAX CLI exits 2 as not ported any more: the fused LET
+    walk, the last that did (hence the name), runs on two CPU ranks."""
+    assert cli.main(["headless", "--n", "64", "--device", "cpu", "--steps", "1", *extra]) == 0
+    assert "not yet ported" not in capsys.readouterr().err
 
 
 def test_cli_headless_tree_defaults_on_cpu(tmp_path, capsys):

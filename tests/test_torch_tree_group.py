@@ -562,7 +562,3 @@ def test_wrapper_on_cpu_takes_plain_version_and_other_devices_raise():
         tree_walk_group_cuda.group_walk_tiles_cuda(
             ss.pos, ss.pos, ss.mass, tree, tiles, params, ttp
         )
-    with pytest.raises(NotImplementedError, match="A13"):
-        tree_walk_group_cuda.group_tree_forces_cuda(
-            ss.pos, ss.pos, ss.mass, tree, keys, params, ttp, imports=object()
-        )

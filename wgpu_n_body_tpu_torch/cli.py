@@ -10,20 +10,26 @@
 
     python -m wgpu_n_body_tpu_torch.cli headless --devices 4 --schedule let   # 4 GPUs, NCCL
     python -m wgpu_n_body_tpu_torch.cli headless --devices 4 --device cpu --n 4096   # 4 CPU ranks
+    python -m wgpu_n_body_tpu_torch.cli headless --devices 4 --schedule let --fused-let-walk
 
 Flags and defaults are the JAX package's, plus ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU). Ported: ``--sim naive``,
 ``--sim tree`` (either walk) and ``--sim tree-host`` (host C++ build,
 device walk; needs ``g++``). ``visualize``, ``serve`` and ``render``
 rasterise on ``--device`` (on the card through the kernels of
-``csrc/raster.cu``). ``headless --devices K`` with K > 1 spawns K ranks
-itself (``torch.multiprocessing``), rank r on ``cuda:r`` under NCCL, or K
-CPU processes under gloo with ``--device cpu``, and runs ``--sim naive``
+``csrc/raster.cu``). ``--devices K`` with K > 1 (``headless``,
+``visualize``, ``serve``, ``bench``) spawns K ranks itself
+(``torch.multiprocessing``), rank r on ``cuda:r`` under NCCL, or K CPU
+processes under gloo with ``--device cpu``, and runs ``--sim naive``
 (``--schedule allgather|ring``, default allgather) or ``--sim tree``
-(``replicated|let``, default replicated) sharded over them; rank 0 prints.
-Exit code 2 (naming the field): a bad ``--schedule``, ``--devices`` with
-another ``--sim`` or another command, more ranks than visible GPUs, an N
-the ranks do not divide, ``--fused-let-walk`` (not yet ported), a
+(``replicated|let``, default replicated) sharded over them. Every rank
+steps; rank 0 prints, and draws the positions gathered from every rank
+(``visualize`` writes the frames, ``serve`` runs the server and sends the
+other ranks each tick's command); ``bench`` runs its sweep on the sharded
+sims. ``--fused-let-walk`` (``--sim tree --schedule let``) selects the
+fused LET walk. Exit code 2 (naming the field): a bad ``--schedule``,
+``--devices`` with another ``--sim``, more ranks than visible GPUs, an N
+the ranks do not divide, ``--fused-let-walk`` on another schedule, a
 malformed ``--tree-kw``, a ``TreeParams`` value the chosen device does not
 take (``walk_tile`` above 512 on CUDA) or one the backend does not take
 (``leaf_bucket`` other than 1 with ``--sim tree-host``).
@@ -58,6 +64,8 @@ from wgpu_n_body_tpu_torch.utils.profiling import time_steps
 
 
 SIMS = ("naive", "tree", "tree-host")
+#: ``bench``'s default sweep (benches/benchmark.rs)
+BENCH_SIZES = [8192 * k for k in (1, 2, 4, 8, 16)]
 TREE_SIMS = ("tree", "tree-host")  # the backends --tree-kw applies to
 #: valid --schedule values per sharded backend, the first the default
 SCHEDULES = {"naive": sharded_naive.SCHEDULES, "tree": sharded_tree.SCHEDULES}
@@ -98,9 +106,10 @@ def _tree_kw(specs: list[str]) -> dict:
 
 
 def _build_sim(args) -> Simulator:
-    if args.devices > 1:
-        _usage_error(f"--devices {args.devices}: sharded runs are `headless` only "
-                     "(--sim naive|tree)")
+    """The single-device backend of the arguments; exits 2 naming the field
+    on a value it does not take."""
+    if getattr(args, "fused_let_walk", False):
+        _usage_error("--fused-let-walk applies to --devices K --sim tree --schedule let")
     if args.sim not in SIMS:
         _usage_error(f"--sim {args.sim!r}: choose one of {', '.join(SIMS)}")
     params = SimParams(particle_num=args.n, g=args.g, e=args.e, dt=args.dt)
@@ -138,9 +147,9 @@ def _sharded_sim(args, mesh: Mesh) -> Simulator:
     if schedule not in SCHEDULES[args.sim]:
         _usage_error(f"--schedule {schedule!r} invalid for --sim {args.sim}: choose from "
                      f"{', '.join(SCHEDULES[args.sim])}")
-    if args.fused_let_walk:
-        _usage_error("--fused-let-walk: the fused LET walk is not yet ported (ROADMAP B8); "
-                     "the default split walk runs without the flag")
+    if args.fused_let_walk and (args.sim, schedule) != ("tree", "let"):
+        _usage_error(f"--fused-let-walk applies to --sim tree --schedule let (got --sim "
+                     f"{args.sim} --schedule {schedule})")
     if args.let_cap is not None:
         try:
             check_let_cap(args.let_cap)
@@ -151,14 +160,16 @@ def _sharded_sim(args, mesh: Mesh) -> Simulator:
         if args.sim == "naive":
             return ShardedNaiveSim(params, mesh, NaiveParams(use_pallas=not args.no_pallas),
                                    schedule=schedule)
-        tp = TreeParams(**{"theta": args.theta, **_tree_kw(args.tree_kw)})
+        tp = TreeParams(**{"theta": args.theta, "let_fused": args.fused_let_walk,
+                           **_tree_kw(args.tree_kw)})
         return ShardedTreeSim(params, mesh, tp, schedule=schedule, let_cap=args.let_cap)
-    except (TypeError, ValueError, NotImplementedError) as exc:
+    except (TypeError, ValueError) as exc:
         _usage_error(f"--sim {args.sim} --devices {args.devices}: {exc}")
 
 
 def _rank_main(rank: int, args, port: int) -> None:
-    """One rank of ``headless --devices K``: join the group, run, leave."""
+    """One rank of ``--devices K``: join the group, run the command's body,
+    leave."""
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
         torch.cuda.set_device(rank)
@@ -166,17 +177,38 @@ def _rank_main(rank: int, args, port: int) -> None:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.devices))
     init_distributed("nccl" if cuda else "gloo", rank, args.devices, f"tcp://localhost:{port}")
     try:
-        mesh = make_mesh(device=f"cuda:{rank}" if cuda else "cpu")
-        _headless(args, _sharded_sim(args, mesh), mesh.device, root=rank == 0)
+        run_rank(args, make_mesh(device=f"cuda:{rank}" if cuda else "cpu"))
     finally:
         dist.destroy_process_group()
 
 
+def run_rank(args, mesh: Mesh) -> None:
+    """The command of ``args`` on this rank of ``mesh``, in a process group
+    the caller has joined: every rank calls it (``bench``'s sweep, or the
+    body of ``headless``, ``visualize`` or ``serve`` on the sharded sim)."""
+    if args.cmd == "bench":
+        _bench(args, mesh.device, mesh)
+    else:
+        _RUNS[args.cmd](args, _sharded_sim(args, mesh), mesh.device, root=mesh.rank == 0)
+
+
+def _bench_points(args):
+    """The arguments of each point of ``bench``'s sweep: ``args`` with its
+    ``sim`` and ``n``."""
+    for sim_name in _bench_sims(args):
+        for n in args.sizes or BENCH_SIZES:
+            a = argparse.Namespace(**vars(args))
+            a.sim, a.n = sim_name, n
+            yield a
+
+
 def _run_sharded(args) -> int:
-    """``headless --devices K``: check the arguments, then spawn K ranks."""
-    _check_tree_kw(args)
+    """``--devices K``: check the arguments, then spawn K ranks."""
+    _check_tree_kw(args, _bench_sims(args) if args.cmd == "bench" else None)
     device = torch.device(args.device)
-    _sharded_sim(args, Mesh(rank=0, size=args.devices, device=device))
+    stand_in = Mesh(rank=0, size=args.devices, device=device)
+    for a in (_bench_points(args) if args.cmd == "bench" else [args]):
+        _sharded_sim(a, stand_in)
     if device.type == "cuda":
         visible = torch.cuda.device_count()
         if args.devices > visible:
@@ -211,22 +243,33 @@ def _add_sim_flags(p, n, g, e, dt, sim, sim_list=False):
         "--tree-kw walk='\"per_particle\"' --tree-kw leaf_bucket=32",
     )
     p.add_argument("--devices", type=int, default=0,
-                   help="shard `headless` over K ranks: K GPUs (NCCL), or K CPU processes "
-                   "(gloo) with --device cpu (0/1 = one device)")
+                   help="shard over K ranks: K GPUs (NCCL), or K CPU processes (gloo) with "
+                   "--device cpu (0/1 = one device)")
     p.add_argument("--schedule", type=str, default=None,
                    help="sharded schedule: naive allgather|ring, tree replicated|let "
                    "(default: the first of each)")
     p.add_argument("--let-cap", type=int, default=None,
                    help="LET export rows per destination (default: sized from measured "
                    "need, parallel/let_tree.py::auto_let_cap)")
-    p.add_argument("--fused-let-walk", action="store_true",
-                   help="the JAX package's fused LET walk: not yet ported (exits 2)")
+    p.add_argument(
+        "--fused-let-walk", action="store_true",
+        help="fuse the LET import forest into the local walk (one group walk; "
+        "--sim tree --schedule let). The default is the SPLIT walk, which the "
+        "JAX package's whole-step A/B measured faster on a TPU despite the fused "
+        "walk winning in isolation; PERF.md has this card's split-vs-fused times",
+    )
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the state (default cuda)")
 
 
-def _check_tree_kw(args) -> None:
-    if args.tree_kw and args.sim not in TREE_SIMS:
+def _bench_sims(args) -> list[str]:
+    """``bench``'s backends: ``--sim`` split at commas; naive, then tree, by
+    default."""
+    return args.sim.split(",") if args.sim else ["naive", "tree"]
+
+
+def _check_tree_kw(args, sims: list[str] | None = None) -> None:
+    if args.tree_kw and not set(sims or [args.sim]) & set(TREE_SIMS):
         _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
 
 
@@ -258,14 +301,20 @@ def _headless(args, sim: Simulator, device: torch.device, root: bool = True) -> 
               flush=True)
 
 
-def cmd_headless(args) -> int:
-    """bin/headless.rs analog: per-step microseconds printed
-    (headless.rs:12-34); ``--devices K`` > 1 runs it sharded over K ranks."""
+def _single(args) -> int:
+    """Run the command on one device (``--devices`` 0 or 1), or spawn its
+    ranks (K > 1)."""
     if args.devices > 1:
         return _run_sharded(args)
     _check_tree_kw(args)
-    _headless(args, _build_sim(args), _device(args.device))
+    _RUNS[args.cmd](args, _build_sim(args), _device(args.device))
     return 0
+
+
+def cmd_headless(args) -> int:
+    """bin/headless.rs analog: per-step microseconds printed
+    (headless.rs:12-34); ``--devices K`` > 1 runs it sharded over K ranks."""
+    return _single(args)
 
 
 def _write_frames(out_dir: str, frames, gif: str | None, fps: float) -> None:
@@ -283,51 +332,66 @@ def _write_frames(out_dir: str, frames, gif: str | None, fps: float) -> None:
         print(f"wrote animation to {gif}")
 
 
-def cmd_visualize(args) -> int:
-    """bin/visualize.rs analog, offline: run TreeSim N=100k disc
-    (visualize.rs:26-37) and render a frame after each ``--steps-per-frame``
-    steps with the reference camera, the raster on ``--device``."""
-    _check_tree_kw(args)
-    sim = _build_sim(args)
-    runner = OfflineHeadless(
-        sim, INITS[args.init or "disc"], seed=args.seed, device=_device(args.device)
-    )
+def _visualize(args, sim: Simulator, device: torch.device, root: bool = True) -> None:
+    """The offline render of ``sim``: one device, or one rank of a sharded
+    run (every rank steps and takes its part in each frame's gather; the
+    ``root`` rank draws and writes)."""
+    runner = OfflineHeadless(sim, INITS[args.init or "disc"], seed=args.seed, device=device)
     camera = Camera(aspect=args.width / args.height)
-    os.makedirs(args.out, exist_ok=True)
 
     def frames():
         for frame in range(args.frames):
             for _ in range(args.steps_per_frame):
                 runner.step()
-            img = render_frame_on_device(
-                runner.state.pos, camera, args.width, args.height, footprint=args.footprint
-            )
-            yield f"frame_{frame:06d}.png", img
+            pos = runner.whole_state().pos
+            if root:
+                img = render_frame_on_device(
+                    pos, camera, args.width, args.height, footprint=args.footprint
+                )
+                yield f"frame_{frame:06d}.png", img
 
+    if not root:
+        for _ in frames():
+            pass
+        return
+    os.makedirs(args.out, exist_ok=True)
     _write_frames(args.out, frames(), args.gif, args.fps)
     steps = args.frames * args.steps_per_frame
     print(f"mean: {runner.timer.mean_s() * 1e6:.1f} us/step over {steps} steps")
-    return 0
 
 
-def cmd_serve(args) -> int:
-    """Interactive viewer (bin/visualize.rs + online_renderer.rs analog):
-    the browser is the window — live frames, WASD/QE camera, Esc quits,
-    focus loss pauses. Same scene defaults as ``visualize``."""
-    _check_tree_kw(args)
+def cmd_visualize(args) -> int:
+    """bin/visualize.rs analog, offline: run TreeSim N=100k disc
+    (visualize.rs:26-37) and render a frame after each ``--steps-per-frame``
+    steps with the reference camera, the raster on ``--device``."""
+    return _single(args)
+
+
+def _serve(args, sim: Simulator, device: torch.device, root: bool = True) -> None:
+    """The viewer of ``sim``: one device, or one rank of a sharded run (rank
+    0 serves, the others follow its commands)."""
     viewer = OnlineViewer(
-        _build_sim(args),
+        sim,
         INITS[args.init or "disc"],
         seed=args.seed,
         width=args.width,
         height=args.height,
         steps_per_frame=args.steps_per_frame,
         footprint=args.footprint,
-        device=_device(args.device),
+        device=device,
     )
+    if not root:
+        viewer.follow()
+        return
     stats = serve(viewer, host=args.host, port=args.port)
     print(f"served {stats['frames']} frames, {stats['steps']} steps")
-    return 0
+
+
+def cmd_serve(args) -> int:
+    """Interactive viewer (bin/visualize.rs + online_renderer.rs analog):
+    the browser is the window — live frames, WASD/QE camera, Esc quits,
+    focus loss pauses. Same scene defaults as ``visualize``."""
+    return _single(args)
 
 
 def cmd_render(args) -> int:
@@ -346,41 +410,53 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _bench(args, device: torch.device, mesh: Mesh | None = None) -> None:
+    """Every point of the sweep on one device, or on this rank's share of
+    the sharded sims (each rank times its own steps, closed by its own
+    synchronise; rank 0 prints)."""
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    for a in _bench_points(args):
+        sim = _build_sim(a) if mesh is None else _sharded_sim(a, mesh)
+        state = sim.init_state(torch.Generator().manual_seed(args.seed), uniform_init, device)
+        _, dt = time_steps(sim.make_step(), state, args.reps)
+        rec = {
+            "sim": a.sim,
+            "n": a.n,
+            "device": kind,
+            "s_per_step": dt,
+            "bodies_per_sec": a.n / dt,
+            "pairs_per_sec": a.n * a.n / dt if a.sim == "naive" else None,
+        }
+        if mesh is not None:
+            rec.update(devices=mesh.size, schedule=sim.schedule)
+        if mesh is None or mesh.rank == 0:
+            print(json.dumps(rec), flush=True)
+
+
 def cmd_bench(args) -> int:
     """benches/benchmark.rs analog: sweep N in 8192*{1,2,4,8,16}, report
     bodies/sec and pairs/sec, one JSON line per point, for each backend
     of ``--sim`` (a comma-separated list; empty, the default, means naive
-    then tree). Each point times ``reps`` steps queued back to back, closed
-    by a device synchronise. Returns 1 when no record was made."""
-    device = _device(args.device)
-    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    sizes = args.sizes or [8192 * k for k in (1, 2, 4, 8, 16)]
-    sims = args.sim.split(",") if args.sim else ["naive", "tree"]
-    if args.tree_kw and not set(sims) & set(TREE_SIMS):
-        _usage_error(f"--tree-kw applies to --sim tree|tree-host only (got --sim {args.sim})")
-    made = 0
-    for sim_name in sims:
-        for n in sizes:
-            a = argparse.Namespace(**vars(args))
-            a.sim, a.n = sim_name, n
-            sim = _build_sim(a)
-            state = sim.init_state(
-                torch.Generator().manual_seed(args.seed), uniform_init, device
-            )
-            _, dt = time_steps(sim.make_step(), state, args.reps)
-            print(json.dumps({
-                "sim": sim_name,
-                "n": n,
-                "device": kind,
-                "s_per_step": dt,
-                "bodies_per_sec": n / dt,
-                "pairs_per_sec": n * n / dt if sim_name == "naive" else None,
-            }))
-            made += 1
-    return 0 if made else 1
+    then tree); ``--devices K`` > 1 shards each point over K ranks. Each
+    point times ``reps`` steps queued back to back, closed by a device
+    synchronise. Returns 1 when the sweep has no point."""
+    args.sizes = list(args.sizes or BENCH_SIZES)
+    if not args.sizes:
+        return 1
+    if args.devices > 1:
+        return _run_sharded(args)
+    _check_tree_kw(args, _bench_sims(args))
+    _bench(args, _device(args.device))
+    return 0
 
 
-def main(argv=None) -> int:
+#: The body of each command that builds one sim, run on one device or on
+#: every rank of a sharded run: (args, sim, device, root).
+_RUNS = {"headless": _headless, "visualize": _visualize, "serve": _serve}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The arguments of a command line (``main``'s parser)."""
     parser = argparse.ArgumentParser(prog="wgpu_n_body_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -451,7 +527,11 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=10)
     p.set_defaults(fn=cmd_bench)
 
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     return args.fn(args)
 
 

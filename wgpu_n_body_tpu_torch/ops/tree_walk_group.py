@@ -183,14 +183,6 @@ def tile_setup(keys, n: int, tree_params: TreeParams, split=None) -> Tiles:
     )
 
 
-def _check_engine_args(imports) -> None:
-    if imports is not None:
-        raise NotImplementedError(
-            "group_tree_forces(imports=...) is the fused LET walk of the sharded "
-            "tree (let_fused=True), not ported yet (ROADMAP A13, B8)"
-        )
-
-
 class GroupLists(NamedTuple):
     """Phase A's output (``group_walk_lists``): each tile's interaction
     list as ids into the combined table ``[node rows | source rows]`` (node
@@ -465,7 +457,6 @@ def group_tree_forces(
     params: SimParams,
     tree_params: TreeParams,
     gid_offset: int = 0,
-    imports=None,
     tiles: Tiles | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk, plain torch.
@@ -475,12 +466,14 @@ def group_tree_forces(
     src_pos:  (N, 3) pre-step sources, the full sorted order.
     src_mass: (N,) sorted masses.
     keys:     packed Morton keys of the receivers (same slice).
-    imports:  the JAX fused-LET import forest; not ported (B8), raises.
     tiles:    the receivers' tiles where the caller has them (``tile_setup``
               of the same receivers and walk_tile; r_cap from this walk's
               walk_list_cap); by default made from ``keys``.
+
+    The JAX ``imports=`` argument (the fused LET walk's octet tables) has no
+    counterpart: the port's fused walk hands this function one forest that
+    holds the imports (``parallel/let_tree.py::assemble_fused_forest``).
     """
-    _check_engine_args(imports)
     n = pos_new.shape[0]
     if tiles is None:
         tiles = tile_setup(keys, n, tree_params)

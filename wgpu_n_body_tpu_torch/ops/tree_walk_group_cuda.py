@@ -27,7 +27,6 @@ from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
     GroupLists,
     GroupWalkStats,
     Tiles,
-    _check_engine_args,
     group_tree_forces,
     max_chunks,
     pool_chunks,
@@ -308,7 +307,6 @@ def group_tree_forces_cuda(
     params: SimParams,
     tree_params: TreeParams,
     gid_offset: int = 0,
-    imports=None,
     tiles: Tiles | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk (see
@@ -327,7 +325,6 @@ def group_tree_forces_cuda(
     the walk kernel's ``group_walk`` and the evaluation's ``group_eval``;
     ``group_fallback``), which ``utils/profile_step.py`` reads.
     """
-    _check_engine_args(imports)
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
     if tiles is not None:

@@ -15,16 +15,20 @@ test: the export is theta-valid for the whole destination. Exports are
 (P, let_cap) buffers exchanged with one ``all_to_all``; only the wire
 arrays cross (``wire_arrays``), the receiver derives the rest
 (``import_from_wire``). The receiver walks its own tree and the import
-forest (``assemble_import_forest``) separately and adds the two forces,
-or, for the per-particle walk, one concatenated forest
-(``assemble_forest``).
+forest (``assemble_import_forest``) separately and adds the two forces
+(the split walk, the default), or walks one forest: for the per-particle
+walk [local arena | P padded import buffers] (``assemble_forest``), for the
+fused group walk (``let_fused=True``) [local arena | the import rows packed
+slack-free] (``assemble_fused_forest``, on the card the kernel B8 of
+``ops/import_forest_cuda.py``).
 
 Not ported: the JAX ``_rank_join`` (a TPU workaround for slow gathers; B7
-takes its pruned skips from its own prefix sums) and ``CompactForest`` /
-``compact_import_forest``, which serve only the fused LET walk (ROADMAP).
+takes its pruned skips from its own prefix sums).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,10 +38,14 @@ from wgpu_n_body_tpu_torch.ops.let_export_cuda import export_walk_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build import FAR, NODE_F32_COLS, NO_CHILD, TreeArrays
 
 __all__ = [
+    "CompactForest",
+    "FusedForest",
     "LetExport",
     "assemble_forest",
+    "assemble_fused_forest",
     "assemble_import_forest",
     "auto_let_cap",
+    "compact_import_forest",
     "derive_first_count_parts",
     "export_walk",
     "import_from_wire",
@@ -153,6 +161,149 @@ def assemble_forest(tree_l: TreeArrays, imp: LetExport, n_local: int) -> tuple[T
         overflowed=tree_l.overflowed | imp.overflow.any(),
     )
     return forest, total
+
+
+class CompactForest(NamedTuple):
+    """``compact_import_forest``'s result (``let_tree.py:702``): the P import
+    buffers packed back to back without their slack.
+
+    forest:   skip-format TreeArrays of ``cap_forest`` rows and a sentinel;
+              ``first`` is absolute into the caller's source table
+              (``part_base`` + compacted row); skips are clamped to each
+              buffer's extent, so a walk from row 0 chains buffer to buffer.
+    roots:    (P,) int32 compacted row of each buffer's root.
+    extents:  (P,) int32 rows kept per buffer (0: an empty buffer, such as
+              the rank's own).
+    parts:    (cap_forest, 4) float32 member payloads aligned with the rows.
+    overflow: () bool: the real rows exceeded ``cap_forest``, or an export
+              was already truncated; remote forces are truncated.
+    """
+
+    forest: TreeArrays
+    roots: torch.Tensor
+    extents: torch.Tensor
+    parts: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _compact_sentinel(device) -> torch.Tensor:
+    """The compacted forest's inert row (``let_tree.py:769``): far,
+    massless, terminal, and not a single (``_sentinel_row``'s column 5 is)."""
+    col = torch.arange(NODE_F32_COLS, device=device)
+    return torch.where(col == 0, FAR, (col == NO_CHILD).float())[None, :]
+
+
+def compact_import_forest(imp: LetExport, cap_forest: int, part_base: int = 0) -> CompactForest:
+    """The (P, R) import buffers packed into one forest of ``cap_forest`` rows
+    (``let_tree.py:729``, op for op, every field equal to it).
+
+    Buffer b's rows [0, min(n_rows_b, R)) move to [off_b, off_b + n_b), the
+    exclusive prefix clamped to the cap; its skips and firsts shift by the
+    same offset after clamping to its extent, so every tail jump lands on
+    the next buffer's root. Past the cap trailing buffers are cut and
+    ``overflow`` is set: forces truncated, flagged, and no read out of
+    bounds."""
+    p, r_cap = imp.skip.shape
+    dev = imp.skip.device
+    i32 = torch.int32
+    n_b = torch.clamp(imp.n_rows, max=r_cap)
+    off_raw = torch.cumsum(n_b, 0, dtype=i32) - n_b
+    total_raw = n_b.sum(dtype=i32)
+    off = torch.clamp(off_raw, max=cap_forest)
+    n_eff = torch.minimum(n_b, cap_forest - off)
+    total = torch.clamp(total_raw, max=cap_forest)
+    overflow = (total_raw > cap_forest) | imp.overflow.any()
+
+    jj = torch.arange(cap_forest, dtype=i32, device=dev)
+    ends = off + n_eff
+    b_of = torch.clamp(torch.searchsorted(ends, jj, right=True).to(i32), 0, p - 1)
+    within = jj - off[b_of]
+    valid = jj < total
+    flat = torch.where(valid, b_of * r_cap + within, p * r_cap).long()
+
+    sent = _compact_sentinel(dev)
+    nodes_flat = torch.cat([imp.nodes.reshape(p * r_cap, NODE_F32_COLS), sent])
+    skip_flat = torch.cat([imp.skip.reshape(-1), torch.full((1,), r_cap, dtype=i32, device=dev)])
+    first_flat = torch.cat([imp.first.reshape(-1), torch.zeros(1, dtype=i32, device=dev)])
+    count_flat = torch.cat([imp.count.reshape(-1), torch.zeros(1, dtype=i32, device=dev)])
+    far_part = torch.tensor([[FAR, FAR, FAR, 0.0]], dtype=torch.float32, device=dev)
+    parts_flat = torch.cat([imp.parts.reshape(p * r_cap, 4), far_part])
+
+    nodes_c = torch.where(valid[:, None], nodes_flat[flat], sent)
+    n_eff_j, off_j = n_eff[b_of], off[b_of]
+    first_cl = torch.minimum(first_flat[flat], n_eff_j)
+    count_c = torch.minimum(torch.clamp(count_flat[flat], min=0), n_eff_j - first_cl)
+    skip_c = torch.where(valid, torch.minimum(skip_flat[flat], n_eff_j) + off_j, cap_forest)
+    first_c = torch.where(valid, first_cl + off_j, total) + part_base
+    count_c = torch.where(valid, count_c, 0)
+    forest = TreeArrays(
+        nodes_f32=torch.cat([nodes_c, sent]),
+        skip=torch.cat([skip_c.to(i32), torch.full((1,), cap_forest, dtype=i32, device=dev)]),
+        first=torch.cat([first_c.to(i32),
+                         torch.full((1,), part_base + cap_forest, dtype=i32, device=dev)]),
+        count=torch.cat([count_c.to(i32), torch.zeros(1, dtype=i32, device=dev)]),
+        num_nodes=total,
+        root_width=torch.zeros((), dtype=torch.float32, device=dev),
+        overflowed=overflow,
+    )
+    return CompactForest(forest=forest, roots=off, extents=n_eff, parts=parts_flat[flat],
+                         overflow=overflow)
+
+
+class FusedForest(NamedTuple):
+    """One rank's forest and sources for the fused LET walk
+    (``assemble_fused_forest``): one group walk covers the local tree and the
+    imports.
+
+    forest:   [local arena (base rows) | the compacted import forest's
+              cap_forest rows | its sentinel]; the local rows past num_nodes
+              are inert rows made anew (not copied) that jump to the first
+              import row, num_nodes = base + the import rows kept.
+    src_pos:  (n_local + 1 + cap_forest, 3) float32 sources [local sorted
+              bodies | one far row | the compacted parts]; src_mass the same
+              rows' masses (the far row massless).
+    roots, extents, overflow: the compaction's (``CompactForest``; roots
+              relative to the import part, which starts at forest row base).
+    """
+
+    forest: TreeArrays
+    src_pos: torch.Tensor
+    src_mass: torch.Tensor
+    roots: torch.Tensor
+    extents: torch.Tensor
+    overflow: torch.Tensor
+
+
+def assemble_fused_forest(tree_l: TreeArrays, pos_s: torch.Tensor, mass_s: torch.Tensor,
+                          imp: LetExport, cap_forest: int) -> FusedForest:
+    """The fused LET walk's forest and sources (``sharded_tree.py:132-160``,
+    the layout of ``assemble_forest`` with the import part compacted by
+    ``compact_import_forest`` at ``part_base = n_local + 1``). No arena row
+    past ``num_nodes`` is read: those rows are the build's inert rows (far,
+    massless, terminal; first the far source row ``n_local``, count 0) made
+    anew, so only the live rows are copied. The plain version of the kernel
+    B8 (``ops/import_forest_cuda.py``)."""
+    n_local = pos_s.shape[0]
+    dev = pos_s.device
+    base = tree_l.nodes_f32.shape[0]
+    cf = compact_import_forest(imp, cap_forest, part_base=n_local + 1)
+    dead = torch.arange(base, dtype=torch.int32, device=dev) >= tree_l.num_nodes
+    forest = TreeArrays(
+        nodes_f32=torch.cat([torch.where(dead[:, None], _compact_sentinel(dev), tree_l.nodes_f32),
+                             cf.forest.nodes_f32]),
+        skip=torch.cat([torch.where(dead, base, tree_l.skip), cf.forest.skip + base]),
+        first=torch.cat([torch.where(dead, n_local, tree_l.first), cf.forest.first]),
+        count=torch.cat([torch.where(dead, 0, tree_l.count), cf.forest.count]),
+        num_nodes=cf.forest.num_nodes + base,
+        root_width=tree_l.root_width,
+        overflowed=tree_l.overflowed | cf.overflow,
+    )
+    return FusedForest(
+        forest=forest,
+        src_pos=torch.cat([pos_s, torch.full((1, 3), FAR, device=dev), cf.parts[:, :3]]),
+        src_mass=torch.cat([mass_s, torch.zeros(1, device=dev), cf.parts[:, 3]]),
+        roots=cf.roots, extents=cf.extents, overflow=cf.overflow,
+    )
 
 
 def let_memory_bytes(n: int, p: int, tp, let_cap: int = 8192,

@@ -12,6 +12,7 @@ size and its device. The collectives the schedules need are
     lax.all_to_all                    all_to_all       (all_to_all_single)
     lax.ppermute                      ring_shift       (batch_isend_irecv)
     lax.pmax, lax.psum                all_reduce
+    (the viewer's command to the ranks) broadcast
 """
 
 from __future__ import annotations
@@ -139,6 +140,12 @@ def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     """``x`` reduced over the ranks, ``op`` "max" or "sum" (``lax.pmax``,
     ``lax.psum``); returns the reduced tensor (x itself, in place)."""
     dist.all_reduce(x, op={"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op])
+    return x
+
+
+def broadcast(x: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank (in place; returns it)."""
+    dist.broadcast(x, src=0)
     return x
 
 

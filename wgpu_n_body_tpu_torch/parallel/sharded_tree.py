@@ -24,6 +24,10 @@ O(N) memory per rank.
      import forest with the reduced list budget
      (``effective_import_list_cap``) and receivers numbered past every
      import source (``gid_offset = P * let_cap``); the two forces added.
+     ``let_fused=True``: the fused walk, one B4 walk with the full budget
+     over [local arena | the imports packed slack-free into
+     ``let_forest_cap`` rows] (B8, ``ops/import_forest_cuda.py``), whose
+     fixed costs (list pool, evaluation launch, B3's pass) are paid once.
      ``walk="per_particle"`` walks one concatenated forest with B3.
 O(N / P + P * let_cap) memory per rank.
 
@@ -31,8 +35,9 @@ Every step's health (``[build_overflow, let_overflow, walk_deferred,
 let_rows_max]``, ``sharded_tree.py:332-340``) stays on the device, folded
 over the steps since it was last read; ``read_health`` reduces it over the
 ranks with ``all_reduce`` once per chunk, after the synchronisation the
-chunk ends with anyway. ``let_fused=True`` (the fused walk with import
-octet tables) is not ported (ROADMAP B8) and raises.
+chunk ends with anyway. Under the fused walk the overflow flag also
+covers the packed forest: more kept import rows than ``let_forest_cap``
+(``sharded_tree.py:354-358``).
 
 Like TreeSim, every step reorders particles: globally (replicated) or
 within each rank's slice (let).
@@ -47,7 +52,7 @@ import torch
 
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
 from wgpu_n_body_tpu_torch.models.tree import check_walk_tile, validate_tree_params
-from wgpu_n_body_tpu_torch.ops import morton
+from wgpu_n_body_tpu_torch.ops import import_forest_cuda, morton
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build import FAR, TreeArrays, morton_order, reorder
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
@@ -157,12 +162,24 @@ def exchange_by_hand(exports: list[LetExport]) -> list[LetExport]:
 def let_forces(local: LetLocal, imp: LetExport, params: SimParams, tp: TreeParams,
                p: int, let_cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(acc, deferred receivers) of the local receivers from the local tree
-    and the imports (``sharded_tree.py:126-236``): the split walk for
-    ``walk="group"``, one per-particle walk of the concatenated forest
-    otherwise (deferred 0). Both walks of the split walk have the same
-    receivers, so they share one tile set-up: only their step budgets
-    differ."""
+    and the imports (``sharded_tree.py:126-236``): for ``walk="group"`` the
+    fused walk if ``let_fused``, else the split walk; one per-particle walk
+    of the concatenated forest otherwise (deferred 0). Both walks of the
+    split walk have the same receivers, so they share one tile set-up: only
+    their step budgets differ."""
     n_local = local.pos_s.shape[0]
+    if fused_walk(tp):
+        with trace_scope("let_tiles"):
+            tiles = tile_setup_cuda(local.tree.split, n_local, tp)
+        with trace_scope("let_import_forest"):
+            fused = import_forest_cuda.assemble_fused_forest_cuda(
+                local.tree, local.pos_s, local.mass_s, imp, tp.let_forest_cap(p, let_cap))
+        with trace_scope("let_fused_walk"):
+            # receiver i is source i; every import source lies past them
+            acc, stats = group_tree_forces_cuda(local.pos_new, fused.src_pos, fused.src_mass,
+                                                fused.forest, local.keys, params, tp,
+                                                tiles=tiles)
+        return acc, stats.deferred
     parts_pos = imp.parts[:, :, :3].reshape(-1, 3).contiguous()
     parts_mass = imp.parts[:, :, 3].reshape(-1).contiguous()
     if tp.walk == "group":
@@ -274,6 +291,18 @@ def _reduce(h: torch.Tensor) -> dict:
     }
 
 
+def fused_walk(tp: TreeParams) -> bool:
+    """Whether the LET step runs the fused walk (``let_fused`` with the
+    group walk)."""
+    return tp.walk == "group" and tp.let_fused
+
+
+def forest_overflow(imp: LetExport, tp: TreeParams, p: int, let_cap: int) -> torch.Tensor:
+    """() bool: the fused walk's imports keep more rows than its packed
+    forest holds (``sharded_tree.py:354-358``)."""
+    return torch.clamp(imp.n_rows, max=let_cap).sum() > tp.let_forest_cap(p, let_cap)
+
+
 def _resolve_let_cap(let_cap: int | None, params: SimParams, mesh: Mesh, tp: TreeParams) -> int:
     if let_cap is not None:
         return let_cap
@@ -295,9 +324,6 @@ class ShardedTreeSim(Simulator):
         validate_tree_params(tp)
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}")
-        if tp.let_fused:
-            raise NotImplementedError("let_fused=True (--fused-let-walk, the fused LET walk with "
-                                      "import octet tables) is not yet ported (ROADMAP B8)")
         if sim_params.particle_num % mesh.size:
             raise ValueError(f"N={sim_params.particle_num} not divisible by mesh size {mesh.size}")
         check_walk_tile(tp, sim_params.particle_num // mesh.size, mesh.device)
@@ -321,7 +347,10 @@ class ShardedTreeSim(Simulator):
             exp = let_export(local, all_gather(lo, mesh.size), all_gather(hi, mesh.size),
                              mesh.rank, tp, self.let_cap)
             imp = exchange(exp)
-            rows_max, let_ov = exp.n_rows.max(), exp.overflow.any()
+            rows_max = exp.n_rows.max()
+            let_ov = exp.overflow.any()
+            if fused_walk(tp):
+                let_ov = let_ov | forest_overflow(imp, tp, mesh.size, self.let_cap)
             if not walk:
                 return None, _health_vec(local.tree.overflowed, let_ov, torch.zeros(
                     (), dtype=torch.int32, device=rows_max.device), rows_max)
@@ -388,9 +417,11 @@ class ShardedTreeSim(Simulator):
                 "truncated; raise node_capacity_factor or leaf_bucket"
             )
         if let_ov:
+            forest_cap = self.add_params.let_forest_cap(self.mesh.size, self.let_cap)
             raise RuntimeError(
-                f"LET export overflow (let_cap {self.let_cap} rows): remote forces are "
-                "truncated; raise let_cap or re-shard (ownership drift grows exports; see "
+                f"LET export overflow (let_cap {self.let_cap} rows, fused forest cap "
+                f"{forest_cap} rows): remote forces are truncated; raise let_cap / "
+                "let_forest_factor or re-shard (ownership drift grows exports; see "
                 "parallel/resharding.py)"
             )
 
@@ -420,8 +451,11 @@ class ShardedTreeSim(Simulator):
         ``walk_list_cap`` when the walks deferred receivers (the reduced
         budget's deferral cliff, ``sharded_tree.py:646``); True when it
         changed. The next step runs at the new budget; a reshard returns to
-        the configured one."""
+        the configured one. The fused walk has no import budget of its own
+        (``sharded_tree.py:664-670``): always False there."""
         if self.schedule != "let" or diag.get("walk_deferred", 0) <= 0:
+            return False
+        if fused_walk(self.add_params):
             return False
         full = self.add_params.walk_list_cap
         if self.add_params.effective_import_list_cap() >= full:

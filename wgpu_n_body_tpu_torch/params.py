@@ -110,14 +110,20 @@ class TreeParams:
     read: ``walk_straggler_budget`` and ``walk_straggler_slots`` (the JAX
     second pass that restarts straggler tiles runs on the TPU only; its CPU
     path, which the port follows, is one pass, and a CUDA block finishes
-    its own tile with no lockstep), ``octet_capacity_factor`` (no octet
-    tables are built) and ``let_forest_factor`` (the fused LET walk's).
+    its own tile with no lockstep) and ``octet_capacity_factor`` (no octet
+    tables are built).
 
     Read by the sharded tree (``parallel/sharded_tree.py``):
       let_import_list_cap: walk_list_cap of the split LET walk's import
         forest walk (``effective_import_list_cap``).
-      let_fused: must be False: the fused LET walk (import octet tables)
-        is not ported (ROADMAP B8), and True raises.
+      let_fused: with ``walk="group"``, the fused LET walk: the imports
+        packed slack-free behind the local arena (B8), one group walk at the
+        full ``walk_list_cap`` over both. The JAX package fuses only under
+        its octet engine; the port's walk is the skip engine for both
+        values of ``walk_engine``, so it fuses under either. Default False
+        (the split walk), as in the JAX package.
+      let_forest_factor: the packed forest's rows, in let_caps
+        (``let_forest_cap``); more kept import rows flag a LET overflow.
     """
 
     theta: float = 0.75

@@ -15,6 +15,15 @@
 Everything but torch is stdlib: http.server and a zlib PNG encoder. Run it
 with ``python -m wgpu_n_body_tpu_torch.cli serve`` and open
 http://127.0.0.1:8000/.
+
+A sharded sim (``cli serve --devices K``) steps on every rank: rank 0 runs
+the server, and each of its ticks first broadcasts one small int tensor
+(steps to take, what to do) to the other ranks, which ``follow`` it: every
+rank takes its part in the gather of the positions rank 0 draws, then in
+the steps. While no frame is asked for, ``serve`` broadcasts an idle
+command every ``IDLE_EVERY_S`` seconds, so that the other ranks' wait never
+reaches the process group's timeout; on every way out of ``serve``
+(/quit, Ctrl-C, an error) ``close`` sends the quit.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from wgpu_n_body_tpu_torch.models.base import InitFn, Simulator
 from wgpu_n_body_tpu_torch.ops import raster_cuda
+from wgpu_n_body_tpu_torch.parallel.mesh import broadcast
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
 from wgpu_n_body_tpu_torch.runners.renderer import Camera, png_bytes, raster_dispatch
 from wgpu_n_body_tpu_torch.utils.profiling import sync
@@ -44,6 +54,13 @@ KEYMAP = {
 
 #: reference controller speed (online_renderer.rs:316)
 CONTROLLER_SPEED = 0.2
+
+#: What rank 0 tells the other ranks of a sharded sim: draw a frame and take
+#: the steps, end, or nothing (keeps the group alive while no frame is asked)
+FRAME, QUIT, IDLE = 0, 1, 2
+#: Seconds between idle commands while ``serve`` waits (the process group's
+#: timeout is minutes: ``parallel/mesh.py::init_distributed``)
+IDLE_EVERY_S = 10.0
 
 
 class OnlineViewer:
@@ -81,6 +98,7 @@ class OnlineViewer:
         device: str | torch.device,
     ):
         self.runner = OfflineHeadless(sim, init_fn, seed=seed, device=device)
+        self.mesh = getattr(sim, "mesh", None)
         self.device = self.runner.state.pos.device
         self.camera = Camera(aspect=width / height)
         self.width, self.height = width, height
@@ -99,15 +117,53 @@ class OnlineViewer:
             (height, width), dtype=torch.uint8, pin_memory=self.device.type == "cuda"
         )
 
+    def _command(self, steps: int = 0, op: int = FRAME) -> tuple[int, int]:
+        """(steps, op) of this tick: rank 0's, broadcast to every rank of a
+        sharded sim (the other ranks' arguments are not read)."""
+        if self.mesh is None:
+            return steps, op
+        msg = torch.tensor([steps, op], dtype=torch.int32, device=self.device)
+        steps, op = broadcast(msg).tolist()
+        return steps, op
+
+    def _advance(self, steps: int) -> None:
+        for _ in range(steps):
+            self.runner.state = self.runner._step(self.runner.state)
+        self.runner.step_num += steps
+
+    def follow(self) -> None:
+        """A sharded sim's rank other than 0: take rank 0's commands, each
+        the gather of a frame and its steps or nothing, until it sends
+        quit."""
+        while True:
+            steps, op = self._command()
+            if op == QUIT:
+                return
+            if op == FRAME:
+                self.runner.whole_state()
+                self._advance(steps)
+
+    def idle(self) -> None:
+        """Tell the other ranks of a sharded sim that rank 0 is still there
+        (rank 0, while no frame is asked for); nothing for one device."""
+        with self._lock:
+            self._command(op=IDLE)
+
+    def close(self) -> None:
+        """Send the other ranks of a sharded sim the quit (rank 0, on its
+        way out of ``serve``); nothing for one device."""
+        with self._lock:
+            self._command(op=QUIT)
+
     def warmup(self) -> None:
         """Build the raster kernels and run one frame and one step, so the
         first served frame pays for no build."""
         with self._lock:
             if self.device.type == "cuda":
                 raster_cuda.build()
+            self._command(1)
             self._enqueue_frame()
-            self.runner.state = self.runner._step(self.runner.state)
-            self.runner.step_num += 1
+            self._advance(1)
             sync(self.runner.state.pos)
 
     def apply_input(self, keys: str) -> None:
@@ -123,7 +179,7 @@ class OnlineViewer:
         current state; returns the event that marks their end (None on the
         CPU, where they have ended already)."""
         counts = raster_dispatch(
-            self.runner.state.pos, self.camera, self.width, self.height,
+            self.runner.whole_state().pos, self.camera, self.width, self.height,
             footprint=self.footprint,
         )
         img = raster_cuda.blend_u8_cuda(counts, self.alpha)
@@ -141,13 +197,12 @@ class OnlineViewer:
         with self._lock:
             tf = time.perf_counter()
             self.apply_input(keys)
+            self._command(self.steps_per_frame if focused else 0)
             frame_done = self._enqueue_frame()
             if focused:
                 sync_step = self.frames % self.step_sync_every == 0
                 t0 = time.perf_counter()
-                for _ in range(self.steps_per_frame):
-                    self.runner.state = self.runner._step(self.runner.state)
-                self.runner.step_num += self.steps_per_frame
+                self._advance(self.steps_per_frame)
                 if sync_step:  # sparse true-step-time probe for the HUD
                     sync(self.runner.state.pos)
                     self.last_step_ms = (
@@ -182,7 +237,7 @@ class OnlineViewer:
                 if self.last_frame_ms != self.last_frame_ms
                 else round(self.last_frame_ms, 3),
                 "fps": fps,
-                "n": int(self.runner.state.pos.shape[0]),
+                "n": self.runner.sim.sim_params.particle_num,
                 "eye": [round(float(v), 4) for v in self.camera.eye],
             }
 
@@ -282,17 +337,23 @@ def make_server(viewer: OnlineViewer, host: str = "127.0.0.1", port: int = 8000)
 
 
 def serve(viewer: OnlineViewer, host: str = "127.0.0.1", port: int = 8000):
-    """Blocking event loop: serve the viewer until Escape/close (/quit)."""
-    print("building the raster kernels and the first step ...")
-    viewer.warmup()
-    server, done = make_server(viewer, host, port)
-    t = threading.Thread(target=server.serve_forever, daemon=True)
-    t.start()
-    print(f"viewing at http://{host}:{server.server_address[1]}/  (Esc quits)")
+    """Blocking event loop: serve the viewer until Escape/close (/quit).
+    Every ``IDLE_EVERY_S`` seconds of the wait it sends the other ranks of a
+    sharded sim the idle command, and whatever ends the loop, the quit."""
     try:
-        done.wait()
-    except KeyboardInterrupt:
-        pass
-    server.shutdown()
-    server.server_close()
+        print("building the raster kernels and the first step ...")
+        viewer.warmup()
+        server, done = make_server(viewer, host, port)
+        t = threading.Thread(target=server.serve_forever, daemon=True)
+        t.start()
+        print(f"viewing at http://{host}:{server.server_address[1]}/  (Esc quits)")
+        try:
+            while not done.wait(IDLE_EVERY_S):
+                viewer.idle()
+        except KeyboardInterrupt:
+            pass
+        server.shutdown()
+        server.server_close()
+    finally:
+        viewer.close()
     return viewer.stats()

@@ -153,6 +153,32 @@ def pairs_of(tiles, bad, rows):
     return float((rows[:nt][fin].double() * tiles.piece_len[:nt][fin].double()).sum())
 
 
+def list_counts(lists: twg.GroupLists, table: torch.Tensor,
+                cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nodes, members), (t_cap,) int64 each: the rows of each tile's list
+    whose row of ``table`` (the walk's ``source_table``, whose node rows end
+    at the massless row ``cap``) has mass, node ids (<= cap) and member ids
+    apart. Massless rows (sentinels, unused arena rows, the hops between
+    import buffers) are not counted, so walks of the same trees count alike
+    however their forest is laid out (the fused LET walk against the split
+    one in ``chip_smoke.py`` 17c and the tests). A bad or pool_full tile
+    counts what its walk emitted before it stopped."""
+    t_cap, mc = lists.chunks.shape
+    dev = lists.chunks.device
+    live = lists.chunks >= 0
+    tile = torch.arange(t_cap, device=dev)[:, None].expand(t_cap, mc)[live]
+    chunk = torch.arange(mc, device=dev)[None, :].expand(t_cap, mc)[live]
+    row = chunk[:, None] * twg.LIST_CHUNK + torch.arange(twg.LIST_CHUNK, device=dev)
+    ids = lists.ids.view(-1, twg.LIST_CHUNK)[lists.chunks[live].long()].long()
+    ids = torch.where(row < lists.rows[tile][:, None], ids, cap)  # past the list: row cap
+    heavy = table[ids, 3] != 0
+    nodes = torch.zeros(t_cap, dtype=torch.int64, device=dev)
+    members = torch.zeros(t_cap, dtype=torch.int64, device=dev)
+    nodes.index_add_(0, tile, (heavy & (ids <= cap)).sum(1))
+    members.index_add_(0, tile, (heavy & (ids > cap)).sum(1))
+    return nodes, members
+
+
 def sass_all_loops(lib_path, name_part, sass_dir):
     """Every SASS loop (a backward branch and its target) of the kernels
     whose mangled name holds ``name_part``: (kernel, [(first address, last

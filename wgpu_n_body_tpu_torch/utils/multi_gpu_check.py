@@ -3,6 +3,8 @@
     python -m wgpu_n_body_tpu_torch.utils.multi_gpu_check --devices 4
     python -m wgpu_n_body_tpu_torch.utils.multi_gpu_check --devices 4 --device cpu \\
         --n-naive 2048 --n-tree 8192 --steps 2 --chunk 1 --sample 256   # a gloo rehearsal
+    python -m wgpu_n_body_tpu_torch.utils.multi_gpu_check --devices 4 --schedule let \\
+        --fused-let-walk   # the fused LET walk alone
 
 For each schedule, K ranks (spawned; NCCL on ``cuda:0..K-1``, or gloo with
 ``--device cpu``) run ``ShardedNaiveSim`` (allgather, ring; ``--n-naive``
@@ -18,9 +20,11 @@ of the first step sits exactly on its own source: its row is found in
 every order by the bits of its position. The naive schedules' forces are
 held to one device's (``tests/test_parallel.py``: rtol 1e-4, atol 1e-8),
 the tree schedules' to ``tests/test_let.py:68``'s criteria against float64
-all-pairs on ``--sample`` receivers. Prints the card's name and power
-limit and one JSON line per schedule; exits 1 when a check fails. Not run
-by ``chip_smoke.py``, which needs one card.
+all-pairs on ``--sample`` receivers. ``--schedule`` keeps one schedule;
+``--fused-let-walk`` runs ``let`` with the fused walk (``let_fused=True``).
+Prints the card's name and power limit and one JSON line per schedule;
+exits 1 when a check fails. Not run by ``chip_smoke.py``, which needs one
+card.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch.multiprocessing as mp
 
 from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim
 from wgpu_n_body_tpu_torch.ops import (
+    import_forest_cuda,
     let_export_cuda,
     morton_cuda,
     naive_cuda,
@@ -100,6 +105,10 @@ def _params(kind, args):
     return SimParams(particle_num=args.n_naive if kind == "naive" else args.n_tree)
 
 
+def _schedules(args):
+    return [(k, s) for k, s in SCHEDULES if args.schedule in (None, s)]
+
+
 def _rank(rank, args, port, out):
     cuda = args.device == "cuda"
     if cuda:
@@ -110,13 +119,13 @@ def _rank(rank, args, port, out):
                      timeout_s=args.timeout)
     try:
         mesh = make_mesh(device=f"cuda:{rank}" if cuda else "cpu")
-        for kind, schedule in SCHEDULES:
+        for kind, schedule in _schedules(args):
             params = _params(kind, args)
             if kind == "naive":
                 sim = ShardedNaiveSim(params, mesh, NaiveParams(), schedule)
             else:
-                sim = ShardedTreeSim(params, mesh, TreeParams(), schedule,
-                                     let_cap=args.let_cap if schedule == "let" else None)
+                sim = ShardedTreeSim(params, mesh, TreeParams(let_fused=args.fused_let_walk),
+                                     schedule, let_cap=args.let_cap if schedule == "let" else None)
             runner = OfflineHeadless(sim, domains(args.devices), seed=args.seed,
                                      device=mesh.device)
             runner.run(steps=1, log_fn=_quiet)
@@ -164,6 +173,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--chunk", type=int, default=3)
     ap.add_argument("--sample", type=int, default=4096)
+    ap.add_argument("--schedule", choices=[s for _, s in SCHEDULES], default=None,
+                    help="run this schedule alone (default: all four)")
+    ap.add_argument("--fused-let-walk", action="store_true",
+                    help="the let schedule's fused walk (let_fused=True)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timeout", type=float, default=300.0,
                     help="seconds a collective may wait before the ranks fail")
@@ -176,16 +189,18 @@ def main(argv=None) -> int:
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()
         print("\n".join(smi), flush=True)
-        with concurrent.futures.ThreadPoolExecutor(6) as pool:  # once, before the ranks
-            for f in [pool.submit(m.build) for m in (naive_cuda, tree_walk_cuda, morton_cuda,
-                                                     tree_walk_group_cuda, tree_build_cuda,
-                                                     let_export_cuda)]:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:  # once, before the ranks
+            mods = (naive_cuda, tree_walk_cuda, morton_cuda, tree_walk_group_cuda,
+                    tree_build_cuda, let_export_cuda, import_forest_cuda)
+            builds = [pool.submit(m.build) for m in mods]
+            builds.append(pool.submit(tree_walk_group_cuda.build_tiles))
+            for f in builds:
                 f.result()
     ok = True
     with tempfile.TemporaryDirectory() as out:
         mp.spawn(_rank, args=(args, free_port(), out), nprocs=args.devices, join=True)
         singles = {}
-        for kind, schedule in SCHEDULES:
+        for kind, schedule in _schedules(args):
             params = _params(kind, args)
             if kind not in singles:
                 sim = NaiveSim(params) if kind == "naive" else TreeSim(params)
@@ -201,7 +216,8 @@ def main(argv=None) -> int:
                 rec = json.load(f)
             at = rows_of(pos, single.pos)
             rec.update(schedule=schedule, sim=kind, n=params.particle_num, ranks=args.devices,
-                       single_ms=single_ms, speedup=single_ms / rec["ms"])
+                       single_ms=single_ms, speedup=single_ms / rec["ms"],
+                       fused_let_walk=args.fused_let_walk and schedule == "let")
             if kind == "naive":
                 rel = ((acc - single.acc[at]).norm(dim=1) / single.acc[at].norm(dim=1))
                 rec["max_rel_vs_single"] = float(rel.max())

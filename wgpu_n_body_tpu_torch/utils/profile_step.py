@@ -5,6 +5,7 @@ CUDA card.
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim tree-host
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --sim naive
     python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --schedule let
+    python -m wgpu_n_body_tpu_torch.utils.profile_step [N] --schedule let --fused-let-walk
 
 N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
 defaults (uniform scene, θ=0.75); with ``--sim naive`` to 262144, the naive
@@ -39,7 +40,8 @@ host time are also printed per stage: the sort (``morton_keys``,
 ``morton_sort``), ``tree_build``, B7 (``let_export``), the exchange
 (``let_exchange``), the tile set-up both walks share (``let_tiles``), the
 walks (``let_local_walk``, ``let_import_walk``; ``theta_walk`` under
-``replicated``).
+``replicated``); with ``--fused-let-walk`` B8 (``let_import_forest``) and the
+one walk (``let_fused_walk``).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -70,7 +72,8 @@ HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
 #: the stages of a sharded tree step, which do not nest
 STAGES = ("morton_keys", "morton_sort", "tree_build", "let_export", "let_exchange",
-          "let_tiles", "let_local_walk", "let_import_walk", "theta_walk")
+          "let_tiles", "let_local_walk", "let_import_walk", "let_import_forest",
+          "let_fused_walk", "theta_walk")
 
 
 def _smi(query: str) -> str:
@@ -174,6 +177,8 @@ def main(argv=None) -> int:
     parser.add_argument("--walk", choices=["group", "per_particle"], default="group")
     parser.add_argument("--schedule", choices=["replicated", "let"], default=None,
                         help="ShardedTreeSim's step in a one-rank NCCL group")
+    parser.add_argument("--fused-let-walk", action="store_true",
+                        help="with --schedule let: the fused LET walk (let_fused=True)")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("profile_step needs a CUDA device", file=sys.stderr)
@@ -190,10 +195,10 @@ def main(argv=None) -> int:
         print(f"TreeSimHost N={n} theta={tp.theta} leaf_bucket=1")
         sim = TreeSimHost(params, tp)
     elif args.schedule:
-        tp = TreeParams(walk=args.walk)
+        tp = TreeParams(walk=args.walk, let_fused=args.fused_let_walk)
         init_distributed("nccl", 0, 1, f"tcp://localhost:{free_port()}")
         print(f"ShardedTreeSim N={n} theta={tp.theta} walk={tp.walk} schedule={args.schedule}, "
-              "one NCCL rank")
+              f"fused LET walk {tp.let_fused}, one NCCL rank")
         sim = ShardedTreeSim(params, make_mesh(), tp, args.schedule)
     else:
         tp = TreeParams(walk=args.walk)
@@ -247,7 +252,8 @@ def main(argv=None) -> int:
             f"{k} {stages.get(k, 0.0) / STEPS / 1e3:.3f} / {host.get(k, 0.0) / STEPS / 1e3:.3f}"
             for k in STAGES + ("leapfrog",) if k in stages or k in host)
             + f"; the step's host time {host.get('sharded_tree_step', 0.0) / STEPS / 1e3:.3f}")
-        for within in ("let_import_walk", "group_fallback", "let_tiles"):
+        for within in ("let_import_walk", "let_import_forest", "group_fallback", "let_tiles",
+                       "sharded_tree_step"):
             ops = host_ops(events, within)
             print(f"  host ms per step directly inside {within}, the longest: " + ", ".join(
                 f"{name} {us / STEPS / 1e3:.3f}" for name, us in ops[:10]))
