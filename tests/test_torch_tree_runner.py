@@ -202,7 +202,7 @@ def test_profile_step_attributes_kernels_to_ranges():
         {"cat": "cpu_op", "name": "aten::add", "ts": 0, "dur": 500},
     ]
     by_range, by_kernel, busy, span = kernel_breakdown(trace)
-    assert by_range == {"tree_build": 50, "theta_walk": 40, "leapfrog": 5}
+    assert by_range == {"tree_build": 50, "theta_walk": 40, "(no range)": 5}
     assert by_kernel[("theta_walk", "tree_walk_kernel")] == 40
     assert busy == 40 + 40 + 5 and span == 195
     assert main([]) == 1  # no CUDA device here: refuses instead of timing the CPU
@@ -225,11 +225,12 @@ def test_profile_step_counts_a_kernel_to_its_innermost_range():
         {"cat": "kernel", "name": "group_eval_kernel", "ts": 24, "dur": 45},
         {"cat": "kernel", "name": "tree_walk_kernel", "ts": 72, "dur": 20},
         {"cat": "kernel", "name": "where", "ts": 95, "dur": 3},
+        {"cat": "gpu_user_annotation", "name": "leapfrog.kick", "ts": 118, "dur": 8},
         {"cat": "kernel", "name": "kick", "ts": 120, "dur": 4},
     ]
     by_range, by_kernel, busy, span = kernel_breakdown(trace)
     assert by_range == {"group_tiles": 5, "group_walk": 9, "group_eval": 46,
-                        "group_fallback": 23, "leapfrog": 4}
+                        "group_fallback": 23, "leapfrog.kick": 4}
     assert by_kernel[("group_walk", "group_lists_kernel")] == 9
     assert by_kernel[("group_eval", "group_eval_kernel")] == 45
     assert busy == 87 and span == 122

@@ -22,6 +22,15 @@ walk's skip-engine semantics (ROADMAP C).
 Every build's overflow flag is kept on the device, OR-ed over the steps
 since the last check, so the runner can raise on an overflow in any batch
 with one host read where it already synchronises (``raise_on_overflow``).
+
+Under ``torch.profiler`` a step shows the host ranges ``tree_step`` and,
+inside it in order, ``morton_keys``, ``morton_sort``, ``tree_build``,
+``leapfrog.drift``, ``theta_walk`` (the group walk's own ranges inside),
+``counters`` and ``leapfrog.kick``. In ``counters``, outside the walk's
+range, the group walk adds its receiver-row pairs, receivers and deferred
+receivers to the counters ``walk.pairs``, ``walk.receivers`` and
+``walk.deferred`` (``utils/profiling.py::count``). With no profiler a step
+opens no range and counts nothing.
 """
 
 from __future__ import annotations
@@ -33,9 +42,10 @@ from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupLists, GroupWalkStats, Tiles
 from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
-from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
+from wgpu_n_body_tpu_torch.utils.profiling import count, trace_scope, tracing
 
 
 def validate_tree_params(tp: TreeParams) -> None:
@@ -65,6 +75,24 @@ def check_walk_tile(tp: TreeParams, n_receivers: int, device: torch.device) -> N
         )
 
 
+def _walk_counts(stats: GroupWalkStats) -> tuple[torch.Tensor, torch.Tensor]:
+    """(walk.pairs, walk.deferred) of one group walk, () int64 each."""
+    return stats.pairs, stats.deferred.to(torch.int64)
+
+
+def _load_counter_kernels(device: torch.device) -> None:
+    """Run the walk counters' operations once, on a walk of one receiver.
+    A step launches them only under a profiler, and CUDA loads a kernel's
+    module at its first launch (13.5 ms for the first integer reduction
+    on an H100), which would stall the first traced step."""
+    one = torch.ones(1, dtype=torch.int32, device=device)
+    no = torch.zeros(1, dtype=torch.bool, device=device)
+    stats = GroupWalkStats(no, no, Tiles(one, one, one, one, no, 1, 1, 1),
+                           GroupLists(one, one, no, one, one, no))
+    pairs, deferred = _walk_counts(stats)
+    torch.add(pairs, deferred)  # a running total's add (``utils/profiling.py::count``)
+
+
 class TreeSim(Simulator):
     """Barnes-Hut O(N log N) backend, device-resident."""
 
@@ -82,13 +110,16 @@ class TreeSim(Simulator):
         check_walk_tile(self.add_params, self.sim_params.particle_num, device)
 
     def init_state(self, generator, init_fn, device) -> ParticleState:
-        self.check_device(torch.device(device))
+        device = torch.device(device)
+        self.check_device(device)
+        if device.type == "cuda" and self.add_params.walk == "group":
+            _load_counter_kernels(device)
         return super().init_state(generator, init_fn, device)
 
     def _sort_build(self, state: ParticleState):
-        """(sorted state, arena, sorted packed keys): the key kernel in the
-        profiler range ``morton_keys``, the sort in ``morton_sort``, the
-        reorder and the build in ``tree_build``."""
+        """(sorted state, arena, sorted packed keys). Under a profiler the
+        key kernel shows in the range ``morton_keys``, the sort in
+        ``morton_sort``, the reorder and the build in ``tree_build``."""
         tp = self.add_params
         perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
         with trace_scope("tree_build"):
@@ -101,11 +132,18 @@ class TreeSim(Simulator):
         def force_of(tree, keys):
             def force(pos_new, pos_old, mass):
                 with trace_scope("theta_walk"):
-                    if tp.walk == "group":
-                        return group_tree_forces_cuda(
-                            pos_new, pos_old, mass, tree, keys, params, tp
-                        )[0]
-                    return tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
+                    if tp.walk != "group":
+                        return tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
+                    acc, stats = group_tree_forces_cuda(
+                        pos_new, pos_old, mass, tree, keys, params, tp
+                    )
+                if tracing():
+                    with trace_scope("counters"):
+                        pairs, deferred = _walk_counts(stats)
+                        count("walk.pairs", pairs)
+                        count("walk.receivers", pos_new.shape[0])
+                        count("walk.deferred", deferred)
+                return acc
 
             return force
 

@@ -6,9 +6,11 @@ stream and with no host read:
 
     torch.aminmax        the one reduction the bound needs (no |pos| array)
     morton_keys_kernel   packed keys and the index 0..n-1, and the bound
-                         (profiler range ``morton_keys``)
     CUB SortPairs        the stable sort of (key, index) on the key's
-                         3*depth bits (profiler range ``morton_sort``)
+                         3*depth bits
+
+the first two in the profiler range ``morton_keys`` and the sort in
+``morton_sort``, recorded while a profiler is active.
 
 For CPU tensors it returns the plain version (``morton.packed_keys`` and
 ``torch.sort(stable=True)``); every other device raises. A CUDA tensor never
@@ -151,8 +153,8 @@ def morton_order_cuda(pos: torch.Tensor, depth: int, bound: torch.Tensor | None 
     """Morton ordering of (n, 3) float32 positions: (perm (n,) int32, bound
     () float32, sorted packed keys (n,) int64), equal to
     ``tree_build.morton_order``'s (against ``bound`` where it is given, see
-    ``morton_keys_cuda``). The key kernel runs in the profiler range
-    ``morton_keys``, the sort in ``morton_sort``."""
+    ``morton_keys_cuda``). Under a profiler the key kernel shows in the
+    range ``morton_keys``, the sort in ``morton_sort``."""
     with trace_scope("morton_keys"):
         keys, index, bound = morton_keys_cuda(pos, depth, bound)
     with trace_scope("morton_sort"):

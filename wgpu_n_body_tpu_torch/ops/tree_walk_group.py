@@ -58,11 +58,6 @@ from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 
 
-class GroupWalkStats(NamedTuple):
-    deferred: torch.Tensor  # () int32: receivers sent down the fallback walk
-    pool_deferred: torch.Tensor  # () int32: of those, deferred for want of list pool room
-
-
 class Tiles(NamedTuple):
     """The tile partition of the receivers (``tile_setup``).
 
@@ -206,6 +201,40 @@ class GroupLists(NamedTuple):
     steps: torch.Tensor
     rows: torch.Tensor
     pool_full: torch.Tensor
+
+
+class GroupWalkStats(NamedTuple):
+    """What one group walk can report, kept as masks and its tiles and
+    lists: each count is reduced on the device when it is read, so a step
+    that reads none launches none.
+
+    deferred_mask: (n,) bool receivers sent down the fallback walk.
+    pool_mask:     (n,) bool of those, the ones deferred for want of list
+                   pool room.
+    """
+
+    deferred_mask: torch.Tensor
+    pool_mask: torch.Tensor
+    tiles: Tiles
+    lists: GroupLists
+
+    @property
+    def deferred(self) -> torch.Tensor:
+        """() int32: receivers sent down the fallback walk."""
+        return self.deferred_mask.sum(dtype=torch.int32)
+
+    @property
+    def pool_deferred(self) -> torch.Tensor:
+        """() int32: of those, deferred for want of list pool room."""
+        return self.pool_mask.sum(dtype=torch.int32)
+
+    @property
+    def pairs(self) -> torch.Tensor:
+        """() int64: receiver-row pairs the evaluation computed: over the
+        tiles neither bad nor pool_full, list rows times the tile's
+        receivers."""
+        done = ~(self.lists.bad | self.lists.pool_full)
+        return (self.lists.rows.to(torch.int64) * self.tiles.piece_len * done).sum()
 
 
 #: Rows of one pool chunk: the unit a walk takes from the pool, and one
@@ -488,6 +517,4 @@ def group_tree_forces(
             pos_new[idx], src_pos, src_mass, tree, params, tree_params,
             self_idx=gid_offset + idx,
         )
-    return acc, GroupWalkStats(
-        deferred=deferred.sum().to(torch.int32), pool_deferred=full.sum().to(torch.int32)
-    )
+    return acc, GroupWalkStats(deferred, full, tiles, lists)

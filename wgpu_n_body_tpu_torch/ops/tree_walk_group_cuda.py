@@ -320,10 +320,12 @@ def group_tree_forces_cuda(
     receivers are not the tree's bodies, needs them. Otherwise, on the card,
     the tile kernels make them from the split levels the build kernels
     wrote (``tree.split``) at the receivers' sorted indices [gid_offset,
-    gid_offset + B); the plain version derives them from ``keys``. The
-    stages carry profiler ranges (``group_tiles``; ``group_kernel`` around
-    the walk kernel's ``group_walk`` and the evaluation's ``group_eval``;
-    ``group_fallback``), which ``utils/profile_step.py`` reads.
+    gid_offset + B); the plain version derives them from ``keys``. Under a
+    profiler the stages show as ranges (``group_tiles``; ``group_kernel``
+    around the walk kernel's ``group_walk`` and the evaluation's
+    ``group_eval``; ``group_fallback``), which ``utils/profile_step.py``
+    reads. ``stats`` holds the deferred masks, the tiles and the lists:
+    its counts are reduced only when a caller reads them.
     """
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
@@ -372,6 +374,4 @@ def group_tree_forces_cuda(
             self_idx=self_idx, table=table,
         )
         acc = torch.where(deferred[:, None], fallback, acc)
-    return acc, GroupWalkStats(
-        deferred=deferred.sum(dtype=torch.int32), pool_deferred=full.sum(dtype=torch.int32)
-    )
+    return acc, GroupWalkStats(deferred, full, tiles, lists)

@@ -28,6 +28,12 @@ from every rank, and rank 0 alone writes and logs them. The potential
 energy's O(N^2) pairs are split: every rank evaluates its share of them on
 the gathered state and one ``all_reduce`` sums the float64 parts (the JAX
 runner evaluates ``total_energy`` on the global sharded array).
+
+Under ``torch.profiler`` each batch shows three host ranges, in order:
+``runner.enqueue`` (the calls of the step function: every launch of the
+batch queued), ``runner.sync`` (``StepTimer``: the host waiting for the
+device) and ``runner.health`` (``_check_batch``: the reshard due, the health
+read and its one flag read).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from wgpu_n_body_tpu_torch.params import ParticleState
 from wgpu_n_body_tpu_torch.parallel.mesh import all_reduce, gather_state
 from wgpu_n_body_tpu_torch.runners.trajectory import TrajectoryWriter
 from wgpu_n_body_tpu_torch.utils.checkpoint import save_checkpoint
-from wgpu_n_body_tpu_torch.utils.profiling import StepTimer
+from wgpu_n_body_tpu_torch.utils.profiling import StepTimer, trace_scope
 
 
 class OfflineHeadless:
@@ -92,28 +98,32 @@ class OfflineHeadless:
     def _check_batch(self, k: int, reshard_every: int, log_fn) -> None:
         """The end of a batch of ``k`` steps: the reshard due now, then the
         overflow flags of every step of the batch (and, for the LET
-        schedule, the import budget's escalation)."""
-        resharded = bool(reshard_every and hasattr(self.sim, "reshard")
-                         and self.step_num % reshard_every < k)
-        if resharded:
-            self.state = self.sim.reshard(self.state)
-        if hasattr(self.sim, "read_health"):
-            diag = self.last_health = self.sim.read_health()
-            if resharded and (diag["overflowed"] or diag["let_overflowed"]):
-                log_fn(f"step {self.step_num}: overflow flagged in the batch before the "
-                       f"reshard ({diag}); continuing, a recurrence after it raises")
-            else:
-                self.sim.raise_on_health(diag)
-            if self.sim.maybe_escalate_import_budget(diag):
-                log_fn(f"step {self.step_num}: walk deferral detected; escalating LET import "
-                       f"list budget to {self.sim.add_params.effective_import_list_cap()}")
-        elif hasattr(self.sim, "raise_on_overflow"):
-            self.sim.raise_on_overflow()
+        schedule, the import budget's escalation), in the profiler range
+        ``runner.health``."""
+        with trace_scope("runner.health"):
+            resharded = bool(reshard_every and hasattr(self.sim, "reshard")
+                             and self.step_num % reshard_every < k)
+            if resharded:
+                self.state = self.sim.reshard(self.state)
+            if hasattr(self.sim, "read_health"):
+                diag = self.last_health = self.sim.read_health()
+                if resharded and (diag["overflowed"] or diag["let_overflowed"]):
+                    log_fn(f"step {self.step_num}: overflow flagged in the batch before the "
+                           f"reshard ({diag}); continuing, a recurrence after it raises")
+                else:
+                    self.sim.raise_on_health(diag)
+                if self.sim.maybe_escalate_import_budget(diag):
+                    log_fn(f"step {self.step_num}: walk deferral detected; escalating LET "
+                           "import list budget to "
+                           f"{self.sim.add_params.effective_import_list_cap()}")
+            elif hasattr(self.sim, "raise_on_overflow"):
+                self.sim.raise_on_overflow()
 
     def step(self) -> float:
         """One synchronised step; returns wall seconds (incl. launch)."""
         with self.timer.step() as box:
-            self.state = self._step(self.state)
+            with trace_scope("runner.enqueue"):
+                self.state = self._step(self.state)
             box["sync"] = self.state.pos
         self.step_num += 1
         self._check_batch(1, 0, print)
@@ -167,8 +177,9 @@ class OfflineHeadless:
         while done < steps:
             k = min(chunk, steps - done)
             with self.timer.step() as box:
-                for _ in range(k):
-                    self.state = self._step(self.state)
+                with trace_scope("runner.enqueue"):
+                    for _ in range(k):
+                        self.state = self._step(self.state)
                 box["sync"] = self.state.pos
             self.step_num += k
             done += k

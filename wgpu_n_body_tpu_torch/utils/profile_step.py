@@ -15,12 +15,14 @@ simulator's own step. Prints:
   clock and power;
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
   the GPU timeline, each kernel attributed to the innermost range that holds
-  it (``morton_keys``, ``morton_sort``, ``tree_build`` and ``theta_walk``
-  from ``TreeSim``;
+  it (``morton_keys``, ``morton_sort``, ``tree_build``, ``theta_walk`` and
+  ``counters`` from ``TreeSim``, ``leapfrog.drift`` and ``leapfrog.kick``
+  from the leapfrog;
   inside the group walk ``group_tiles``, ``group_kernel`` (B4: the walk
   kernel in ``group_walk``, the source table and the evaluation kernel in
   ``group_eval``) and ``group_fallback`` (B3 over the deferred mask, and
-  the merge) from ``group_tree_forces_cuda``; the rest is the leapfrog),
+  the merge) from ``group_tree_forces_cuda``; a kernel in none of them
+  counts to ``(no range)``),
   busy time as the union of kernel intervals, the idle share of the
   window, the top kernels and every kernel of ``morton_keys``,
   ``morton_sort`` and ``tree_build`` (the key kernel, CUB's sort passes,
@@ -66,8 +68,9 @@ from wgpu_n_body_tpu_torch.parallel import ShardedTreeSim
 from wgpu_n_body_tpu_torch.parallel.mesh import free_port, init_distributed, make_mesh
 
 STEPS = 3  # in the profiler window
-RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "theta_walk", "group_tiles",
-          "group_kernel", "group_walk", "group_eval", "group_fallback")  # outer to inner
+RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "leapfrog.drift",
+          "theta_walk", "counters", "leapfrog.kick", "group_tiles", "group_kernel", "group_walk",
+          "group_eval", "group_fallback")  # outer to inner
 HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host_copy_up",
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
 #: the stages of a sharded tree step, which do not nest
@@ -94,7 +97,7 @@ def kernel_breakdown(trace_events, names=RANGES):
     for k in kernels:
         inside = [r for r in ranges if r["ts"] <= k["ts"] < r["ts"] + r["dur"]]
         where = (min(inside, key=lambda r: (r["dur"], -names.index(r["name"])))["name"]
-                 if inside else "leapfrog")
+                 if inside else "(no range)")
         by_range[where] = by_range.get(where, 0.0) + k["dur"]
         key = (where, k["name"][:60])
         by_kernel[key] = by_kernel.get(key, 0.0) + k["dur"]
@@ -250,7 +253,7 @@ def main(argv=None) -> int:
         host = host_ranges(events, STAGES + ("sharded_tree_step",))
         print("  per stage, kernel / host ms per step: " + ", ".join(
             f"{k} {stages.get(k, 0.0) / STEPS / 1e3:.3f} / {host.get(k, 0.0) / STEPS / 1e3:.3f}"
-            for k in STAGES + ("leapfrog",) if k in stages or k in host)
+            for k in STAGES + ("(no range)",) if k in stages or k in host)
             + f"; the step's host time {host.get('sharded_tree_step', 0.0) / STEPS / 1e3:.3f}")
         for within in ("let_import_walk", "let_import_forest", "group_fallback", "let_tiles",
                        "sharded_tree_step"):
