@@ -69,7 +69,10 @@ Phases (any failure exits non-zero):
     ids, an evaluation kernel summing them) against their plain versions on
     every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
     ids, deferred tiles, step and row counts equal; forces on the same
-    lists within a per-row p99 of 1e-5), against float64 all-pairs and B3
+    lists within a per-row p99 of 1e-5), hand-made partial tiles of 1 to 511
+    receivers on one full tile's list, each row bit-equal to the full
+    tile's and the kernel's pair counter equal to rows x 32 x live blocks
+    (12h, walk_tile 512/256/128), against float64 all-pairs and B3
     on 2048 receivers of the N=4M tree, at theta=0 against B1, with every
     tile deferred against B3, with a list pool too small (12d), the full
     N=4M walk timed stage by stage beside B3 and its SFU bound (12e), and
@@ -1550,6 +1553,7 @@ def phase_b4(dev, smi, mhz):
     from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
     from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
         LIST_CHUNK,
+        Tiles,
         group_eval_lists,
         group_walk_lists,
         list_ids,
@@ -1627,6 +1631,70 @@ def phase_b4(dev, smi, mhz):
                 ms_plain = ms_p + ms_pe
             del tiles, k_acc, k_eval, p_acc, k_lists, p_lists, k_ids, p_ids
         del ss, tree, keys, pos_new
+    torch.cuda.empty_cache()
+
+    # -- 12h. partial tiles: a receiver's sum does not depend on its tile ------
+    # The evaluation kernel sums a list only for a tile's live 32-receiver
+    # blocks, block k on warp k % 4. Hand-made tiles of many lengths, each
+    # length at four tile indices and four offsets into the full tile, all
+    # share one full tile's list; their receivers are slices of that tile's.
+    # Every row must equal bit for bit the row the full tile gives the same
+    # receiver (the parent's shape: every block summed), and the kernel's
+    # counter rows x 32 x live blocks. The receivers lie past the sources
+    # (gid_offset n), so no self pair is masked in either launch.
+    ss, tree, keys, pos_new = sorted_scene(disc_init(torch.Generator().manual_seed(0), params, dev),
+                                           params, TreeParams())
+    tp = TreeParams(walk_tile=512)
+    tiles = gcuda.tile_setup_cuda(tree.split, N_MAIN, tp)
+    lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
+    fine = torch.nonzero((tiles.piece_len == 512) & ~lists.bad & ~lists.pool_full).flatten()
+    t0 = int(fine[fine.numel() // 2])
+    p0, rows0 = int(tiles.piece_start[t0]), int(lists.rows[t0])
+    for g_tile, lens in ((512, (1, 31, 32, 33, 97, 200, 511, 512)), (256, (1, 31, 33, 129, 255, 256)),
+                         (128, (1, 31, 33, 127, 128))):
+        base = pos_new[p0:p0 + g_tile].contiguous()
+        spec = [(ln, (g_tile - ln) * r // 3) for ln in lens for r in range(4)]  # (length, offset)
+        recv = torch.cat([base[o:o + ln] for ln, o in spec])
+        n_r, t_made = recv.shape[0], len(spec)
+
+        def made(lengths):
+            lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            start = (torch.cumsum(lengths, 0) - lengths).to(torch.int32)
+            tile_id = torch.repeat_interleave(torch.arange(len(lengths), device=dev),
+                                              lengths.long())
+            slot = torch.cat([torch.arange(int(x), dtype=torch.int32, device=dev)
+                              for x in lengths])
+            no = torch.zeros(len(lengths), dtype=torch.bool, device=dev)
+            m = Tiles(tile_id, slot, start, lengths, torch.zeros(int(lengths.sum()),
+                      dtype=torch.bool, device=dev), len(lengths), g_tile, tiles.r_cap)
+            return m, lists._replace(chunks=lists.chunks[t0].repeat(len(lengths), 1),
+                                     rows=lists.rows[t0].repeat(len(lengths)), bad=no,
+                                     pool_full=no)
+
+        m_tiles, m_lists = made([ln for ln, _ in spec])
+        f_tiles, f_lists = made([g_tile])
+        counted = torch.zeros((), dtype=torch.int64, device=dev)
+        got = gcuda.group_eval_lists_cuda(recv, ss.pos, ss.mass, tree, m_tiles, m_lists, params,
+                                          N_MAIN, pairs=counted)
+        full = gcuda.group_eval_lists_cuda(base, ss.pos, ss.mass, tree, f_tiles, f_lists, params,
+                                           N_MAIN)
+        want = torch.cat([full[o:o + ln] for ln, o in spec])
+        plain = group_eval_lists(recv, ss.pos, ss.mass, tree, m_tiles, m_lists, params, N_MAIN)
+        rel = row_rel_err(got, plain)
+        computed = rows0 * 32 * sum(-(-ln // 32) for ln, _ in spec)
+        print(f"12h walk_tile {g_tile}: {t_made} hand-made tiles of {sorted(set(lens))} "
+              f"receivers (each at 4 offsets) on one {rows0}-row list, {n_r} receivers: "
+              f"bit-equal to the full tile's rows {torch.equal(got, want)}; counter "
+              f"{int(counted)} (rule {computed}); vs plain per-row p99 "
+              f"{np.percentile(rel, 99):.3e} max {rel.max():.3e}")
+        if not (torch.equal(got, want) and torch.isfinite(got).all()):
+            fail(f"12h walk_tile {g_tile}: a partial tile's rows differ from the full tile's "
+                 f"({int((got != want).any(1).sum())} rows)")
+        if int(counted) != computed:
+            fail(f"12h walk_tile {g_tile}: the kernel counted {int(counted)} pairs, not {computed}")
+        if np.percentile(rel, 99) > 1e-5:
+            fail(f"12h walk_tile {g_tile}: forces differ from the plain version (gate p99 1e-5)")
+    del ss, tree, keys, pos_new, tiles, lists, recv, got, full, want, plain
     torch.cuda.empty_cache()
 
     # -- 12b. the N=4M tree: 2048 receivers against float64 and B3 -------------

@@ -2,8 +2,8 @@
 (``utils/profiling.py``) record only under ``torch.profiler``; the runner's
 ``runner.enqueue``, ``runner.sync`` and ``runner.health`` ranges, the
 leapfrog's ``leapfrog.drift`` and ``leapfrog.kick``, and the group walk's
-counters ``walk.pairs``, ``walk.receivers`` and ``walk.deferred``, on a
-small CPU TreeSim scene."""
+counters ``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers`` and
+``walk.deferred``, on a small CPU TreeSim scene."""
 
 import contextlib
 import json
@@ -154,17 +154,19 @@ def test_the_default_step_opens_no_range_and_reduces_nothing_without_a_profiler(
     assert profiling.counters() == {}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         runner.step()
-    assert calls["record_function"] > 0 and calls["count"] == 3 and calls["stats"] == 2
+    assert calls["record_function"] > 0 and calls["count"] == 4 and calls["stats"] == 2
 
 
 # ------------------------------------------------------- walk counters
 
 
 def _independent_count(state, tp):
-    """(pairs, deferred) of the group walk of the sorted ``state`` at rest,
-    from ``tile_setup`` and ``group_walk_lists``: pairs by the formula of
-    ``chip_smoke.py`` (rows times receivers over the tiles neither bad nor
-    pool_full); deferred receivers of those tiles and of the partition."""
+    """(pairs, eval_pairs, deferred) of the group walk of the sorted
+    ``state`` at rest, from ``tile_setup`` and ``group_walk_lists``: pairs
+    by the formula of ``chip_smoke.py`` (rows times receivers over the tiles
+    neither bad nor pool_full), eval_pairs with the receivers rounded up to
+    whole 32-receiver blocks; deferred receivers of those tiles and of the
+    partition."""
     ss, bound, keys = morton_sort(state, tp.max_depth)
     tree = build_tree(ss, keys, bound, tp)
     tiles = tile_setup(keys, N, tp)
@@ -172,21 +174,23 @@ def _independent_count(state, tp):
     nt = int((tiles.piece_len > 0).sum())
     fin = ~(lists.bad | lists.pool_full)[:nt]
     pairs = int((lists.rows[:nt][fin].double() * tiles.piece_len[:nt][fin].double()).sum())
+    blocks = [-(-min(int(x), tiles.g) // 32) for x in tiles.piece_len[:nt][fin]]
+    eval_pairs = sum(int(r) * 32 * b for r, b in zip(lists.rows[:nt][fin], blocks))
     deferred = int((tiles.deferred | (lists.bad | lists.pool_full)[tiles.tile_id]).sum())
-    return pairs, deferred
+    return pairs, eval_pairs, deferred
 
 
 @pytest.mark.parametrize("kind,kw", [("uniform", {}), ("clustered", DEFER)],
                          ids=["no-deferral", "deferral"])
 def test_walk_counters_equal_an_independent_count(tmp_path, kind, kw):
     sim, state = _sim(**kw), _scene(kind)
-    pairs, deferred = _independent_count(state, sim.add_params)
+    pairs, eval_pairs, deferred = _independent_count(state, sim.add_params)
     diag = sim.diagnose(state)
     assert (deferred > 0) == bool(kw) and diag["walk_deferred"] == deferred
     runner = _runner(sim, state)
     _traced(runner.step, tmp_path)
-    assert profiling.counters() == {"walk.pairs": pairs, "walk.receivers": N,
-                                    "walk.deferred": deferred}
+    assert profiling.counters() == {"walk.pairs": pairs, "walk.eval_pairs": eval_pairs,
+                                    "walk.receivers": N, "walk.deferred": deferred}
     _traced(lambda: runner.run(2, chunk=2), tmp_path)  # totals add up across windows
     assert profiling.counters()["walk.receivers"] == 3 * N
 

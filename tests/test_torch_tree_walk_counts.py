@@ -11,14 +11,28 @@ lane opens, else skips) is emulated in numpy as the kernel's note states it:
 every lane must accept and sum exactly what its own walk does, and the warp
 must visit exactly the union of its lanes' walks. The kernel itself runs only
 on the card.
+
+The group walk's evaluation counts the receiver-row pairs it computes
+(``walk.eval_pairs``): whole blocks of 32 receivers, so a tile's last,
+partial block counts in full. The count is held, through a traced
+``TreeSim`` step on the CPU (the plain version counts by the kernel's rule),
+against the rule worked out here from the tiles and lists.
 """
 
 import numpy as np
 import pytest
+import torch
 
+from wgpu_n_body_tpu_torch.models import TreeSim
 from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD, WIDTH, build_tree, morton_sort
 from wgpu_n_body_tpu_torch.ops.tree_walk import walk_counts
-from wgpu_n_body_tpu_torch.params import TreeParams, state_from_numpy
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
+    group_tree_forces,
+    group_walk_lists,
+    tile_setup,
+)
+from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
+from wgpu_n_body_tpu_torch.utils import profiling
 
 CASES = {
     "theta 0.5, bucket 4": dict(theta=0.5, max_depth=10, leaf_bucket=4),
@@ -124,3 +138,81 @@ def test_warp_shared_traversal_gives_each_lane_its_own_walk(name):
         warp_visits.append(visits)
     np.testing.assert_array_equal(got, want[:, :3].numpy())
     np.testing.assert_array_equal(warp_visits, union)
+
+
+# ------------------------------------------------ the evaluation's pair count
+
+EVAL_N = 500
+EVAL_CASES = {  # walk_tile, other TreeParams; each state has partial tiles
+    "walk_tile 64": (64, {}),
+    "walk_tile 100, tiles over the step budget": (100, dict(theta=0.5, walk_list_cap=64)),
+    "walk_tile 33": (33, {}),
+    "walk_tile 16": (16, {}),
+}
+
+
+def _eval_scene(seed=3):
+    """EVAL_N bodies at rest: a third in a 1e-3 ball, the rest in [-1, 1]^3,
+    so the density-adaptive tiles come in many lengths."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-1, 1, (EVAL_N, 3))
+    pos[: EVAL_N // 3] = -0.4 + pos[: EVAL_N // 3] * 1e-3
+    z = np.zeros((EVAL_N, 3), np.float32)
+    return state_from_numpy(pos.astype(np.float32), z, z,
+                            rng.uniform(0.5, 2.0, EVAL_N).astype(np.float32), "cpu")
+
+
+def _eval_rule(state, tp):
+    """(receiver-row pairs, pairs the evaluation computes, tile lengths) of
+    the group walk of ``state`` at rest, over the tiles neither bad nor
+    pool_full: rows x len, and rows x 32 x ceil(len / 32)."""
+    ss, bound, keys = morton_sort(state, tp.max_depth)
+    tiles = tile_setup(keys, EVAL_N, tp)
+    lists = group_walk_lists(ss.pos, build_tree(ss, keys, bound, tp), tiles, tp)
+    done = ~(lists.bad | lists.pool_full).numpy()
+    rows, length = lists.rows.numpy().astype(np.int64), tiles.piece_len.numpy().astype(np.int64)
+    pairs = int((rows * length)[done].sum())
+    computed = sum(int(r) * 32 * -(-int(n) // 32) for r, n, d in zip(rows, length, done) if d)
+    return pairs, computed, length[length > 0], int((~done).sum())
+
+
+def _traced_step(sim, state):
+    step = sim.step_fn()
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(state)
+    got = profiling.counters()
+    profiling.reset_counters()
+    return got
+
+
+@pytest.mark.parametrize("name", list(EVAL_CASES))
+def test_eval_pairs_count_whole_32_receiver_blocks_of_finished_tiles(name):
+    g, kw = EVAL_CASES[name]
+    tp = TreeParams(max_depth=10, walk_tile=g, **kw)
+    state = _eval_scene()
+    pairs, computed, length, skipped = _eval_rule(state, tp)
+    assert ((length < g) & (length % 32 != 0)).any()  # partial tiles with a partial block
+    assert (skipped > 0) == ("budget" in name)
+    got = _traced_step(TreeSim(SimParams(particle_num=EVAL_N, g=1e-3), tp), state)
+    assert got["walk.pairs"] == pairs and got["walk.eval_pairs"] == computed
+    assert got["walk.eval_pairs"] >= got["walk.pairs"]
+    if g % 32 == 0 and (length % 32 == 0).all():
+        assert computed == pairs
+
+
+def test_eval_pairs_is_neither_counted_nor_made_without_a_profiler():
+    tp = TreeParams(max_depth=10, walk_tile=64)
+    state = _eval_scene()
+    sim = TreeSim(SimParams(particle_num=EVAL_N, g=1e-3), tp)
+    profiling.reset_counters()
+    sim.step_fn()(state)
+    assert profiling.counters() == {}
+    ss, bound, keys = morton_sort(state, tp.max_depth)
+    tree = build_tree(ss, keys, bound, tp)
+    _, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, sim.sim_params, tp)
+    assert stats.eval_pairs is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, stats = group_tree_forces(ss.pos, ss.pos, ss.mass, tree, keys, sim.sim_params, tp)
+    assert stats.eval_pairs.dtype == torch.int64 and stats.eval_pairs.dim() == 0
+    assert int(stats.eval_pairs) == _eval_rule(state, tp)[1]

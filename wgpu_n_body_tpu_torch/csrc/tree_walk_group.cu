@@ -40,17 +40,32 @@
 //     memory and made three warps of every CTA wait while one walked (half
 //     of each tile's cycles, measured).
 // (b) group_eval_kernel: one CTA of 128 threads per tile, receivers in
-//     registers (one to four per thread: walk_tile <= 512), tiles in tile
-//     order (heaviest list first did not pay for its device sort at N=4M
-//     and lost on the disc scene: PERF.md). The list streams through a
-//     ring of kStages shared-memory stages of kChunk rows: each thread reads ids
-//     and issues 16-byte cp.async gathers of table rows for a later stage
-//     while the CTA sums the current one. (TMA has no gather mode and
-//     cp.async.bulk copies contiguous runs only, so a list of scattered
-//     rows goes through cp.async.) While staging, each warp's ballot marks
-//     the 32-row groups that hold a member of the tile's own receivers: only
-//     those run the self-masked loop; every other group runs the same
-//     arithmetic (pair_term) with no compare and no select.
+//     registers, tiles in tile order (heaviest list first did not pay for
+//     its device sort at N=4M and lost on the disc scene: PERF.md). The list
+//     streams through a ring of kStages shared-memory stages of kChunk rows:
+//     each thread reads ids and issues 16-byte cp.async gathers of table rows
+//     for a later stage while the CTA sums the current one. (TMA has no
+//     gather mode and cp.async.bulk copies contiguous runs only, so a list of
+//     scattered rows goes through cp.async.) While staging, each warp's
+//     ballot marks the 32-row groups that hold a member of the tile's own
+//     receivers: only those run the self-masked loop; every other group runs
+//     the same arithmetic (pair_term) with no compare and no select.
+//     The work follows the tile's receiver count, not walk_tile. A tile's
+//     receivers are numbered in blocks of 32, one warp's width: block k
+//     holds [32k, 32k + 32), and ceil(len / 32) blocks are live. Block k
+//     goes to warp k % 4, in its register slot k / 4 (PER = 1, 2 or 4 slots
+//     a thread: walk_tile <= 512), so the warps of a CTA differ by at most
+//     one live block. A warp sums the list for its live slots only (the same
+//     count for the whole warp, so the row loop is compiled for each count
+//     and picked per stage without divergence); a warp with none stages its
+//     share of rows and meets every barrier. Each receiver sums the same
+//     rows in the same order through the same pair_term as when every slot
+//     was summed, so its bits do not depend on the tile's length. Rotating
+//     the blocks over the warps by tile index, to spread partial tiles over
+//     the SM's four sub-partitions, measured 0.8-1.0% slower on an NVIDIA
+//     H100 80GB HBM3 at N=4M on the disc scene (PERF.md). Under a profiler
+//     the wrapper passes a counter that each CTA adds its computed pairs to
+//     (rows x 32 x live blocks).
 //
 // Rounding: the theta test is written with __fmul_rn/__fadd_rn/__fsqrt_rn,
 // so nvcc cannot contract it into FMAs and it rounds as the plain version
@@ -63,10 +78,15 @@
 // compared with the plain version's to a tolerance.
 //
 // What bounds it on H100: (b) is special-function throughput, two MUFU
-// ops per receiver-row pair (rsqrt; the reciprocal of the divide) at 16
-// per SM per clock: 1.0607e10 pairs at N=4M, 5.07 ms at 1980 MHz. Its loop
-// issues ~16 instructions per pair, so issue (4 per SM per clock) binds
-// about as tightly. (a) is latency: one dependent round of five loads per
+// ops per computed receiver-row pair (rsqrt; the reciprocal of the divide)
+// at 16 per SM per clock: 1.0607e10 pairs with a receiver at N=4M uniform,
+// 5.07 ms at 1980 MHz. Its loop issues ~16 instructions per pair, so issue
+// (4 per SM per clock) binds about as tightly. The pairs it computes are
+// the receivers' pairs rounded up to whole 32-receiver blocks (the last
+// block of a tile is partial); a tile whose warps hold unequal numbers of
+// live blocks (fewer than 128 receivers: some hold none) waits at each
+// stage's barrier for its busiest warp, and only the other resident CTAs
+// can take the idle warps' issue slots. (a) is latency: one dependent round of five loads per
 // 32-node window, hidden by the ~64 walks resident per SM. PERF.md has
 // the measurements.
 
@@ -93,6 +113,7 @@ constexpr int kStages = 2;      // ring stages of kChunk rows
 constexpr int kUnroll = 8;      // pair-loop unroll
 constexpr int kBlock = 128;     // threads per evaluation CTA
 constexpr int kMaxTile = 512;
+static_assert(kBlock == 4 * 32, "the evaluation deals blocks of 32 receivers to four warps");
 
 // ---- (a) the walk ----
 
@@ -241,13 +262,61 @@ __global__ void __launch_bounds__(kWalkWarps * 32) group_lists_kernel(
 // all-pairs kernels).
 constexpr int kGroups = kChunk / 32;
 
+// The rows of one ring stage (`groups` groups of 32) for a warp's first NQ
+// register slots.
+template <int NQ, int PER>
+__device__ __forceinline__ void sum_stage(const float4* __restrict__ rows,
+                                          const int* __restrict__ rid,
+                                          const int* __restrict__ self, int groups,
+                                          const float (&px)[PER], const float (&py)[PER],
+                                          const float (&pz)[PER], const int (&me)[PER], float e,
+                                          float (&ax)[PER], float (&ay)[PER], float (&az)[PER]) {
+  for (int gr = 0; gr < groups; ++gr) {
+    const float4* const g_rows = rows + gr * 32;
+    if (self[gr]) {
+      const int* const g_rid = rid + gr * 32;
+#pragma unroll(kUnroll)
+      for (int r = 0; r < 32; ++r) {
+        const float4 s = g_rows[r];
+        const int id = g_rid[r];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          pair_term<true>(s, px[q], py[q], pz[q], id == me[q], e, ax[q], ay[q], az[q]);
+      }
+    } else {
+#pragma unroll(kUnroll)
+      for (int r = 0; r < 32; ++r) {
+        const float4 s = g_rows[r];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          pair_term<false>(s, px[q], py[q], pz[q], false, e, ax[q], ay[q], az[q]);
+      }
+    }
+  }
+}
+
+// sum_stage for the warp's nq live slots (0 to PER; 0 sums nothing).
+template <int PER, int NQ = PER>
+__device__ __forceinline__ void sum_live(int nq, const float4* rows, const int* rid,
+                                         const int* self, int groups, const float (&px)[PER],
+                                         const float (&py)[PER], const float (&pz)[PER],
+                                         const int (&me)[PER], float e, float (&ax)[PER],
+                                         float (&ay)[PER], float (&az)[PER]) {
+  if (nq == NQ) {
+    sum_stage<NQ>(rows, rid, self, groups, px, py, pz, me, e, ax, ay, az);
+  } else if constexpr (NQ > 1) {
+    sum_live<PER, NQ - 1>(nq, rows, rid, self, groups, px, py, pz, me, e, ax, ay, az);
+  }
+}
+
 template <int PER>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
     const float* __restrict__ pos_new, const float4* __restrict__ table,
     const int* __restrict__ ids, const int* __restrict__ chunks, int max_chunks,
     const int* __restrict__ tile_rows, const int* __restrict__ tile_skip,
     const int* __restrict__ piece_start, const int* __restrict__ piece_len,
-    float* __restrict__ out, int g, int self_base, float e) {
+    float* __restrict__ out, int g, int self_base, float e,
+    unsigned long long* __restrict__ pairs) {
   __shared__ float4 s_row[kStages][kChunk];
   __shared__ int s_id[kStages][kChunk];
   __shared__ int s_self[kStages][kGroups];
@@ -263,6 +332,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
   const int* const my_chunks = chunks + static_cast<long long>(t) * max_chunks;
   // ids of this tile's own receivers as sources: [lo, lo + len)
   const int lo = self_base + p0;
+  // block k of 32 receivers goes to warp k % 4, slot k / 4: slot q of
+  // thread tid holds receiver tid + 128 q; this warp's first nq slots are live
+  const int live = (len + 31) >> 5;
+  const int nq = min(PER, (live - (tid >> 5) + 3) >> 2);
 
   float px[PER], py[PER], pz[PER], ax[PER], ay[PER], az[PER];
   int me[PER];
@@ -312,28 +385,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
     asm volatile("cp.async.commit_group;");
     const int slot = st % kStages;
     const int groups = (min(kChunk, nrows - st * kChunk) + 31) >> 5;
-    for (int gr = 0; gr < groups; ++gr) {
-      const float4* const rows = &s_row[slot][gr * 32];
-      if (s_self[slot][gr]) {
-        const int* const rid = &s_id[slot][gr * 32];
-#pragma unroll(kUnroll)
-        for (int r = 0; r < 32; ++r) {
-          const float4 s = rows[r];
-          const int id = rid[r];
-#pragma unroll
-          for (int q = 0; q < PER; ++q)
-            pair_term<true>(s, px[q], py[q], pz[q], id == me[q], e, ax[q], ay[q], az[q]);
-        }
-      } else {
-#pragma unroll(kUnroll)
-        for (int r = 0; r < 32; ++r) {
-          const float4 s = rows[r];
-#pragma unroll
-          for (int q = 0; q < PER; ++q)
-            pair_term<false>(s, px[q], py[q], pz[q], false, e, ax[q], ay[q], az[q]);
-        }
-      }
-    }
+    sum_live<PER>(nq, s_row[slot], s_id[slot], s_self[slot], groups, px, py, pz, me, e, ax, ay,
+                  az);
   }
 
 #pragma unroll
@@ -346,6 +399,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
       out[3 * i + 2] = az[q];
     }
   }
+  if (pairs != nullptr && tid == 0)
+    atomicAdd(pairs, static_cast<unsigned long long>(nrows) * 32ull * live);
 }
 
 // The narrowest instantiation that holds g receivers: PER = 1, 2 or 4.
@@ -397,13 +452,16 @@ extern "C" int group_lists_launch(const void* pos_new, const void* nodes, const 
 // mass*g*dt]; ids/chunks/tile_rows from (a); tile_skip (tiles,) int32,
 // nonzero for a deferred tile; out (b, 3) f32 (rows of deferred tiles are
 // left unwritten). self_base =
-// cap + 1 + gid_offset: the id of receiver 0 as a source. Launches on
-// `stream`, returns the cudaError_t of the launch, does not synchronise.
+// cap + 1 + gid_offset: the id of receiver 0 as a source. pairs: null, or a
+// device uint64 that each evaluated tile adds rows x 32 x ceil(len / 32) to.
+// Launches on `stream`, returns the cudaError_t of the launch, does not
+// synchronise.
 extern "C" int group_eval_launch(const void* pos_new, const void* table, const void* ids,
                                  const void* chunks, int max_chunks, const void* tile_rows,
                                  const void* tile_skip, const void* piece_start,
                                  const void* piece_len, void* out, int tiles, int g,
-                                 int self_base, float e, int device, void* stream) {
+                                 int self_base, float e, void* pairs, int device,
+                                 void* stream) {
   if (tiles <= 0) return 0;
   if (g < 1 || g > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -413,6 +471,7 @@ extern "C" int group_eval_launch(const void* pos_new, const void* table, const v
                        static_cast<const int*>(ids), static_cast<const int*>(chunks), max_chunks,
                        static_cast<const int*>(tile_rows), static_cast<const int*>(tile_skip),
                        static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
-                       static_cast<float*>(out), g, self_base, e);
+                       static_cast<float*>(out), g, self_base, e,
+                       static_cast<unsigned long long*>(pairs));
   return static_cast<int>(err);
 }

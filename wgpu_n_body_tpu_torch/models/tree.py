@@ -27,8 +27,10 @@ Under ``torch.profiler`` a step shows the host ranges ``tree_step`` and,
 inside it in order, ``morton_keys``, ``morton_sort``, ``tree_build``,
 ``leapfrog.drift``, ``theta_walk`` (the group walk's own ranges inside),
 ``counters`` and ``leapfrog.kick``. In ``counters``, outside the walk's
-range, the group walk adds its receiver-row pairs, receivers and deferred
-receivers to the counters ``walk.pairs``, ``walk.receivers`` and
+range, the group walk adds its receiver-row pairs, the pairs its
+evaluation kernel computed (whole 32-receiver blocks, counted by the
+kernel), its receivers and deferred receivers to the counters
+``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers`` and
 ``walk.deferred`` (``utils/profiling.py::count``). With no profiler a step
 opens no range and counts nothing.
 """
@@ -91,6 +93,7 @@ def _load_counter_kernels(device: torch.device) -> None:
                            GroupLists(one, one, no, one, one, no))
     pairs, deferred = _walk_counts(stats)
     torch.add(pairs, deferred)  # a running total's add (``utils/profiling.py::count``)
+    torch.zeros((), dtype=torch.int64, device=device)  # the evaluation's counter, zeroed
 
 
 class TreeSim(Simulator):
@@ -141,6 +144,7 @@ class TreeSim(Simulator):
                     with trace_scope("counters"):
                         pairs, deferred = _walk_counts(stats)
                         count("walk.pairs", pairs)
+                        count("walk.eval_pairs", stats.eval_pairs)
                         count("walk.receivers", pos_new.shape[0])
                         count("walk.deferred", deferred)
                 return acc

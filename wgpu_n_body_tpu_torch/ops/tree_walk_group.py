@@ -20,7 +20,8 @@ receivers:
            chunks of a pool sized from the receiver count;
   phase B  (``group_eval_lists``) every receiver of the tile sums its list
            with one point-mass formula, the self pair excluded by global
-           sorted index;
+           sorted index; while a profiler records it also counts the pairs
+           the kernel computes (``eval_pairs``: whole 32-receiver blocks);
   fallback a tile that needs more than ``r_cap = ceil(2*walk_list_cap/256)
            *256`` steps is *bad*, and one whose list finds no room in the
            pool is *pool_full*: their receivers (and any that spilled out
@@ -56,6 +57,7 @@ from wgpu_n_body_tpu_torch.ops.tree_build import (
 )
 from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+from wgpu_n_body_tpu_torch.utils.profiling import tracing
 
 
 class Tiles(NamedTuple):
@@ -211,12 +213,16 @@ class GroupWalkStats(NamedTuple):
     deferred_mask: (n,) bool receivers sent down the fallback walk.
     pool_mask:     (n,) bool of those, the ones deferred for want of list
                    pool room.
+    eval_pairs:    () int64 receiver-row pairs the evaluation computed,
+                   counted by it (``eval_pairs``' rule) while a profiler
+                   records; None otherwise.
     """
 
     deferred_mask: torch.Tensor
     pool_mask: torch.Tensor
     tiles: Tiles
     lists: GroupLists
+    eval_pairs: torch.Tensor | None = None
 
     @property
     def deferred(self) -> torch.Tensor:
@@ -397,6 +403,15 @@ def _tile_positions(pos_new, tiles: Tiles, nt: int):
     return pos_new[start[:, None] + torch.minimum(sidx[None, :], length[:, None] - 1)]
 
 
+def eval_pairs(tiles: Tiles, lists: GroupLists) -> torch.Tensor:
+    """() int64: the receiver-row pairs the evaluation kernel computes.
+    It sums each list for whole blocks of 32 receivers, so over the tiles
+    neither bad nor pool_full: list rows x 32 x ceil(receivers / 32)."""
+    done = ~(lists.bad | lists.pool_full)
+    blocks = (torch.clamp(tiles.piece_len, max=tiles.g).to(torch.int64) + 31) // 32
+    return (lists.rows.to(torch.int64) * 32 * blocks * done).sum()
+
+
 def group_eval_lists(
     pos_new: torch.Tensor,
     src_pos: torch.Tensor,
@@ -406,10 +421,15 @@ def group_eval_lists(
     lists: GroupLists,
     params: SimParams,
     gid_offset: int = 0,
+    pairs: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Phase B: (n, 3) acc*dt, every receiver of a tile against its list
     with one point-mass formula, the self pair excluded by sorted index.
-    Rows of receivers in bad or pool_full tiles are not meaningful."""
+    Rows of receivers in bad or pool_full tiles are not meaningful.
+    ``pairs``: a () int64 tensor that the pairs the kernel computes are
+    added to (``eval_pairs``), or None."""
+    if pairs is not None:
+        pairs += eval_pairs(tiles, lists)
     dev = pos_new.device
     n, n_src = pos_new.shape[0], src_pos.shape[0]
     cap = tree.nodes_f32.shape[0] - 1
@@ -507,7 +527,9 @@ def group_tree_forces(
     if tiles is None:
         tiles = tile_setup(keys, n, tree_params)
     lists = group_walk_lists(pos_new, tree, tiles, tree_params)
-    acc = group_eval_lists(pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset)
+    pairs = torch.zeros((), dtype=torch.int64, device=pos_new.device) if tracing() else None
+    acc = group_eval_lists(pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset,
+                           pairs)
     bad = tiles.deferred | lists.bad[tiles.tile_id]
     full = lists.pool_full[tiles.tile_id] & ~bad
     deferred = bad | full
@@ -517,4 +539,4 @@ def group_tree_forces(
             pos_new[idx], src_pos, src_mass, tree, params, tree_params,
             self_idx=gid_offset + idx,
         )
-    return acc, GroupWalkStats(deferred, full, tiles, lists)
+    return acc, GroupWalkStats(deferred, full, tiles, lists, pairs)

@@ -8,6 +8,8 @@ set-up kernels (``tile_setup_cuda``), launches the walk kernel (one warp per
 tile: the interaction lists, as ids in a pool), the evaluation kernel (one
 CTA per tile), and then the per-particle walk kernel (``csrc/tree_walk.cu``)
 once over the deferred receivers as a mask, so a step needs no host read.
+While a profiler records, the evaluation kernel also counts the
+receiver-row pairs it computes (``GroupWalkStats.eval_pairs``).
 For CPU tensors it returns the plain version; every other device raises. A
 CUDA tensor never falls back to the plain version.
 """
@@ -36,7 +38,7 @@ from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
     tile_setup,
 )
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
-from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
+from wgpu_n_body_tpu_torch.utils.profiling import trace_scope, tracing
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tree_walk_group.cu"
@@ -154,7 +156,7 @@ def _library() -> ctypes.CDLL:
         lib.group_eval_launch.argtypes = [
             p, p, p, p, i, p, p,  # pos_new, table, ids, chunks, max_chunks, rows, skip
             p, p, p,  # piece_start, piece_len, out
-            i, i, i, f, i, p,  # tiles, g, self_base, e, device, stream
+            i, i, i, f, p, i, p,  # tiles, g, self_base, e, pairs, device, stream
         ]
         lib.group_lists_launch.restype = lib.group_eval_launch.restype = i
         _lib = lib
@@ -235,12 +237,15 @@ def group_eval_lists_cuda(
     params: SimParams,
     gid_offset: int = 0,
     table: torch.Tensor | None = None,
+    pairs: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The evaluation kernel's counterpart of
     ``tree_walk_group.group_eval_lists``, CUDA tensors only: (n, 3) acc*dt;
     rows of receivers in deferred tiles are not written. ``table`` is
     ``source_table(tree, src_pos, src_mass, g * dt)`` where the caller has
-    it already; otherwise it is built here."""
+    it already; otherwise it is built here. ``pairs``: a () int64 tensor on
+    the device that the kernel adds the receiver-row pairs it computes to
+    (``tree_walk_group.eval_pairs``' rule), or None to count nothing."""
     global LAUNCHES_EVAL
     device = pos_new.device
     if device.type != "cuda":
@@ -260,6 +265,10 @@ def group_eval_lists_cuda(
     if not 1 <= tiles.g <= MAX_TILE:
         raise ValueError(f"walk_tile must be in [1, {MAX_TILE}] on CUDA, got {tiles.g}")
     gid_offset = check_receivers(gid_offset, n, n_src)
+    if pairs is not None:
+        _check("pairs", pairs, torch.int64, ())
+        if pairs.device != device:
+            raise ValueError(f"pairs on {pairs.device}, receivers on {device}")
 
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
     if table is None:  # one 16-byte row per id
@@ -270,8 +279,8 @@ def group_eval_lists_cuda(
         pos_new.data_ptr(), table.data_ptr(), lists.ids.data_ptr(), lists.chunks.data_ptr(), mc,
         lists.rows.data_ptr(), skip.data_ptr(), tiles.piece_start.data_ptr(),
         tiles.piece_len.data_ptr(), out.data_ptr(), t_cap, tiles.g,
-        cap + 1 + gid_offset, float(params.e), _device_index(device),
-        torch.cuda.current_stream(device).cuda_stream,
+        cap + 1 + gid_offset, float(params.e), None if pairs is None else pairs.data_ptr(),
+        _device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"group_eval kernel launch failed: cudaError_t {err}")
@@ -325,7 +334,9 @@ def group_tree_forces_cuda(
     around the walk kernel's ``group_walk`` and the evaluation's
     ``group_eval``; ``group_fallback``), which ``utils/profile_step.py``
     reads. ``stats`` holds the deferred masks, the tiles and the lists:
-    its counts are reduced only when a caller reads them.
+    its counts are reduced only when a caller reads them. While a profiler
+    records, ``stats.eval_pairs`` holds the evaluation kernel's count of
+    the pairs it computed; otherwise it is None and nothing is counted.
     """
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
@@ -359,8 +370,9 @@ def group_tree_forces_cuda(
         with trace_scope("group_eval"):
             # the [node | source] table, shared with the fallback's walk
             table = source_table(tree, src_pos, src_mass, params.g * params.dt)
+            pairs = torch.zeros((), dtype=torch.int64, device=device) if tracing() else None
             acc = group_eval_lists_cuda(
-                pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset, table
+                pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset, table, pairs
             )
     with trace_scope("group_fallback"):
         bad = tiles.deferred | lists.bad[tiles.tile_id]
@@ -374,4 +386,4 @@ def group_tree_forces_cuda(
             self_idx=self_idx, table=table,
         )
         acc = torch.where(deferred[:, None], fallback, acc)
-    return acc, GroupWalkStats(deferred, full, tiles, lists)
+    return acc, GroupWalkStats(deferred, full, tiles, lists, pairs)

@@ -1,7 +1,7 @@
 """Development measurements of the group walk kernels (B4) on a CUDA card.
 
-    python -m wgpu_n_body_tpu_torch.utils.group_walk_study [--fused PATH] [--sweep]
-        [--sass-dir DIR]
+    python -m wgpu_n_body_tpu_torch.utils.group_walk_study [--fused PATH] [--parent PATH]
+        [--sweep] [--sass-dir DIR]
 
 Prints, each timed line with the card's name and power limit:
 - the SASS loops of the evaluation kernel that evaluate pairs: instructions
@@ -17,6 +17,19 @@ Prints, each timed line with the card's name and power limit:
   then a copy with clock probes at its phase boundaries gives each phase's
   share of the tiles' cycles, the per-tile spread and when the last tile
   ends, and its pair loop's SASS;
+- with ``--parent PATH``: the evaluation kernel that ran every 32-receiver
+  block of a tile whether it held a receiver or not, built from PATH, which
+  must be the ``csrc/tree_walk_group.cu`` of commit f773a9b (checked by its
+  SHA-256; ``git show f773a9b:wgpu_n_body_tpu_torch/csrc/tree_walk_group.cu
+  > _parent/tree_walk_group.cu``). On the same lists and table it is timed
+  in turns with this evaluation kernel (parent, new, new, parent, twice) at
+  N=4M uniform and disc as the benchmark draws them, N=2M disc theta=0.5
+  walk_tile 256, N=100k disc (the viewer's), a slice of sorted receivers
+  (gid_offset > 0) and an import walk (receivers past the sources); each
+  output is held bit for bit (``torch.equal``) to the parent's, the
+  kernel's pair counter to ``tree_walk_group.eval_pairs``, and each time
+  printed beside the SFU bound of the pairs with a receiver and of the
+  pairs each kernel computes;
 - with ``--sweep``: the new kernels rebuilt from copies of their source with
   other values of the launch constants (``kMinBlocks``, ``kStages``,
   ``kChunk``, ``kUnroll``, ``kWalkWarps``), each timed at N=4M uniform
@@ -54,6 +67,13 @@ SFU_PER_SM_CLOCK = 16
 #: SHA-256 of the fused kernel's source (csrc/tree_walk_group.cu at e0dd89f),
 #: which the probe edits below are written against.
 FUSED_SHA256 = "c242dc5c1127c1314247459ee1d056c3e853ee4d28deacbd86aef8e099f32ab2"
+#: SHA-256 of csrc/tree_walk_group.cu at f773a9b, whose evaluation kernel
+#: sums the list for every register slot of a tile, live or not.
+PARENT_SHA256 = "be9706f9e0123226e2e996bfce7519b63888128df42b7f9b90b47ec313949b73"
+#: the benchmark's step cells (nbody_bench/configs/tree-headless-4m.json,
+#: nbody_bench/traffic/steps-*.json): g, e, dt and the disc's scene_seed
+BENCH_PARAMS = dict(g=1e-6, e=1e-4, dt=0.016)
+BENCH_DISC_SEED = 20261018
 
 # Clock probes spliced into the fused kernel at its phase boundaries: per
 # tile, warp 0's phase-A cycles, warp 1's cycles from the loop's top to the
@@ -335,6 +355,137 @@ def study_fused(path, dev, smi, mhz, sass_dir):
         torch.cuda.empty_cache()
 
 
+class ParentEval:
+    """The evaluation kernel of f773a9b (every slot of a tile summed, block k
+    on warp k % 4), built from its source with the port's flags."""
+
+    def __init__(self, source: Path):
+        if hashlib.sha256(source.read_bytes()).hexdigest() != PARENT_SHA256:
+            raise SystemExit(f"{source} is not csrc/tree_walk_group.cu of commit f773a9b")
+        self.lib_path, self.log = cuda_build.compile_cu(
+            source, gcuda.BUILD_DIR / "parent", gcuda.NVCC_FLAGS)
+        self.lib = ctypes.CDLL(str(self.lib_path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.group_eval_launch.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, f, i, p]
+        self.lib.group_eval_launch.restype = i
+
+    def __call__(self, pos_new, tree, tiles, lists, table, e, gid_offset):
+        dev = pos_new.device
+        out = torch.empty((pos_new.shape[0], 3), dtype=torch.float32, device=dev)
+        skip = (lists.bad | lists.pool_full).to(torch.int32)
+        cap = tree.nodes_f32.shape[0] - 1
+        err = self.lib.group_eval_launch(
+            pos_new.data_ptr(), table.data_ptr(), lists.ids.data_ptr(), lists.chunks.data_ptr(),
+            lists.chunks.shape[1], lists.rows.data_ptr(), skip.data_ptr(),
+            tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), out.data_ptr(), tiles.t_cap,
+            tiles.g, cap + 1 + gid_offset, float(e), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the parent evaluation kernel did not launch: cudaError_t {err}")
+        return out
+
+
+def bench_scene(kind, n, tp, dev):
+    """scene() of the benchmark's draw of ``kind`` (``nbody_bench/scenes.py``;
+    the disc from its scene_seed, in the order seed 1 gives)."""
+    from nbody_bench import scenes
+    from wgpu_n_body_tpu_torch.params import ParticleState
+
+    params = SimParams(particle_num=n, **BENCH_PARAMS)
+    state = ParticleState(*scenes.draw(kind, 1, n, params.g, dev,
+                                       scene_seed=BENCH_DISC_SEED if kind == "disc" else None))
+    ss, bound, keys = morton_sort(state, tp.max_depth)
+    tree = build_tree(ss, keys, bound, tp)
+    pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt
+    return ss, tree, twg.tile_setup(keys, n, tp), pos_new, params
+
+
+def held_eval(label, parent, mhz, smi, pos_new, src_pos, src_mass, tree, tiles, params, tp,
+              gid_offset=0):
+    """Time the parent's evaluation kernel and this one in turns on one set
+    of lists; their outputs must be equal bit for bit on every receiver the
+    evaluation writes, and the counter must equal ``eval_pairs``."""
+    lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
+    table = twg.source_table(tree, src_pos, src_mass, params.g * params.dt)
+    skip = lists.bad | lists.pool_full
+    written = ~(tiles.deferred | skip[tiles.tile_id])
+
+    def new(pairs=None):
+        return gcuda.group_eval_lists_cuda(pos_new, src_pos, src_mass, tree, tiles, lists, params,
+                                           gid_offset, table, pairs)
+
+    def old():
+        return parent(pos_new, tree, tiles, lists, table, params.e, gid_offset)
+
+    ms = {"parent": [], "new": []}
+    for who in ("parent", "new", "new", "parent") * 2:
+        ms[who].append(time_ms(old if who == "parent" else new, 10)[0])
+    counted = torch.zeros((), dtype=torch.int64, device=pos_new.device)
+    a_new, a_old = new(counted), old()
+    equal = torch.equal(a_new[written], a_old[written])
+    want = int(twg.eval_pairs(tiles, lists))
+    nt = int((tiles.piece_len > 0).sum())
+    fin = ~skip[:nt]
+    rows = lists.rows[:nt][fin].double()
+    length = torch.clamp(tiles.piece_len[:nt][fin], max=tiles.g).double()
+    real = float((rows * length).sum())
+    per = 1 << max(0, (tiles.g - 1).bit_length() - 7)  # slots a thread: 128 PER >= g
+    parent_pairs = float(rows.sum()) * 128 * per
+    partial = int((length < tiles.g).sum())
+    mo, mn = float(np.median(ms["parent"])), float(np.median(ms["new"]))
+    b_real, b_old, b_new = (sfu_bound_ms(x, mhz) for x in (real, parent_pairs, want))
+    print(f"eval {label}: walk_tile {tiles.g} (PER {per}), {nt} tiles ({partial} partial), "
+          f"gid_offset {gid_offset}; in turns parent/new/new/parent x2: parent "
+          + " ".join(f"{x:.4f}" for x in ms["parent"]) + " ms, new "
+          + " ".join(f"{x:.4f}" for x in ms["new"]) + f" ms (medians {mo:.4f} -> {mn:.4f}, "
+          f"{mn / mo - 1:+.2%}); pairs with a receiver {real:.4e}, computed parent "
+          f"{parent_pairs:.4e} ({real / parent_pairs:.2%} filled), new {want:.4e} "
+          f"({real / max(want, 1):.2%}); SFU bound of the real pairs {b_real:.4f} ms: parent "
+          f"{b_real / mo:.2%}, new {b_real / mn:.2%}; of the computed pairs: parent "
+          f"{b_old / mo:.2%}, new {b_new / mn:.2%}; outputs bit-equal on "
+          f"{int(written.sum())} receivers: {equal}; counter {int(counted)} == {want}: "
+          f"{int(counted) == want}; [{smi}]", flush=True)
+    if not equal or int(counted) != want or not torch.isfinite(a_new[written]).all():
+        raise SystemExit(f"eval {label}: the evaluation differs from the parent's or miscounts")
+    return mo, mn
+
+
+def study_parent(path, dev, smi, mhz):
+    """The parent's evaluation kernel against this one, in turns, at the
+    shapes its change touches."""
+    parent = ParentEval(path)
+    print("\n".join(f"parent ptxas: {x.strip()}" for x in parent.log.splitlines()
+                    if re.search(r"registers|spill", x)))
+    from wgpu_n_body_tpu_torch.inits import disc_init
+
+    shapes = (("uniform 4M (bench)", lambda tp: bench_scene("uniform", N_TREE, tp, dev),
+               TreeParams()),
+              ("disc 4M (bench)", lambda tp: bench_scene("disc", N_TREE, tp, dev), TreeParams()),
+              ("disc 2M theta=0.5", lambda tp: scene(disc_init, 2_000_000, tp, dev),
+               TreeParams(theta=0.5, walk_tile=256)),
+              ("disc 100k (viewer)", lambda tp: scene(disc_init, 100_000, tp, dev),
+               TreeParams()))
+    for label, make, tp in shapes:
+        ss, tree, tiles, pos_new, params = make(tp)
+        held_eval(label, parent, mhz, smi, pos_new, ss.pos, ss.mass, tree, tiles, params, tp)
+        del ss, tree, tiles, pos_new
+        torch.cuda.empty_cache()
+    # receivers that are a later slice of the sources (the replicated
+    # schedule's), and receivers past the sources (the LET import walk's)
+    tp = TreeParams()
+    ss, tree, tiles, pos_new, params = scene(disc_init, N_DISC, tp, dev)
+    g0, n1 = N_DISC // 4, N_DISC // 2
+    keys = morton_sort(ss, tp.max_depth)[2]
+    sub = twg.tile_setup(keys[g0:g0 + n1], n1, tp)
+    held_eval("disc 262144, receivers [65536, 196608)", parent, mhz, smi, pos_new[g0:g0 + n1],
+              ss.pos, ss.mass, tree, sub, params, tp, gid_offset=g0)
+    other, _, o_tiles, o_new, _ = scene(uniform_init, n1, tp, dev)  # no body is a source
+    held_eval(f"import walk: {n1} receivers over a {N_DISC}-body tree", parent, mhz, smi,
+              o_new, ss.pos, ss.mass, tree, o_tiles, params, tp, gid_offset=N_DISC)
+    del ss, tree, tiles, pos_new, other, o_tiles, o_new
+    torch.cuda.empty_cache()
+
+
 def variant_source(overrides: dict, source: Path | None = None) -> Path:
     """A copy of a kernel source (the group walk's by default) with other
     values of its launch constants (each ``constexpr int kName = value;``
@@ -400,6 +551,7 @@ def sweep(dev, smi):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="group_walk_study")
     parser.add_argument("--fused", type=Path, help="source of the fused kernel (e0dd89f)")
+    parser.add_argument("--parent", type=Path, help="tree_walk_group.cu of f773a9b")
     parser.add_argument("--sweep", action="store_true", help="sweep the launch constants")
     parser.add_argument("--sass-dir", help="write the SASS listings here")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
@@ -414,6 +566,8 @@ def main(argv=None) -> int:
     print("\n".join(f"ptxas: {x.strip()}" for x in log.splitlines()
                     if re.search(r"registers|spill", x)))
     print_sass("new", lib, "group_eval_kernel", args.sass_dir)
+    if args.parent:
+        study_parent(args.parent, dev, smi, mhz)
     if args.fused:
         study_fused(args.fused, dev, smi, mhz, args.sass_dir)
     if args.sweep:
