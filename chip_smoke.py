@@ -77,7 +77,8 @@ Phases (any failure exits non-zero):
     tile deferred against B3, with a list pool too small (12d), the full
     N=4M walk timed stage by stage beside B3 and its SFU bound (12e), and
     the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
-    measurement config), where no tile may find the pool empty (12f). Every
+    measurement config), where no tile may find the pool empty and a traced
+    TreeSim step's ``walk.pool_chunks`` equals the walk's own count (12f). Every
     walk there takes its tiles from B4 · T (``tile_setup_cuda``), held equal
     field for field to the plain ``tile_setup`` on the same split levels and
     on the keys' (12a, 12d-12f); 12e also times B4 · T at N=4M beside its
@@ -1879,9 +1880,9 @@ def phase_b4(dev, smi, mhz):
 
     # -- 12f. the list pool at N=2M disc theta=0.5 (BASELINE's tree config) --
     n2 = 2_000_000
-    p2, tp5 = SimParams(particle_num=n2), TreeParams(theta=0.5)  # walk_tile resolves to 512
-    ss, tree, keys, pos_new = sorted_scene(
-        disc_init(torch.Generator().manual_seed(0), p2, dev), p2, tp5)
+    p2, tp5 = SimParams(particle_num=n2), TreeParams(theta=0.5)  # walk_tile resolves to 256
+    disc2 = disc_init(torch.Generator().manual_seed(0), p2, dev)
+    ss, tree, keys, pos_new = sorted_scene(disc2, p2, tp5)
     tiles = held_tiles("12f N=2M disc theta=0.5", tree.split, n2, tp5, keys)
     worst = tiles.t_cap * max_chunks(tiles)  # every tile's list at its step budget
     with pool_of(gcuda, worst):
@@ -1900,7 +1901,25 @@ def phase_b4(dev, smi, mhz):
           f"{ms_disc:.3f} ms; [{smi}]")
     if int(st5.pool_deferred) or used > pool_chunks(n2):
         fail("the default list pool is too small for the N=2M disc theta=0.5 scene")
-    del ss, tree, keys, pos_new, tiles, need
+    # the step's own pool counters, under a profiler: the same lists, so
+    # the same chunks as the walk above with a pool of every budget
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        TreeSim(p2, tp5).step_fn()(disc2)
+        torch.cuda.synchronize()
+    counted = profiling.counters()
+    profiling.reset_counters()
+    print(f"12f the step's counters under a profiler: walk.pool_chunks "
+          f"{counted.get('walk.pool_chunks')} (the walk above took {used}), walk.pool_cap "
+          f"{counted.get('walk.pool_cap')} (pool_chunks {pool_chunks(n2)}): the pool "
+          f"{100.0 * used / pool_chunks(n2):.2f}% full")
+    if counted.get("walk.pool_chunks") != used or counted.get("walk.pool_cap") != pool_chunks(n2):
+        fail("12f the step's walk.pool_chunks or walk.pool_cap differs from the walk's own count")
+    del ss, tree, keys, pos_new, tiles, need, disc2
     torch.cuda.empty_cache()
     phase_tiles(dev, smi)
     return tile_rec, {

@@ -2,8 +2,9 @@
 (``utils/profiling.py``) record only under ``torch.profiler``; the runner's
 ``runner.enqueue``, ``runner.sync`` and ``runner.health`` ranges, the
 leapfrog's ``leapfrog.drift`` and ``leapfrog.kick``, and the group walk's
-counters ``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers`` and
-``walk.deferred``, on a small CPU TreeSim scene."""
+counters ``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers``,
+``walk.deferred``, ``walk.pool_chunks`` and ``walk.pool_cap``, on small CPU
+TreeSim scenes."""
 
 import contextlib
 import json
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
 from wgpu_n_body_tpu_torch.models import TreeSim
 from wgpu_n_body_tpu_torch.models import tree as tree_model
 from wgpu_n_body_tpu_torch.ops.tree_build import build_tree, morton_sort
@@ -144,7 +146,7 @@ def test_the_default_step_opens_no_range_and_reduces_nothing_without_a_profiler(
 
     monkeypatch.setattr(torch.profiler, "record_function", probe("record_function", record))
     monkeypatch.setattr(tree_model, "count", probe("count", profiling.count))
-    for field in ("deferred", "pool_deferred", "pairs"):
+    for field in ("deferred", "pool_deferred", "pairs", "pool_used"):
         prop = getattr(GroupWalkStats, field)
         monkeypatch.setattr(GroupWalkStats, field, property(probe("stats", prop.fget)))
     runner = _runner(_sim(**DEFER), _scene("clustered"))
@@ -154,45 +156,84 @@ def test_the_default_step_opens_no_range_and_reduces_nothing_without_a_profiler(
     assert profiling.counters() == {}
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         runner.step()
-    assert calls["record_function"] > 0 and calls["count"] == 4 and calls["stats"] == 2
+    assert calls["record_function"] > 0 and calls["count"] == 6 and calls["stats"] == 3
 
 
 # ------------------------------------------------------- walk counters
 
 
-def _independent_count(state, tp):
-    """(pairs, eval_pairs, deferred) of the group walk of the sorted
-    ``state`` at rest, from ``tile_setup`` and ``group_walk_lists``: pairs
-    by the formula of ``chip_smoke.py`` (rows times receivers over the tiles
-    neither bad nor pool_full), eval_pairs with the receivers rounded up to
-    whole 32-receiver blocks; deferred receivers of those tiles and of the
-    partition."""
+def _plain_walk(state, tp):
+    """(tiles, lists) of the group walk of ``state`` at rest, from the plain
+    sort, build, ``tile_setup`` and ``group_walk_lists``."""
     ss, bound, keys = morton_sort(state, tp.max_depth)
     tree = build_tree(ss, keys, bound, tp)
-    tiles = tile_setup(keys, N, tp)
-    lists = group_walk_lists(ss.pos, tree, tiles, tp)
+    tiles = tile_setup(keys, ss.pos.shape[0], tp)
+    return tiles, group_walk_lists(ss.pos, tree, tiles, tp)
+
+
+def _independent_count(state, tp):
+    """(pairs, eval_pairs, deferred, pool chunks) of the group walk of the
+    sorted ``state`` at rest, from ``tile_setup`` and ``group_walk_lists``:
+    pairs by the formula of ``chip_smoke.py`` (rows times receivers over the
+    tiles neither bad nor pool_full), eval_pairs with the receivers rounded
+    up to whole 32-receiver blocks; deferred receivers of those tiles and of
+    the partition; the chunks of 256 rows each list fills, over the tiles
+    the pool had room for."""
+    tiles, lists = _plain_walk(state, tp)
     nt = int((tiles.piece_len > 0).sum())
     fin = ~(lists.bad | lists.pool_full)[:nt]
     pairs = int((lists.rows[:nt][fin].double() * tiles.piece_len[:nt][fin].double()).sum())
     blocks = [-(-min(int(x), tiles.g) // 32) for x in tiles.piece_len[:nt][fin]]
     eval_pairs = sum(int(r) * 32 * b for r, b in zip(lists.rows[:nt][fin], blocks))
     deferred = int((tiles.deferred | (lists.bad | lists.pool_full)[tiles.tile_id]).sum())
-    return pairs, eval_pairs, deferred
+    room = ~lists.pool_full[:nt]
+    chunks = sum(-(-int(r) // 256) for r in lists.rows[:nt][room])
+    return pairs, eval_pairs, deferred, chunks
+
+
+def _pool_cap(n):
+    """Chunks of 256 ids in a pool of 32 ids a receiver, at least 2^24 ids."""
+    return max(32 * n, 1 << 24) // 256
 
 
 @pytest.mark.parametrize("kind,kw", [("uniform", {}), ("clustered", DEFER)],
                          ids=["no-deferral", "deferral"])
 def test_walk_counters_equal_an_independent_count(tmp_path, kind, kw):
     sim, state = _sim(**kw), _scene(kind)
-    pairs, eval_pairs, deferred = _independent_count(state, sim.add_params)
+    pairs, eval_pairs, deferred, chunks = _independent_count(state, sim.add_params)
     diag = sim.diagnose(state)
     assert (deferred > 0) == bool(kw) and diag["walk_deferred"] == deferred
     runner = _runner(sim, state)
     _traced(runner.step, tmp_path)
     assert profiling.counters() == {"walk.pairs": pairs, "walk.eval_pairs": eval_pairs,
-                                    "walk.receivers": N, "walk.deferred": deferred}
+                                    "walk.receivers": N, "walk.deferred": deferred,
+                                    "walk.pool_chunks": chunks, "walk.pool_cap": _pool_cap(N)}
     _traced(lambda: runner.run(2, chunk=2), tmp_path)  # totals add up across windows
-    assert profiling.counters()["walk.receivers"] == 3 * N
+    got = profiling.counters()
+    assert got["walk.receivers"] == 3 * N and got["walk.pool_cap"] == 3 * _pool_cap(N)
+
+
+POOL_N = 3000
+INITS = {"uniform": uniform_init, "disc": disc_init}
+
+
+@pytest.mark.parametrize("theta", [0.5, 0.75])
+@pytest.mark.parametrize("scene", list(INITS))
+def test_pool_counters_equal_an_independent_count(tmp_path, scene, theta):
+    """``walk.pool_chunks`` and ``walk.pool_cap`` of a traced step, at the
+    port's default tree settings, equal the entries of the plain walk's
+    chunk table, the chunks its lists fill, and the pool's size by hand."""
+    sp = SimParams(particle_num=POOL_N)
+    sim = TreeSim(sp, TreeParams(theta=theta))
+    drawn = INITS[scene](torch.Generator().manual_seed(11), sp, "cpu")
+    state = drawn._replace(vel=torch.zeros_like(drawn.vel))  # at rest: the walk sees these
+    tiles, lists = _plain_walk(state, sim.add_params)
+    table = int((lists.chunks >= 0).sum())
+    chunks = _independent_count(state, sim.add_params)[3]
+    assert table == chunks > 0 and not bool(lists.pool_full.any())
+    _traced(_runner(sim, state).step, tmp_path)
+    got = profiling.counters()
+    assert got["walk.pool_chunks"] == chunks and got["walk.pool_cap"] == _pool_cap(POOL_N)
 
 
 def test_counters_stay_empty_after_steps_without_a_profiler():

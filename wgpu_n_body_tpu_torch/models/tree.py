@@ -29,10 +29,11 @@ inside it in order, ``morton_keys``, ``morton_sort``, ``tree_build``,
 ``counters`` and ``leapfrog.kick``. In ``counters``, outside the walk's
 range, the group walk adds its receiver-row pairs, the pairs its
 evaluation kernel computed (whole 32-receiver blocks, counted by the
-kernel), its receivers and deferred receivers to the counters
-``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers`` and
-``walk.deferred`` (``utils/profiling.py::count``). With no profiler a step
-opens no range and counts nothing.
+kernel), its receivers and deferred receivers, the list pool's chunks its
+lists took and the chunks the pool holds to the counters ``walk.pairs``,
+``walk.eval_pairs``, ``walk.receivers``, ``walk.deferred``,
+``walk.pool_chunks`` and ``walk.pool_cap`` (``utils/profiling.py::count``).
+With no profiler a step opens no range and counts nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
-from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupLists, GroupWalkStats, Tiles
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupLists, GroupWalkStats, Tiles, pool_chunks
 from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
 from wgpu_n_body_tpu_torch.utils.profiling import count, trace_scope, tracing
@@ -77,9 +78,10 @@ def check_walk_tile(tp: TreeParams, n_receivers: int, device: torch.device) -> N
         )
 
 
-def _walk_counts(stats: GroupWalkStats) -> tuple[torch.Tensor, torch.Tensor]:
-    """(walk.pairs, walk.deferred) of one group walk, () int64 each."""
-    return stats.pairs, stats.deferred.to(torch.int64)
+def _walk_counts(stats: GroupWalkStats) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(walk.pairs, walk.deferred, walk.pool_chunks) of one group walk, ()
+    int64 each."""
+    return stats.pairs, stats.deferred.to(torch.int64), stats.pool_used
 
 
 def _load_counter_kernels(device: torch.device) -> None:
@@ -91,7 +93,7 @@ def _load_counter_kernels(device: torch.device) -> None:
     no = torch.zeros(1, dtype=torch.bool, device=device)
     stats = GroupWalkStats(no, no, Tiles(one, one, one, one, no, 1, 1, 1),
                            GroupLists(one, one, no, one, one, no))
-    pairs, deferred = _walk_counts(stats)
+    pairs, deferred, _ = _walk_counts(stats)
     torch.add(pairs, deferred)  # a running total's add (``utils/profiling.py::count``)
     torch.zeros((), dtype=torch.int64, device=device)  # the evaluation's counter, zeroed
 
@@ -142,11 +144,13 @@ class TreeSim(Simulator):
                     )
                 if tracing():
                     with trace_scope("counters"):
-                        pairs, deferred = _walk_counts(stats)
+                        pairs, deferred, pool_used = _walk_counts(stats)
                         count("walk.pairs", pairs)
                         count("walk.eval_pairs", stats.eval_pairs)
                         count("walk.receivers", pos_new.shape[0])
                         count("walk.deferred", deferred)
+                        count("walk.pool_chunks", pool_used)
+                        count("walk.pool_cap", pool_chunks(pos_new.shape[0]))
                 return acc
 
             return force

@@ -242,6 +242,12 @@ class GroupWalkStats(NamedTuple):
         done = ~(self.lists.bad | self.lists.pool_full)
         return (self.lists.rows.to(torch.int64) * self.tiles.piece_len * done).sum()
 
+    @property
+    def pool_used(self) -> torch.Tensor:
+        """() int64: list pool chunks the walk took (its chunk table's
+        entries other than -1)."""
+        return (self.lists.chunks >= 0).sum()
+
 
 #: Rows of one pool chunk: the unit a walk takes from the pool, and one
 #: stage of the evaluation kernel's shared-memory ring.
