@@ -58,8 +58,8 @@ Phases (any failure exits non-zero):
     (one accepted node per receiver made massless) must exceed; two launches
     bit-equal), both against float64 all-pairs, theta=0 against B1, the
     overfull-cell and overflow cases, and the full N=4M walk timed beside
-    the kernel it replaced, on its own source rows and on the caller's
-    table, and on 4096 consecutive receivers;
+    its bound, on its own source rows and on the caller's table, and on
+    4096 consecutive receivers;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
     launched K1, K2, the build (B5) and B3 once (and the diagnostics one
@@ -239,19 +239,18 @@ device ops per call or frame (the earlier design's times, measured in turns
 by ``utils/tile_raster_study.py``, are in PERF.md, not in the records).
 E1's bound is ``bound``'s, from the operations of a far-field pair of the
 function (``ENERGY_MUFU_PER_PAIR``, ``ENERGY_FLOPS_PER_PAIR``: 1 MUFU and
-21 float32 flops), and its bytes (16 per body); PR 13's count (the closed
-form's 4 MUFU and 41 flops, which the series beats, so no bound of the
-function) is printed beside it. Its record's times are phase 19b's at N=262144 (the N=4M
-evaluation as ``n4m``), its launches those of 20a (``cli headless
---energy-every`` at the defaults) and, as ``launches_naive_cli``, phase 5's.
+21 float32 flops), and its bytes (16 per body). Its record's times are
+phase 19b's at N=262144 (the N=4M evaluation as ``n4m``), its launches
+those of 20a (``cli headless --energy-every`` at the defaults) and, as
+``launches_naive_cli``, phase 5's.
 K1's and B5's times are on the main path's input (the N=4M state one step
 after the initial one); K1's record carries the sort's times. B3's
 record carries the tree-host path's launches; its times, bound and error
 are those of the build kernels' arena (``arena``), and its figures on the
 host arena and on the per-particle path are extra keys.
-``utils/group_walk_study.py`` and ``utils/tree_walk_study.py`` hold B4's and
-B3's development measurements (the replaced kernels beside the new ones,
-SASS counts, launch-shape sweeps); this script does not run them.
+The helpers it shares with the development studies (the card's label,
+the timers, the bounds, the ptxas and SASS readers, the scenes) are
+``wgpu_n_body_tpu_torch/utils/chip.py``'s; this script runs no study.
 The last two lines are a JSON record of the kernels and ``{"ok": true, ...}``.
 """
 
@@ -263,7 +262,6 @@ import io
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -274,8 +272,34 @@ from collections import Counter
 import numpy as np
 import torch
 
+from wgpu_n_body_tpu_torch.utils.chip import (
+    FP32_PEAK,
+    HBM_PEAK,
+    N_LOCAL,
+    N_TREE,
+    N_VIS,
+    RASTER_SMALL_BOX,
+    VIS_DT,
+    VIS_G,
+    VIS_STEPS,
+    bound,
+    card,
+    device_ms,
+    flythrough_camera,
+    headless_after_one_step,
+    launch_split,
+    max_sm_clock_mhz,
+    octant_boxes,
+    octant_local,
+    print_ptxas,
+    ptxas_kernels,
+    sass_loops,
+    sorted_scene,
+    time_ms,
+    visualize_pos,
+)
+
 N_MAIN = 262144
-N_TREE = 4_000_000  # cli headless default (reference bin/headless.rs)
 STEPS = 10
 STEPS_MXU = 5
 
@@ -289,46 +313,6 @@ def row_rel_err(got, want):
     """Per-row relative L2 error |got_i - want_i| / |want_i| (float64)."""
     got, want = got.double(), want.double()
     return ((got - want).norm(dim=1) / want.norm(dim=1)).cpu().numpy()
-
-
-def time_ms(fn, reps):
-    """Mean ms of ``fn`` over ``reps`` calls after one warm call, by CUDA
-    events; returns (ms, warm call's result)."""
-    out = fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, out
-
-
-def print_ptxas(log: str) -> None:
-    if log == "cached":
-        print("  ptxas: (library already built in this checkout: no compiler output)")
-    for line in log.splitlines():
-        if re.search(r"registers|spill|smem|bytes stack", line):
-            print(f"  ptxas: {line.strip()}")
-
-
-def ptxas_kernels(log: str):
-    """(entry function, registers, spill store bytes, spill load bytes) of
-    each kernel in ``nvcc -Xptxas -v`` output."""
-    rows, name, spills = [], None, (0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spills = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name is not None:
-            rows.append((name, int(m.group(1)), *spills))
-            name, spills = None, (0, 0)
-    return rows
 
 
 def run_cli(cli, argv):
@@ -364,43 +348,8 @@ def main_state(params, dev, n=N_MAIN):
             torch.ones(n, device=dev))
 
 
-#: Hopper's special-function units: 16 results per SM per clock (rsqrt,
-#: reciprocal); the published float32 rate outside the tensor cores and the
-#: HBM rate of an H100 SXM (NVIDIA's H100 datasheet), at 700 W.
-SFU_PER_SM_CLOCK = 16
-FP32_PEAK = 67e12
-HBM_PEAK = 3.35e12
 NO_LIBRARY = ("none: no single PyTorch call computes softened gravity over pairs or a "
               "tree walk")
-
-
-def bound(count, mufu_each, flops_each, nbytes, mhz):
-    """The least time the card could take: the larger of the special-function
-    ops at 16 per SM per clock at ``mhz``, the float32 flops at the published
-    peak and the bytes at the HBM rate, for ``count`` pairs (or
-    interactions)."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    times = {
-        "SFU": count * mufu_each / (SFU_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3,
-        "FP32": count * flops_each / FP32_PEAK * 1e3,
-        "HBM": nbytes / HBM_PEAK * 1e3,
-    }
-    unit = max(times, key=times.get)
-    return {"bound_ms": times[unit], "bound_by": "bytes" if unit == "HBM" else "operations",
-            "bound_unit": unit, "bound_count": count, "bound_fp32_ms": times["FP32"],
-            "sm_mhz": mhz}
-
-
-def sorted_scene(state, params, tp):
-    """(sorted state, tree, keys, drifted positions) of one tree step, built
-    as TreeSim builds it on the card (K1, CUB's sort, the kernels of B5)."""
-    from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
-    from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
-
-    perm, bound_, keys = morton_order_cuda(state.pos, tp.max_depth)
-    ss, tree = build_tree_cuda(state, perm, keys, bound_, tp)
-    pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt  # the drift
-    return ss, tree, keys, pos_new
 
 
 @contextlib.contextmanager
@@ -1186,11 +1135,6 @@ def phase_sort(dev, smi, mhz):
     return k1, b5
 
 
-#: B3 before its redesign (one thread per receiver), as phase 10c of this
-#: script at commit 298b65c timed it on an NVIDIA H100 80GB HBM3 at 700 W: ms
-#: for the 4M receivers. Printed beside this run's time, not measured here
-#: (utils/tree_walk_study.py --parent times that kernel in turns with this one).
-B3_PARENT_MS = 14.257
 #: Per-row p99 gate of B3 against the plain walk: the same nodes and members
 #: per receiver, approximate rsqrt and divide and another order of float32
 #: sums (B4's evaluation gate on equal lists).
@@ -1322,9 +1266,8 @@ def phase_b3(dev, smi, mhz):
         fail("B3 on 4096 consecutive receivers differs from the same rows of the full walk")
     bound3 = bound(b3_count, 2, 20, N_TREE * (12 + 16 + 12) + m_nodes * 44, mhz)
     print(f"10c B3 full walk N={N_TREE}: {ms_full:.3f} ms per call, the pack kernel included "
-          f"({ms_full / N_TREE * 1e6:.3f} ns per receiver; before the redesign "
-          f"{B3_PARENT_MS:.3f} ms, not timed in this run: this phase at commit 298b65c, NVIDIA "
-          f"H100 80GB HBM3, 700 W; on the caller's source table {ms_table:.3f} ms); bound "
+          f"({ms_full / N_TREE * 1e6:.3f} ns per receiver; on the caller's source table "
+          f"{ms_table:.3f} ms); bound "
           f"{bound3['bound_ms']:.4f} ms: {bound3['bound_ms'] / ms_full:.2%}; rows of the "
           f"{idx.numel()} sampled receivers against their own launch: p99 {p99_full:.3e}, "
           f"{int((k_full[idx] == k_sub).all(1).sum())} bit-equal; 4096 consecutive receivers "
@@ -1578,9 +1521,13 @@ def phase_b4(dev, smi, mhz):
         for g_tile in (128, 256, 512):
             tp = TreeParams(walk_tile=g_tile)  # otherwise the defaults: theta 0.75
             tiles = held_tiles(f"12a {name} walk_tile {g_tile}", tree.split, N_MAIN, tp, keys)
-            ms_k, (k_acc, k_bad, k_steps, k_rows) = time_ms(
-                lambda: gcuda.group_walk_tiles_cuda(pos_new, ss.pos, ss.mass, tree, tiles,
-                                                    params, tp), 3)
+
+            def walk_and_eval():
+                lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
+                return lists, gcuda.group_eval_lists_cuda(pos_new, ss.pos, ss.mass, tree, tiles,
+                                                          lists, params)
+
+            ms_k, (k_walk, k_acc) = time_ms(walk_and_eval, 3)
             k_lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
             k_eval = gcuda.group_eval_lists_cuda(pos_new, ss.pos, ss.mass, tree, tiles, k_lists,
                                                  params)
@@ -1607,8 +1554,8 @@ def phase_b4(dev, smi, mhz):
             if not torch.equal(k_ids, p_ids):
                 fail(f"{what}: the walk kernel's list ids differ from the plain version's in "
                      f"{int((k_ids != p_ids).any(1).sum())} tiles")
-            if not (torch.equal(k_bad, k_lists.bad) and torch.equal(k_rows, k_lists.rows)
-                    and torch.equal(k_steps, k_lists.steps)):
+            if not all(torch.equal(getattr(k_walk, f), getattr(k_lists, f))
+                       for f in ("bad", "rows", "steps")):
                 fail(f"{what}: two walks of the same tiles differ")
             good = ~(tiles.deferred | p_lists.bad[tiles.tile_id])
             if not torch.equal(k_acc[good], k_eval[good]):
@@ -1616,10 +1563,10 @@ def phase_b4(dev, smi, mhz):
             rel = row_rel_err(k_eval[good], p_acc[good])
             abs_err = (k_eval[good] - p_acc[good]).abs().max().item()
             nt = int((tiles.piece_len > 0).sum())
-            print(f"12a {what} N={N_MAIN} theta=0.75: {nt} tiles, {int(k_bad.sum())} deferred, "
-                  f"steps/tile max {int(k_steps.max())} mean "
-                  f"{float(k_steps[:nt].float().mean()):.1f}, list rows "
-                  f"{int(k_rows[fin].sum())} — walk kernel: flags, steps, rows and "
+            print(f"12a {what} N={N_MAIN} theta=0.75: {nt} tiles, {int(k_lists.bad.sum())} "
+                  f"deferred, steps/tile max {int(k_lists.steps.max())} mean "
+                  f"{float(k_lists.steps[:nt].float().mean()):.1f}, list rows "
+                  f"{int(k_lists.rows[fin].sum())} — walk kernel: flags, steps, rows and "
                   f"{int(k_ids.ne(-1).sum())} list ids equal to the plain version's; "
                   f"evaluation kernel vs plain on those lists, {int(good.sum())} receivers: "
                   f"per-row p99 {np.percentile(rel, 99):.3e} max {rel.max():.3e}, max|k-p| "
@@ -1630,7 +1577,7 @@ def phase_b4(dev, smi, mhz):
             max_abs = max(max_abs, abs_err)
             if name == "uniform" and g_tile == 512:  # the main path's instantiation
                 ms_plain = ms_p + ms_pe
-            del tiles, k_acc, k_eval, p_acc, k_lists, p_lists, k_ids, p_ids
+            del tiles, k_walk, k_acc, k_eval, p_acc, k_lists, p_lists, k_ids, p_ids
         del ss, tree, keys, pos_new
     torch.cuda.empty_cache()
 
@@ -2236,17 +2183,6 @@ def host_step_split(state, params, tp, dev):
     return out
 
 
-def max_sm_clock_mhz():
-    """The card's maximum SM clock (nvidia-smi ``clocks.max.sm``): the
-    clock a bound assumes."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout.split()
-    try:
-        return float(out[0])
-    except (IndexError, ValueError):
-        fail(f"nvidia-smi gave no maximum SM clock: {out}")
-
-
 def phase_group_cli(dev, smi):
     """13. The main path: ``cli headless`` with its defaults (group walk)."""
     from wgpu_n_body_tpu_torch import cli
@@ -2308,14 +2244,6 @@ def phase_group_cli(dev, smi):
     return counts
 
 
-#: B6's per-thread box (``csrc/raster.cu`` kSmallBox): a footprint whose
-#: clipped box is wider or higher goes to the tile kernel's list
-RASTER_SMALL_BOX = 8
-#: cli visualize / serve defaults (reference bin/visualize.rs: TreeSim, disc)
-N_VIS, VIS_G, VIS_DT = 100_000, 1e-5, 0.0016
-#: the flythrough camera of 15a moves forward until this many footprints
-#: leave the per-thread box
-FLY_LISTED = 1000
 NO_RASTER_LIBRARY = ("none: no single PyTorch call rasterises triangles by the pixel-centre "
                      "rule (index_add_ or bincount only scatters the hits)")
 
@@ -2433,20 +2361,6 @@ def raster_bound(rec):
             "operations", "bound_bytes": nbytes, "bound_ops": ops, "bound_ops_ms": t_ops}
 
 
-PROFILER_TRIES = 5  # windows before an empty trace fails the run
-
-
-def device_ms(fn, reps):
-    """(device ms per call of ``fn``, {kernel or memset: ms per call}, device
-    ops per call) from a profiler window of ``reps`` calls after one warm
-    call (``launch_split``), without the host's enqueue time between them."""
-    fn()
-    torch.cuda.synchronize()
-    split = launch_split(fn, reps)
-    parts = {k: ms for k, (ms, _) in split.items()}
-    return sum(parts.values()), parts, sum(c for _, c in split.values())
-
-
 def timed_frame(rec, pos, cam, reps=20):
     """15b: raster, blend and both by device time (profiler) and by CUDA
     events over calls queued back to back (which the host's enqueue bounds
@@ -2478,57 +2392,6 @@ def timed_frame(rec, pos, cam, reps=20):
     return rec
 
 
-def visualize_pos(dev):
-    """The visualize scene: ``cli visualize``'s TreeSim N_VIS disc after
-    STEPS steps."""
-    from wgpu_n_body_tpu_torch.inits import disc_init
-    from wgpu_n_body_tpu_torch.models import TreeSim
-    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
-    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
-
-    params = SimParams(particle_num=N_VIS, g=VIS_G, dt=VIS_DT)
-    runner = OfflineHeadless(TreeSim(params, TreeParams(theta=0.75)), disc_init, seed=0,
-                             device=dev)
-    for _ in range(STEPS):
-        runner.step()
-    return runner.state.pos
-
-
-def flythrough_camera(pos):
-    """(camera, moves): the default camera moved forward 0.2 at a time until
-    at least FLY_LISTED footprints of ``pos`` pass the per-thread box (the
-    plain boxes), after at most 12 moves."""
-    from wgpu_n_body_tpu_torch.ops import raster
-    from wgpu_n_body_tpu_torch.runners.renderer import Camera
-
-    cam = Camera(aspect=1.0)
-    for moves in range(13):
-        keep, cx, cy, sx, sy = raster.triangles(*raster.project(pos, cam.view_proj()), 400, 400)
-        x0, x1, y0, y1 = raster.boxes(cx[keep], cy[keep], sx[keep], sy[keep], 400, 400)
-        wide = (x1 >= x0) & (y1 >= y0) & (
-            (x1 - x0 >= RASTER_SMALL_BOX) | (y1 - y0 >= RASTER_SMALL_BOX))
-        if int(wide.sum()) >= FLY_LISTED:
-            return cam, moves
-        cam = cam.moved("forward", 0.2)
-    fail(f"15a: 12 moves forward leave fewer than {FLY_LISTED} footprints past the "
-         f"{RASTER_SMALL_BOX} x {RASTER_SMALL_BOX} box")
-
-
-def headless_after_one_step(dev):
-    """The N_TREE uniform ``cli headless`` state after one step: sorted in
-    Morton order, as TreeSim hands the renderer every state after the
-    first."""
-    from wgpu_n_body_tpu_torch.inits import uniform_init
-    from wgpu_n_body_tpu_torch.models import TreeSim
-    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
-    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
-
-    sim = OfflineHeadless(TreeSim(SimParams(particle_num=N_TREE), TreeParams()), uniform_init,
-                          seed=0, device=dev)
-    sim.step()
-    return sim.state.pos
-
-
 def phase_render_kernels(dev, smi):
     """15a-b: B6 held and timed on every scene."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
@@ -2544,8 +2407,8 @@ def phase_render_kernels(dev, smi):
     # the visualize scene after 10 steps, at the default camera and flown in
     pos = visualize_pos(dev)
     cam = Camera(aspect=1.0)
-    vis = timed_frame(held_frame(f"visualize N={N_VIS} disc, {STEPS} steps", pos, cam, 400, 400,
-                                 "triangle"), pos, cam)
+    vis = timed_frame(held_frame(f"visualize N={N_VIS} disc, {VIS_STEPS} steps", pos, cam, 400,
+                                 400, "triangle"), pos, cam)
     cam, moves = flythrough_camera(pos)
     fly = timed_frame(held_frame(f"visualize flythrough ({moves} moves forward, eye "
                                  f"{[round(float(v), 3) for v in cam.eye]})", pos, cam, 400,
@@ -2798,36 +2661,11 @@ def phase_render(dev, smi, mhz):
 
 # ------------------------------------------------------------ multi-GPU (A13)
 
-#: BASELINE config 4's per-rank size (N=32,000,000 over 8 ranks), and the
-#: ranks of the emulated LET step (N = 4 x N_LOCAL)
-N_LOCAL = 4_000_000
+#: the ranks of the emulated LET step (N = 4 x N_LOCAL)
 P_EMULATED = 4
 #: receivers held against float64 in the emulated LET step
 LET_SAMPLE = 4096
 NO_EXPORT_LIBRARY = "none: no single PyTorch call prunes a tree against boxes"
-
-
-def octant_boxes(p, dev):
-    """(lo, hi) (p, 3): destination d is octant d % 8 of the global [-1, 1]^3
-    cube, x lowest (octant 0, this rank's own, is [-1, 0]^3): the geometry
-    of the JAX package's ``tools/measure_let.py --geometry octants``."""
-    lo = torch.tensor([[-1.0 + (d & 1), -1.0 + ((d >> 1) & 1), -1.0 + ((d >> 2) & 1)]
-                       for d in range(p)], dtype=torch.float32, device=dev)
-    return lo, lo + 1.0
-
-
-def octant_local(n, dev, tp, seed=0):
-    """One rank's LET sort and build (``sharded_tree.let_sort_build``) of n
-    bodies uniform in octant 0 of [-1, 1]^3 (mass 1, at rest), against the
-    whole cube's bound 1."""
-    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams
-    from wgpu_n_body_tpu_torch.parallel.sharded_tree import let_sort_build
-
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    pos = torch.rand((n, 3), generator=gen, device=dev) - 1.0
-    z = torch.zeros_like(pos)
-    state = ParticleState(pos, z, z, torch.ones(n, device=dev))
-    return let_sort_build(state, torch.ones(1, device=dev), SimParams(particle_num=n), tp)
 
 
 def held_export(what, local, blo, bhi, me, theta, cap):
@@ -2852,25 +2690,6 @@ def held_export(what, local, blo, bhi, me, theta, cap):
         fail(f"16 B7 {what}: the kernel's {bad} differ from the plain version's")
     err = max(float((getattr(k, f) - getattr(p, f)).abs().max()) for f in ("nodes", "parts"))
     return k, visited, err
-
-
-def launch_split(fn, reps):
-    """{launch name: (device ms per call, launches per call)} of ``fn``'s
-    kernels and memsets (``utils/profile_step.py::device_launches``); a
-    window in which the profiler saw no device activity is taken again, up
-    to ``PROFILER_TRIES`` windows, each of twice the calls and after a
-    pause (CUPTI loses a whole short window now and then: a window of 20
-    frames at N=4M is ~1.4 ms of device time)."""
-    from wgpu_n_body_tpu_torch.utils.profile_step import device_launches
-
-    for attempt in range(PROFILER_TRIES):
-        out = device_launches(fn, reps << attempt)
-        if out:
-            return out
-        print(f"chip_smoke: profiler window {attempt + 1} of {PROFILER_TRIES} saw no device "
-              "activity; taking it again", file=sys.stderr, flush=True)
-        time.sleep(1.0)
-    fail(f"the profiler saw no device activity in {PROFILER_TRIES} windows of launches")
 
 
 def phase_let_kernel(dev, smi):
@@ -3533,36 +3352,22 @@ N_ENERGY = 16_384
 #: coefficients (4 FMAs, 8), I = ri^2 P (1), m_j I accumulated (2): 21.
 ENERGY_MUFU_PER_PAIR = 1
 ENERGY_FLOPS_PER_PAIR = 21
-#: PR 13's count, from the closed form: MUFU, sqrt(r^2), 1/x for
-#: arctan(1/x), the reciprocal of the log's quotient and the log; float32
-#: flops, d (3), r^2 (5), x (3), arctan by a degree-8 polynomial and the
-#: pi/2 reflection (19), the log's quotient (6), the two terms' sum (3),
-#: accumulation (2). Printed beside the bound, so the two PRs' shares can be
-#: set side by side; the series needs less, so it bounds nothing.
-PR13_MUFU_PER_PAIR = 4
-PR13_FLOPS_PER_PAIR = 41
 NO_ENERGY_LIBRARY = "none: no single PyTorch call sums a pair potential over the pairs i < j"
 
 
-def energy_bound(n, mhz, pr13=False):
+def energy_bound(n, mhz):
     """E1's ``bound`` over the n (n - 1) / 2 pairs of n bodies: the
-    function's operations per pair (or, with ``pr13``, PR 13's count), the
-    bodies' 16 bytes each and the float64 out."""
-    mufu, flops = ((PR13_MUFU_PER_PAIR, PR13_FLOPS_PER_PAIR) if pr13
-                   else (ENERGY_MUFU_PER_PAIR, ENERGY_FLOPS_PER_PAIR))
-    return bound(n * (n - 1) / 2, mufu, flops, n * 16 + 8, mhz)
+    function's operations per pair, the bodies' 16 bytes each and the
+    float64 out."""
+    return bound(n * (n - 1) / 2, ENERGY_MUFU_PER_PAIR, ENERGY_FLOPS_PER_PAIR, n * 16 + 8, mhz)
 
 
 def far_pair_sass(lib_path, sass_dir=None):
     """(SASS instructions per pair, MUFU ops per pair, pairs per trip) of
     E1's far loop: the innermost loop of the softened kernel with the fewest
-    instructions per MUFU.RSQ (``utils/group_walk_study.sass_loops``; the far
-    loop has no branch and one RSQ a pair). None without ``cuobjdump``."""
-    from wgpu_n_body_tpu_torch.utils.group_walk_study import sass_loops
-
-    exe = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    loops = sass_loops(lib_path, "energy_kernelILb1E", sass_dir) if os.path.exists(exe) else []
+    instructions per MUFU.RSQ (``utils/chip.py::sass_loops``; the far loop
+    has no branch and one RSQ a pair). None without ``cuobjdump``."""
+    loops = sass_loops(lib_path, "energy_kernelILb1E", sass_dir)
     if not loops:
         return None
     _, n_ins, rsq, mufu = min(loops, key=lambda loop: loop[1] / loop[2])
@@ -3677,13 +3482,12 @@ def phase_energy(dev, smi, mhz, lib_path):
     err = rel(got, want)
     if err > ENERGY_RTOL:
         fail(f"19b E1 on share {share} at N={N_MAIN} is {err:.3e} from float64")
-    b, b_old = energy_bound(N_MAIN, mhz), energy_bound(N_MAIN, mhz, pr13=True)
+    b = energy_bound(N_MAIN, mhz)
     print(f"19b N={N_MAIN} uniform: E1 {ms:.3f} ms, plain float32 {plain_ms:.3f} ms, |E1 - "
           f"plain| {max_abs:.3e} (rel {rel(whole, whole32):.3e}); bound {b['bound_ms']:.3f} ms "
           f"({b['bound_unit']}; float32 {b['bound_fp32_ms']:.3f} ms), E1 at "
-          f"{b['bound_ms'] / ms:.2%}; PR 13's count (the closed form) {b_old['bound_ms']:.3f} "
-          f"ms, E1 at {b_old['bound_ms'] / ms:.2%}; two launches bit-equal; 5 shares sum to the whole "
-          f"within {share_err:.3e}; share {share} against float64 {err:.3e}; [{smi}]")
+          f"{b['bound_ms'] / ms:.2%}; two launches bit-equal; 5 shares sum to the whole within "
+          f"{share_err:.3e}; share {share} against float64 {err:.3e}; [{smi}]")
     rec = {"name": "potential_energy", "route": "cuda",
            "source": "wgpu_n_body_tpu_torch/csrc/energy.cu",
            "replaces": "wgpu_n_body_tpu/ops/energy.py:62", "max_abs_err": max_abs, "ms": ms,
@@ -3703,21 +3507,15 @@ def phase_energy(dev, smi, mhz, lib_path):
     # -- 19c. N=4M, the headless default's scene: one evaluation, timed --
     params = SimParams(particle_num=N_TREE)
     st = uniform_init(torch.Generator().manual_seed(0), params, dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = energy_cuda.potential_energy_cuda(st.pos, st.mass, params)
-    end.record()
-    torch.cuda.synchronize()
-    s_4m = start.elapsed_time(end) / 1e3
+    out, ms_4m = stage_ms(lambda: energy_cuda.potential_energy_cuda(st.pos, st.mass, params))
+    s_4m = ms_4m / 1e3
     share = (1234, 4096)
     err = rel(e1(st, params, share), plain(st, params, share, block=16, double=True))
-    b4m, b4m_old = energy_bound(N_TREE, mhz), energy_bound(N_TREE, mhz, pr13=True)
+    b4m = energy_bound(N_TREE, mhz)
     print(f"19c N={N_TREE} uniform: E1 {float(out):.9e} in {s_4m:.3f} s; bound "
           f"{b4m['bound_ms'] / 1e3:.3f} s ({b4m['bound_unit']}; float32 "
-          f"{b4m['bound_fp32_ms'] / 1e3:.3f} s), E1 at {b4m['bound_ms'] / 1e3 / s_4m:.2%}; PR 13's "
-          f"count (the closed form) {b4m_old['bound_ms'] / 1e3:.3f} s, E1 at "
-          f"{b4m_old['bound_ms'] / 1e3 / s_4m:.2%}; share {share} against float64 {err:.3e}; "
-          f"[{smi}]")
+          f"{b4m['bound_fp32_ms'] / 1e3:.3f} s), E1 at {b4m['bound_ms'] / 1e3 / s_4m:.2%}; "
+          f"share {share} against float64 {err:.3e}; [{smi}]")
     if not np.isfinite(float(out)) or err > ENERGY_RTOL:
         fail(f"19c E1 at N={N_TREE}: {float(out)!r}, share against float64 {err:.3e}")
     rec["n4m"] = {"s": s_4m, "bound_s": b4m["bound_ms"] / 1e3, "bound_unit": b4m["bound_unit"],
@@ -3815,38 +3613,32 @@ def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    try:
-        from wgpu_n_body_tpu_torch import cli
-        from wgpu_n_body_tpu_torch.inits import uniform_init
-        from wgpu_n_body_tpu_torch.models import NaiveSim
-        from wgpu_n_body_tpu_torch.native import build as native_build
-        from wgpu_n_body_tpu_torch.ops import (
-            energy_cuda,
-            import_forest_cuda,
-            let_export_cuda,
-            morton_cuda,
-            naive_cuda,
-            raster_cuda,
-            tree_build_cuda,
-            tree_walk_cuda,
-            tree_walk_group_cuda,
-        )
-        from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
-        from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
-        from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
-    except ImportError as exc:
-        fail(f"run from a checkout of the repo ({exc})")
+    from wgpu_n_body_tpu_torch import cli
+    from wgpu_n_body_tpu_torch.inits import uniform_init
+    from wgpu_n_body_tpu_torch.models import NaiveSim
+    from wgpu_n_body_tpu_torch.native import build as native_build
+    from wgpu_n_body_tpu_torch.ops import (
+        energy_cuda,
+        import_forest_cuda,
+        let_export_cuda,
+        morton_cuda,
+        naive_cuda,
+        raster_cuda,
+        tree_build_cuda,
+        tree_walk_cuda,
+        tree_walk_group_cuda,
+    )
+    from wgpu_n_body_tpu_torch.ops.naive_ref import naive_forces_ref
+    from wgpu_n_body_tpu_torch.params import NaiveParams, SimParams
+    from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
+
     if "jax" in sys.modules or "wgpu_n_body_tpu" in sys.modules:
         fail("the port imported jax or the JAX package")
 
     # -- 1. the card -------------------------------------------------------
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(dev)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 

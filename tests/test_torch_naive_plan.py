@@ -186,12 +186,12 @@ def test_build_cache_hashes_included_headers(tmp_path, monkeypatch):
 
 def test_naive_study_rewrites_each_launch_constant_once(tmp_path, monkeypatch):
     from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
-    from wgpu_n_body_tpu_torch.utils import group_walk_study
+    from wgpu_n_body_tpu_torch.utils.chip import variant_source
 
     monkeypatch.setattr(gcuda, "BUILD_DIR", tmp_path)
-    assert group_walk_study.variant_source({}, naive_cuda.SOURCE) == naive_cuda.SOURCE
+    assert variant_source({}, naive_cuda.SOURCE) == naive_cuda.SOURCE
     for var in naive_study.SWEEP[1:-1]:
-        path = group_walk_study.variant_source(var, naive_cuda.SOURCE)
+        path = variant_source(var, naive_cuda.SOURCE)
         assert path.parent == tmp_path and path.name.startswith("naive_forces_")
         text = path.read_text()
         for name, value in var.items():
@@ -199,8 +199,6 @@ def test_naive_study_rewrites_each_launch_constant_once(tmp_path, monkeypatch):
         # the copy finds the shared header through the include path
         assert cuda_build.included_headers(path) == [
             (cuda_build.CSRC / "pair_term.cuh").resolve()]
-    assert naive_study.PARENT_SHA256 != naive_study.hashlib.sha256(
-        naive_cuda.SOURCE.read_bytes()).hexdigest()
 
 
 def _fake_limits(calls, err=0):

@@ -557,8 +557,3 @@ def test_wrapper_on_cpu_takes_plain_version_and_other_devices_raise():
         tree_walk_group_cuda.group_tree_forces_cuda(
             meta[0], meta[0], meta[1], meta_tree, meta_keys, params, ttp
         )
-    tiles = tile_setup(keys, 200, ttp)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tree_walk_group_cuda.group_walk_tiles_cuda(
-            ss.pos, ss.pos, ss.mass, tree, tiles, params, ttp
-        )

@@ -240,14 +240,15 @@ def test_kernel_wrappers_take_cuda_tensors_and_report_the_pool_stat():
 def test_study_sweep_rewrites_each_launch_constant_once(tmp_path, monkeypatch):
     from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
     from wgpu_n_body_tpu_torch.utils import group_walk_study as study
+    from wgpu_n_body_tpu_torch.utils.chip import variant_source
 
     monkeypatch.setattr(gcuda, "BUILD_DIR", tmp_path)
-    assert study.variant_source({}) == gcuda.SOURCE
+    assert variant_source({}) == gcuda.SOURCE
     for var in study.SWEEP[1:-1]:
-        text = study.variant_source(var).read_text()
+        text = variant_source(var).read_text()
         for name, value in var.items():
             assert f"constexpr int {name} = {value};" in text
     assert "constexpr int kChunk = 256;" in gcuda.SOURCE.read_text()
     assert twg.LIST_CHUNK == 256  # the wrapper passes it; the launcher checks it
     with pytest.raises(SystemExit, match="kNoSuch"):
-        study.variant_source({"kNoSuch": 1})
+        variant_source({"kNoSuch": 1})

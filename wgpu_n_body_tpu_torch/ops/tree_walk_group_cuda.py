@@ -288,25 +288,6 @@ def group_eval_lists_cuda(
     return out
 
 
-def group_walk_tiles_cuda(
-    pos_new: torch.Tensor,
-    src_pos: torch.Tensor,
-    src_mass: torch.Tensor,
-    tree: TreeArrays,
-    tiles: Tiles,
-    params: SimParams,
-    tree_params: TreeParams,
-    gid_offset: int = 0,
-):
-    """The kernels' counterpart of ``tree_walk_group.group_walk_tiles``, CUDA
-    tensors only: ((n, 3) acc*dt, tile_bad (t_cap,) bool (deferred: over
-    the step budget or no room in the pool), tile_steps (t_cap,) int32,
-    tile_rows (t_cap,) int32). Rows of deferred receivers are not written."""
-    lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)
-    acc = group_eval_lists_cuda(pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset)
-    return acc, lists.bad | lists.pool_full, lists.steps, lists.rows
-
-
 def group_tree_forces_cuda(
     pos_new: torch.Tensor,
     src_pos: torch.Tensor,

@@ -19,7 +19,7 @@ and as copies with other block sizes, whose results are the built ones:
   min8       launch bounds asking for 8 resident blocks per SM (at most 32
              registers a thread).
 The copies and the source as built run in turns (built, copies..., built)
-on ``chip_smoke.py`` phase 16's octant geometry at P=8 and P=4. Builds go to
+on phase 16's octant geometry (``utils/chip.py``) at P=8 and P=4. Builds go to
 the git-ignored ``_build/study/``. Prints one JSON line per shape with the
 card's name and power limit. Needs a CUDA device.
 """
@@ -30,7 +30,6 @@ import argparse
 import ctypes
 import json
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -40,7 +39,7 @@ import torch
 from wgpu_n_body_tpu_torch.ops import cuda_build, let_export_cuda
 from wgpu_n_body_tpu_torch.params import TreeParams
 from wgpu_n_body_tpu_torch.parallel.let_tree import auto_let_cap
-from wgpu_n_body_tpu_torch.utils.profile_step import device_launches
+from wgpu_n_body_tpu_torch.utils.chip import N_LOCAL, card, device_ms, octant_boxes, octant_local
 
 HEADER = cuda_build.CSRC / "chained_scan.cuh"
 #: (file, text, replacement) edits of each variant; each text occurs once
@@ -110,16 +109,6 @@ def use(module, build_fn: str, lib: Path) -> None:
             setattr(module, attr, None)
 
 
-def device_ms(fn, reps):
-    """Device ms per call of ``fn``: its launches summed over a profiler
-    window of ``reps`` calls after one warm call. (CUDA events around calls
-    of these wrappers would time the host's enqueue, which is longer.)"""
-    fn()
-    torch.cuda.synchronize()
-    ms = sum(ms for ms, _ in device_launches(fn, reps).values())
-    return ms if ms > 0 else "not measured: the profiler saw no device activity"
-
-
 def probe(fn) -> dict:
     """B7's phases from the ``probe`` copy: per phase the mean and the 90th
     percentile of the blocks' durations (µs), and when the blocks start and
@@ -152,8 +141,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chained_scan_study needs a CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = card()
     dev = torch.device("cuda", 0)
     shutil.rmtree(let_export_cuda.BUILD_DIR / "study", ignore_errors=True)
     tp = TreeParams()
@@ -161,9 +149,6 @@ def main(argv=None) -> int:
         source, names = KERNELS[kernel]
         libs = {name: variant(source, name) for name in ("built",) + names}
         order = ["built", *names, "built"]
-        sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-        from chip_smoke import N_LOCAL, octant_boxes, octant_local  # phase 16's geometry
-
         local, cap = octant_local(N_LOCAL, dev, tp), auto_let_cap(N_LOCAL, tp.theta)
         shapes = {}
         for p in (8, 4):
@@ -176,7 +161,7 @@ def main(argv=None) -> int:
             times = []
             for name in order:
                 use(module, build_fn, libs[name])
-                times.append((name, device_ms(fn, args.reps)))
+                times.append((name, device_ms(fn, args.reps)[0]))
             print(json.dumps({"kernel": source, "shape": shape, "ms_in_turns": times,
                               "card": smi}))
             if args.probe:

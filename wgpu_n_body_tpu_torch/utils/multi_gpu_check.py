@@ -33,7 +33,6 @@ import argparse
 import concurrent.futures
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -57,6 +56,7 @@ from wgpu_n_body_tpu_torch.params import NaiveParams, ParticleState, SimParams, 
 from wgpu_n_body_tpu_torch.parallel import ShardedNaiveSim, ShardedTreeSim
 from wgpu_n_body_tpu_torch.parallel.mesh import free_port, init_distributed, make_mesh
 from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+from wgpu_n_body_tpu_torch.utils.chip import smi
 
 SCHEDULES = (("naive", "allgather"), ("naive", "ring"), ("tree", "replicated"), ("tree", "let"))
 
@@ -185,10 +185,7 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         if torch.cuda.device_count() < args.devices:
             raise SystemExit(f"--devices {args.devices}: {torch.cuda.device_count()} GPUs visible")
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=True).stdout.strip().splitlines()
-        print("\n".join(smi), flush=True)
+        print("\n".join(smi("name,power.limit")), flush=True)
         with concurrent.futures.ThreadPoolExecutor(8) as pool:  # once, before the ranks
             mods = (naive_cuda, tree_walk_cuda, morton_cuda, tree_walk_group_cuda,
                     tree_build_cuda, let_export_cuda, import_forest_cuda)

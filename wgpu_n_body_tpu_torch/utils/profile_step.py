@@ -50,12 +50,7 @@ Needs a CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import re
-import subprocess
 import sys
-import tempfile
 import time
 
 import torch
@@ -66,6 +61,8 @@ from wgpu_n_body_tpu_torch.models import NaiveSim, TreeSim, TreeSimHost
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
 from wgpu_n_body_tpu_torch.parallel import ShardedTreeSim
 from wgpu_n_body_tpu_torch.parallel.mesh import free_port, init_distributed, make_mesh
+# launches_of reads a trace per launch, as kernel_breakdown reads it per range
+from wgpu_n_body_tpu_torch.utils.chip import card, launches_of, profiler_events, smi
 
 STEPS = 3  # in the profiler window
 RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "leapfrog.drift",
@@ -77,13 +74,6 @@ HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host
 STAGES = ("morton_keys", "morton_sort", "tree_build", "let_export", "let_exchange",
           "let_tiles", "let_local_walk", "let_import_walk", "let_import_forest",
           "let_fused_walk", "theta_walk")
-
-
-def _smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    ).stdout.strip()
 
 
 def kernel_breakdown(trace_events, names=RANGES):
@@ -108,42 +98,6 @@ def kernel_breakdown(trace_events, names=RANGES):
             busy += b - max(a, end)
             end = b
     return by_range, by_kernel, busy, intervals[-1][1] - intervals[0][0]
-
-
-def device_launches(fn, reps) -> dict:
-    """{launch: (device ms per call, launches per call)} of the kernels and
-    memsets ``fn`` enqueues, from a ``torch.profiler`` window of ``reps``
-    calls (``launches_of``); empty when the profiler saw no device
-    activity."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return launches_of(json.load(f)["traceEvents"], reps)
-
-
-def launches_of(trace_events, reps) -> dict:
-    """{launch: (device ms per call, launches per call)} of a trace of
-    ``reps`` calls, each launch named by its kernel (``..._kernel``) or
-    "Memset". A launch's ms is the mean of its events times its launches per
-    call (its events over ``reps``, to the nearest whole number, at least
-    1): CUPTI drops an event now and then, often at a window's edge, which a
-    sum over the window would read as a shorter call."""
-    durs = {}
-    for e in trace_events:
-        if e.get("cat") in ("kernel", "gpu_memset"):
-            m = re.search(r"\w+_kernel|Memset", e["name"])
-            durs.setdefault(m.group(0) if m else e["name"][:60], []).append(e["dur"] / 1e3)
-    out = {}
-    for name, d in durs.items():
-        per_call = max(1, round(len(d) / reps))
-        out[name] = (sum(d) / len(d) * per_call, per_call)
-    return out
 
 
 def host_ranges(trace_events, names=HOST_RANGES):
@@ -187,7 +141,7 @@ def main(argv=None) -> int:
         print("profile_step needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    print(_smi("name,power.limit"))
+    print(card())
     n = args.n or (262144 if args.sim == "naive" else 4_000_000)
     params = SimParams(particle_num=n)
     if args.sim == "naive":
@@ -217,7 +171,7 @@ def main(argv=None) -> int:
         state = step(state)
         torch.cuda.synchronize()
         walls.append(round((time.perf_counter() - t0) * 1e3, 3))
-    print(f"{type(sim).__name__} step wall ms", walls, _smi("clocks.sm,power.draw,power.limit"))
+    print(f"{type(sim).__name__} step wall ms", walls, smi("clocks.sm,power.draw,power.limit")[0])
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -226,11 +180,7 @@ def main(argv=None) -> int:
             state = step(state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    events = profiler_events(prof)
     by_range, by_kernel, busy, span = kernel_breakdown(events)
     total = sum(by_range.values())
     print(f"profiler, {STEPS} steps: kernel time {total / STEPS:.1f} us/step, busy "

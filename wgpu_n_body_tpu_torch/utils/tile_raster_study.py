@@ -7,8 +7,8 @@ and the raster (B6, ``csrc/raster.cu``) on a CUDA card, for one checkout.
 ``--repo``: the checkout whose package is imported (default: the one this
 file is in); a ``git archive`` of an earlier commit unpacked into the
 git-ignored ``_parent/`` times that commit's kernels. ``--scenes``: the
-inputs, made by this checkout's ``chip_smoke.py`` scene functions (so a first run
-without ``--repo``), saved with ``torch.save`` and loaded after it, so that
+inputs, made by this checkout's scene functions (``utils/chip.py``; so a first
+run without ``--repo``), saved with ``torch.save`` and loaded after it, so that
 two checkouts run in turns (old, new, new, old) inside one chip call time
 the same inputs:
 - tiles: the split levels of the N=4M uniform scene's build (the
@@ -16,14 +16,15 @@ the same inputs:
   single-device step of ``utils/multi_gpu_check.py``);
 - raster, 400 x 400 triangles: the visualize state (TreeSim N=100,000 disc,
   10 steps) at the default camera and flown in until at least 1,000
-  footprints pass the kernel's 8 x 8 box (``chip_smoke.py`` 15a's
-  flythrough), the N=4M uniform initial state (unsorted) and the N=4M state
-  after one ``cli headless`` step (Morton-sorted).
+  footprints pass the kernel's 8 x 8 box (``flythrough_camera``), the
+  N=4M uniform initial state (unsorted) and the N=4M state after one ``cli
+  headless`` step (Morton-sorted).
 For each kernel and scene it prints one JSON line with the card's name and
 power limit: the device time per call (kernels and memsets over a
-``torch.profiler`` window of R calls, ``profile_step.device_launches``),
-the device ops per call by name, and the time by CUDA events over R calls
-queued back to back (the host's enqueue included). B6's frame is the raster and the u8 blend (its record's
+``torch.profiler`` window of R calls, ``chip.device_ms``), the device ops
+per call by name, and the time by CUDA events over R calls queued back to
+back (the host's enqueue included); both timers are this file's
+checkout's, whichever checkout is measured. B6's frame is the raster and the u8 blend (its record's
 yardstick since it was ported); the raster alone is beside it.
 ``--check`` first holds each kernel against its plain version on every
 scene and on edge inputs (every field of the tiles; the counts), and exits
@@ -37,7 +38,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -87,41 +87,19 @@ VARIANTS = {
 }
 
 
-def device_ms(fn, reps, device_launches):
-    """(device ms per call, {kernel or memset: ms per call}, device ops per
-    call) from a profiler window of ``reps`` calls after one warm call
-    (``device_launches``: this checkout's ``profile_step.device_launches``,
-    whichever checkout is measured); a window with none is taken again."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        split = device_launches(fn, reps)
-        if split:
-            parts = {k: ms for k, (ms, _) in split.items()}
-            return sum(parts.values()), parts, sum(c for _, c in split.values())
-    return "not measured: the profiler saw no kernel", {}, 0
-
-
-def events_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def make_scenes(dev):
-    """The inputs (see the module's docstring), from ``chip_smoke.py``'s
-    scene functions (this checkout's, on the path)."""
-    from chip_smoke import (N_TREE, flythrough_camera, headless_after_one_step, sorted_scene,
-                            visualize_pos)
+    """The inputs (see the module's docstring), from this checkout's scene
+    functions."""
     from wgpu_n_body_tpu_torch.inits import uniform_init
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
     from wgpu_n_body_tpu_torch.runners.renderer import Camera
+    from wgpu_n_body_tpu_torch.utils.chip import (
+        N_TREE,
+        flythrough_camera,
+        headless_after_one_step,
+        sorted_scene,
+        visualize_pos,
+    )
 
     splits = {}
     for n in (4 * N_TREE, N_TREE):  # the N_TREE state last: a frame below draws it
@@ -219,21 +197,14 @@ def main(argv=None) -> int:
         print("tile_raster_study needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, here)
-    from wgpu_n_body_tpu_torch.utils.profile_step import device_launches  # the yardstick
+    from wgpu_n_body_tpu_torch.utils.chip import card, device_ms, import_checkout, time_ms
 
-    if os.path.abspath(args.repo) != here:  # the measured checkout's package from here on
-        for name in [m for m in sys.modules if m.split(".")[0] == "wgpu_n_body_tpu_torch"]:
-            del sys.modules[name]
-        sys.path.insert(0, os.path.abspath(args.repo))
+    import_checkout(args.repo)  # the measured checkout's package from here on
     from wgpu_n_body_tpu_torch.ops import raster_cuda
     from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
     from wgpu_n_body_tpu_torch.params import TreeParams
 
-    if not gcuda.__file__.startswith(os.path.abspath(args.repo)):
-        print(f"imported {gcuda.__file__}, not from {args.repo}", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = card()
     dev = torch.device("cuda", 0)
     for build in (gcuda.build_tiles, raster_cuda.build):
         log = build()[1]
@@ -263,11 +234,11 @@ def main(argv=None) -> int:
                 def tiles(split=split):
                     return gcuda.tile_setup_cuda(split, split.shape[0], tp)
 
-                ms, parts, ops = device_ms(tiles, args.reps, device_launches)
+                ms, parts, ops = device_ms(tiles, args.reps)
                 print(json.dumps({"repo": args.repo, "kernel": "tile_setup", "variant": label,
                                   "scene": f"{scene} walk_tile 512", "device_ms": ms,
                                   "ops_per_call": ops, "parts_ms": parts,
-                                  "events_ms": events_ms(tiles, args.reps), "card": smi}))
+                                  "events_ms": time_ms(tiles, args.reps)[0], "card": smi}))
         if name is None or VARIANTS[name][0] == "raster.cu":
             if name:
                 variant_lib(raster_cuda, "raster.cu", name)
@@ -278,14 +249,14 @@ def main(argv=None) -> int:
                 def counts(pos=pos, m=m):
                     return raster_cuda.raster_counts_cuda(pos, m, 400, 400)
 
-                ms, parts, ops = device_ms(frame, args.reps, device_launches)
-                r_ms, r_parts, r_ops = device_ms(counts, args.reps, device_launches)
+                ms, parts, ops = device_ms(frame, args.reps)
+                r_ms, r_parts, r_ops = device_ms(counts, args.reps)
                 print(json.dumps({
                     "repo": args.repo, "kernel": "raster", "variant": label, "scene": scene,
                     "n": int(pos.shape[0]), "device_ms": ms, "ops_per_frame": ops,
                     "parts_ms": parts, "raster_device_ms": r_ms, "raster_ops": r_ops,
-                    "events_ms": events_ms(frame, args.reps),
-                    "raster_events_ms": events_ms(counts, args.reps), "card": smi}))
+                    "events_ms": time_ms(frame, args.reps)[0],
+                    "raster_events_ms": time_ms(counts, args.reps)[0], "card": smi}))
     return 0
 
 

@@ -1,7 +1,7 @@
 """Development measurements of the per-particle walk kernel (B3) on a CUDA card.
 
-    python -m wgpu_n_body_tpu_torch.utils.tree_walk_study [--parent PATH] [--sweep]
-        [--host] [--sass-dir DIR] [--scene uniform|disc] [--n N] [--theta T]
+    python -m wgpu_n_body_tpu_torch.utils.tree_walk_study [--sweep] [--host] [--sass-dir DIR]
+        [--scene uniform|disc] [--n N] [--theta T]
 
 On the N=4M uniform scene of ``chip_smoke.py`` phase 10 (θ=0.75, leaf_bucket
 16, the arena of the build kernels) unless ``--scene``, ``--n`` or ``--theta``
@@ -20,13 +20,6 @@ say otherwise, each timed line with the card's name and power limit:
   sampled ones, beside its bound (interactions × 2 MUFU at 16 per SM per
   clock at the card's maximum SM clock), and the issue slots it takes per
   visit of a warp;
-- with ``--parent PATH``: the one-thread-per-receiver kernel this one
-  replaced, built from PATH, which must be the ``csrc/tree_walk.cu`` of commit
-  298b65c (checked by its SHA-256; for example ``git show
-  298b65c:wgpu_n_body_tpu_torch/csrc/tree_walk.cu > _parent/tree_walk.cu``, a
-  git-ignored directory), with its flag ``-fmad=false``, timed in turns with
-  the new one (parent, new, new, parent) on the same three sets of receivers,
-  and the two forces compared;
 - with ``--host``: the same counts and times on the host-built arena
   (``native/octree.cpp``: singleton leaves, the tree of ``TreeSimHost``), with
   the seconds of the host build;
@@ -41,15 +34,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import ctypes
-import hashlib
-import re
-import subprocess
 import sys
 import time
-from pathlib import Path
 
-import numpy as np
 import torch
 
 from wgpu_n_body_tpu_torch.inits import INITS
@@ -57,67 +44,29 @@ from wgpu_n_body_tpu_torch.models.tree_host import host_tree_arrays
 from wgpu_n_body_tpu_torch.native.build import build_host_tree
 from wgpu_n_body_tpu_torch.ops import cuda_build
 from wgpu_n_body_tpu_torch.ops import tree_walk_cuda as wcuda
-from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
-from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk import walk_counts
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
-from wgpu_n_body_tpu_torch.utils.group_walk_study import sass_all_loops, time_ms, variant_source
+from wgpu_n_body_tpu_torch.utils.chip import (
+    N_TREE,
+    card,
+    max_sm_clock_mhz,
+    print_ptxas,
+    ptxas_kernels,
+    sass_all_loops,
+    sfu_bound_ms,
+    sorted_scene,
+    time_ms,
+    variant_source,
+)
 
-N_TREE = 4_000_000
 SAMPLE = 4096
-SFU_PER_SM_CLOCK = 16
 SLOTS_PER_SM_CLOCK = 4  # warp instructions per SM per clock (four schedulers)
-#: SHA-256 of the replaced kernel's source (csrc/tree_walk.cu at 298b65c).
-PARENT_SHA256 = "5f3aa62d9ad5a643d42b5bfa4e31e1f53e881ba48434c64ad79b1dbaedbdba16"
-PARENT_BLOCK = 128
 
 #: Launch-shape variants of the sweep; {} is the source as it stands.
 SWEEP = ([{}] + [{"kMinBlocks": m} for m in (6, 8, 10, 14)]
          + [{"kBlock": 64, "kMinBlocks": 24}, {"kBlock": 256, "kMinBlocks": 6},
             {"kBlock": 512, "kMinBlocks": 3}, {"kBlock": 1024, "kMinBlocks": 1}]
          + [{"kUnroll": u} for u in (2, 8)] + [{}])
-
-
-def _smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-
-
-def sfu_bound_ms(interactions, mhz):
-    """Two MUFU ops per interaction at 16 per SM per clock."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 2 * interactions / (SFU_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
-
-
-class ParentKernel:
-    """The one-thread-per-receiver kernel that ``csrc/tree_walk.cu`` held
-    before its redesign, built from its source with its flags."""
-
-    def __init__(self, source: Path):
-        if hashlib.sha256(source.read_bytes()).hexdigest() != PARENT_SHA256:
-            raise SystemExit(f"{source} is not csrc/tree_walk.cu of commit 298b65c")
-        self.lib_path, self.log = cuda_build.compile_cu(
-            source, wcuda.BUILD_DIR / "parent", [*cuda_build.BASE_FLAGS, "-fmad=false"])
-        self.lib = ctypes.CDLL(str(self.lib_path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.tree_walk_launch.argtypes = [p] * 10 + [i, f, f, f, i, i, i, p]
-        self.lib.tree_walk_launch.restype = i
-
-    def __call__(self, pos_new, src_pos, src_mass, tree, params, tp, self_idx=None):
-        dev, b = pos_new.device, pos_new.shape[0]
-        if self_idx is None:
-            self_idx = torch.arange(b, dtype=torch.int32, device=dev)
-        out = torch.empty((b, 3), dtype=torch.float32, device=dev)
-        src = torch.cat([src_pos, src_mass[:, None]], 1)  # as its wrapper did, every call
-        err = self.lib.tree_walk_launch(
-            pos_new.data_ptr(), src.data_ptr(), tree.nodes_f32.data_ptr(), tree.skip.data_ptr(),
-            tree.first.data_ptr(), tree.count.data_ptr(), tree.num_nodes.data_ptr(),
-            self_idx.data_ptr(), None, out.data_ptr(), b, float(tp.theta),
-            float(params.g * params.dt), float(params.e), tp.leaf_bucket, PARENT_BLOCK,
-            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"the parent kernel did not launch: cudaError_t {err}")
-        return out
 
 
 def receiver_sets(n, dev):
@@ -131,7 +80,7 @@ def receiver_sets(n, dev):
             (f"{SAMPLE} sampled", sampled))
 
 
-def print_sass(lib_path, sass_dir):
+def print_walk_sass(lib_path, sass_dir):
     """The walk's loop and the member loops inside it, per instantiation."""
     for name, loops in sass_all_loops(lib_path, "tree_walk_kernel", sass_dir):
         with_rsq = sorted((x for x in loops if x[3]), key=lambda x: x[2])
@@ -147,8 +96,8 @@ def print_sass(lib_path, sass_dir):
               f"longest path; member loops: {members}")
 
 
-def study_arena(label, pos_new, ss, tree, params, tp, dev, smi, mhz, parent):
-    """Counts, times and the parent in turns on one arena."""
+def study_arena(label, pos_new, ss, tree, params, tp, dev, smi, mhz):
+    """Counts and times on one arena."""
     n = pos_new.shape[0]
     m = int(tree.num_nodes)
     _, counts = wcuda.tree_forces_counts_cuda(pos_new, ss.pos, ss.mass, tree, params, tp)
@@ -186,28 +135,8 @@ def study_arena(label, pos_new, ss, tree, params, tp, dev, smi, mhz, parent):
         cs = counts if sel is None else counts[sel]
         bound = sfu_bound_ms(float(cs[:, :2].sum()), mhz)
 
-        def new():
-            return wcuda.tree_forces_cuda(recv, ss.pos, ss.mass, tree, params, tp,
-                                          self_idx=sidx)
-
-        reps = 3 if sel is None else 10
-        if parent is None:
-            ms_new = [time_ms(new, reps)[0]]
-            line = ""
-        else:
-            def old():
-                return parent(recv, ss.pos, ss.mass, tree, params, tp, sidx)
-
-            ms = {"parent": [], "new": []}
-            for who in ("parent", "new", "new", "parent"):
-                ms[who].append(time_ms(old if who == "parent" else new, reps)[0])
-            ms_new = ms["new"]
-            d = ((new() - old()).double().norm(dim=1) / old().double().norm(dim=1)).cpu().numpy()
-            mp = float(np.mean(ms["parent"]))
-            line = (f"; in turns parent/new/new/parent: parent {ms['parent'][0]:.3f} / "
-                    f"{ms['parent'][1]:.3f} ms ({bound / mp:.2%} of the bound), forces new vs "
-                    f"parent per-row p99 {np.percentile(d, 99):.3e} max {d.max():.3e}")
-        mn = float(np.mean(ms_new))
+        mn, _ = time_ms(lambda: wcuda.tree_forces_cuda(recv, ss.pos, ss.mass, tree, params, tp,
+                                                       self_idx=sidx), 3 if sel is None else 10)
         slots = ""
         if sel is None:
             per_visit = ((mn - ms_pack) * 1e-3 * mhz * 1e6 * sms * SLOTS_PER_SM_CLOCK
@@ -215,8 +144,8 @@ def study_arena(label, pos_new, ss, tree, params, tp, dev, smi, mhz, parent):
             slots = (f", of which the pack kernel ~{ms_pack:.3f} ms (a call with 32 receivers); "
                      f"the walk takes {per_visit:.1f} issue slots per warp visit "
                      f"({warp_visits:.4e} warp visits)")
-        print(f"{label} arena, {what} receivers: new {' / '.join(f'{x:.3f}' for x in ms_new)} ms, "
-              f"bound {bound:.4f} ms at {mhz:.0f} MHz: {bound / mn:.2%}{slots}{line}; [{smi}]")
+        print(f"{label} arena, {what} receivers: {mn:.3f} ms, bound {bound:.4f} ms at "
+              f"{mhz:.0f} MHz: {bound / mn:.2%}{slots}; [{smi}]")
 
 
 def sweep(label, pos_new, ss, tree, params, tp, smi):
@@ -230,18 +159,15 @@ def sweep(label, pos_new, ss, tree, params, tp, smi):
             wcuda.SOURCE, wcuda._lib = src, None
             ms, _ = time_ms(lambda: wcuda.tree_forces_cuda(
                 pos_new, ss.pos, ss.mass, tree, params, tp), 3)
-            regs = re.findall(r"Used (\d+) registers", log)
-            spills = re.findall(r"(\d+) bytes spill stores", log)
+            regs = [(r, st) for _, r, st, _ in ptxas_kernels(log)]
             print(f"sweep {label} arena {var or 'as built'}: {ms:.3f} ms over all receivers "
-                  f"(pack and walk); registers {regs}, "
-                  f"spill stores {spills}; [{smi}]")
+                  f"(pack and walk); registers and spill stores {regs}; [{smi}]")
     finally:
         wcuda.SOURCE, wcuda._lib = base, None
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tree_walk_study")
-    parser.add_argument("--parent", type=Path, help="source of the replaced kernel (298b65c)")
     parser.add_argument("--sweep", action="store_true", help="sweep the launch constants")
     parser.add_argument("--host", action="store_true", help="also the host-built arena")
     parser.add_argument("--sass-dir", help="write the SASS listings here")
@@ -253,24 +179,19 @@ def main(argv=None) -> int:
         print("tree_walk_study needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = _smi("name,power.limit")
-    mhz = float(_smi("clocks.max.sm"))
+    smi, mhz = card(), max_sm_clock_mhz()
     print(f"{smi}; maximum SM clock {mhz:.0f} MHz")
     lib, log = wcuda.build()
-    print("\n".join(f"ptxas: {x.strip()}" for x in log.splitlines()
-                    if re.search(r"Compiling entry|registers|spill", x)))
-    print_sass(lib, args.sass_dir)
-    parent = ParentKernel(args.parent) if args.parent else None
+    print_ptxas(log)
+    print_walk_sass(lib, args.sass_dir)
 
     n = args.n
     params = SimParams(particle_num=n)
     tp = TreeParams(theta=args.theta, walk="per_particle")
     print(f"scene {args.scene}, N={n}, theta={tp.theta}")
     state = INITS[args.scene](torch.Generator().manual_seed(0), params, dev)
-    perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
-    ss, tree = build_tree_cuda(state, perm, keys, bound, tp)
-    pos_new = ss.pos + (ss.vel + ss.acc * (params.dt / 2.0)) * params.dt
-    study_arena("device", pos_new, ss, tree, params, tp, dev, smi, mhz, parent)
+    ss, tree, _, pos_new = sorted_scene(state, params, tp)
+    study_arena("device", pos_new, ss, tree, params, tp, dev, smi, mhz)
     if args.sweep:
         sweep("device", pos_new, ss, tree, params, tp, smi)
     del tree
@@ -285,7 +206,7 @@ def main(argv=None) -> int:
         order = torch.from_numpy(host.order).to(dev)
         hs = type(ss)(*(t[order] for t in ss))
         htree = host_tree_arrays(host, dev)
-        study_arena("host", pos_new[order], hs, htree, params, tph, dev, smi, mhz, parent)
+        study_arena("host", pos_new[order], hs, htree, params, tph, dev, smi, mhz)
         if args.sweep:
             sweep("host", pos_new[order], hs, htree, params, tph, smi)
     return 0
