@@ -58,8 +58,8 @@ Phases (any failure exits non-zero):
     (one accepted node per receiver made massless) must exceed; two launches
     bit-equal), both against float64 all-pairs, theta=0 against B1, the
     overfull-cell and overflow cases, and the full N=4M walk timed beside
-    its bound, on its own source rows and on the caller's table, and on
-    4096 consecutive receivers;
+    its bound, listed (the group walk's fallback mode) over every receiver
+    bit-equal to it, and on 4096 consecutive receivers;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
     launched K1, K2, the build (B5) and B3 once (and the diagnostics one
@@ -78,7 +78,16 @@ Phases (any failure exits non-zero):
     N=4M walk timed stage by stage beside B3 and its SFU bound (12e), and
     the list pool's use at N=2,000,000 disc theta=0.5 (BASELINE's tree
     measurement config), where no tile may find the pool empty and a traced
-    TreeSim step's ``walk.pool_chunks`` equals the walk's own count (12f). Every
+    TreeSim step's ``walk.pool_chunks`` equals the walk's own count (12f); the
+    walk's glue (12i: its tables in one pack launch, the list of deferred
+    receivers from the walk kernels, B3 over that list into
+    ``acc`` in place) held bit for bit to the composition it replaced (the
+    eager table, the masks gathered per receiver, B3 over the mask, the
+    merge) on the same lists: tables, ``acc``, the lazy masks and the list
+    against its plain version, on the three cells' scenes (each
+    composition's device time beside the tables' bytes bound), every tile
+    over its step budget, a pool too small, spills past the tile budget, a
+    slice of the receivers and a LET import walk. Every
     walk there takes its tiles from B4 · T (``tile_setup_cuda``), held equal
     field for field to the plain ``tile_setup`` on the same split levels and
     on the keys' (12a, 12d-12f); 12e also times B4 · T at N=4M beside its
@@ -91,8 +100,9 @@ Phases (any failure exits non-zero):
 13. run ``cli headless --steps 10`` in-process with no ``--tree-kw`` (TreeSim,
     group walk, N=4,000,000) and check that each step launched K1, K2 and
     the build (B5: its other three kernels, one launcher call) once, B4 · T
-    once, both B4 kernels once and B3 once (its fallback over the deferred
-    mask), the diagnostics (nothing deferred, none for the pool), the
+    once, the walk's tables (one pack launch) once, both B4 kernels once and
+    B3 once (its fallback over the walk kernel's list of deferred receivers),
+    the diagnostics (nothing deferred, none for the pool), the
     checkpoint and the mass multiset; and that B4 · T's tiles from the
     build's split levels equal the plain tile_setup's on the last state;
 14. the tree-host path, where B3 is the whole force: one host build of the
@@ -377,6 +387,7 @@ def zero_launch_counts():
     )
 
     naive_cuda.LAUNCHES = naive_cuda.LAUNCHES_MXU = tree_walk_cuda.LAUNCHES = 0
+    tree_walk_cuda.LAUNCHES_TABLES = 0
     import_forest_cuda.LAUNCHES = 0
     tree_walk_group_cuda.LAUNCHES = tree_walk_group_cuda.LAUNCHES_EVAL = 0
     tree_walk_group_cuda.LAUNCHES_TILES = 0
@@ -389,7 +400,8 @@ def launch_counts():
     """Launches since ``zero_launch_counts``: K1 the key kernel, K2 the
     reorder (B5's first kernel), B5 the builds, each of which enqueues its
     other three kernels once; "B4 tiles" the group walk's tile set-ups
-    (B4 · T: one kernel each); B6 the frames' rasters
+    (B4 · T: one kernel each); "B4 tables" its tables (one pack launch of
+    B3's source each; B3 counts the walks over its deferred list); B6 the frames' rasters
     (raster_kernel, then raster_tile_kernel), "B6 blend" their
     u8 blends; B7 the LET exports (each a memset, the scan-and-emit kernel
     per 8 destinations and the tail kernel); B8 the fused LET walk's
@@ -410,7 +422,8 @@ def launch_counts():
     return {"B1": naive_cuda.LAUNCHES, "B2": naive_cuda.LAUNCHES_MXU,
             "B3": tree_walk_cuda.LAUNCHES, "B4": tree_walk_group_cuda.LAUNCHES,
             "B4 eval": tree_walk_group_cuda.LAUNCHES_EVAL,
-            "B4 tiles": tree_walk_group_cuda.LAUNCHES_TILES, "B5": tree_build_cuda.LAUNCHES,
+            "B4 tiles": tree_walk_group_cuda.LAUNCHES_TILES,
+            "B4 tables": tree_walk_cuda.LAUNCHES_TABLES, "B5": tree_build_cuda.LAUNCHES,
             "K1": morton_cuda.LAUNCHES, "K2": tree_build_cuda.LAUNCHES_REORDER,
             "B6": raster_cuda.LAUNCHES, "B6 blend": raster_cuda.LAUNCHES_BLEND,
             "B7": let_export_cuda.LAUNCHES, "B8": import_forest_cuda.LAUNCHES,
@@ -419,9 +432,10 @@ def launch_counts():
 
 def expected_counts(**counts):
     """``launch_counts``' keys, 0 but where given (``B4_eval`` for "B4 eval",
-    ``B4_tiles`` for "B4 tiles", ``B6_blend`` for "B6 blend")."""
-    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B4 tiles", "B5", "K1", "K2", "B6", "B6 blend",
-            "B7", "B8", "E1")
+    ``B4_tiles`` for "B4 tiles", ``B4_tables`` for "B4 tables", ``B6_blend`` for
+    "B6 blend")."""
+    keys = ("B1", "B2", "B3", "B4", "B4 eval", "B4 tiles", "B4 tables", "B5", "K1", "K2", "B6",
+            "B6 blend", "B7", "B8", "E1")
     return {k: counts.get(k.replace(" ", "_"), 0) for k in keys}
 
 
@@ -1181,7 +1195,6 @@ def phase_b3(dev, smi, mhz):
     from wgpu_n_body_tpu_torch.ops.naive_ref import mean_rel_err, naive_forces_dense, naive_forces_ref
     from wgpu_n_body_tpu_torch.ops.tree_build import NO_CHILD
     from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
-    from wgpu_n_body_tpu_torch.ops.tree_walk_group import source_table
     from wgpu_n_body_tpu_torch.params import SimParams, TreeParams, state_from_numpy
 
     walk = tree_walk_cuda.tree_forces_cuda
@@ -1253,11 +1266,16 @@ def phase_b3(dev, smi, mhz):
     p99_full = float(np.percentile(rel_full, 99))
     if not np.isfinite(rel_full).all() or p99_full > B3_GATE:
         fail(f"the full walk and the subset walk disagree (p99 {p99_full:.3e})")
-    table = source_table(tree, ss.pos, ss.mass, params.g * params.dt)
-    ms_table, k_table = time_ms(
-        lambda: walk(pos_new, ss.pos, ss.mass, tree, params, tp, table=table), 3)
-    if not torch.equal(k_table, k_full):
-        fail("B3 on the caller's source table differs from B3 on its own source rows")
+    # the listed mode (the group walk's fallback) over a list of every
+    # receiver, on the tables of one pack launch: the full walk's bits
+    rec, table = tree_walk_cuda.walk_tables_cuda(tree, ss.pos, ss.mass, params)
+    every = torch.stack([torch.arange(0, N_TREE, 32, dtype=torch.int32, device=dev),
+                         torch.full((N_TREE // 32,), -1, dtype=torch.int32, device=dev)], 1)
+    n_every = torch.tensor(every.shape[0], dtype=torch.int32, device=dev)
+    ms_listed, k_listed = time_ms(lambda: tree_walk_cuda.tree_forces_listed_cuda(
+        pos_new, rec, table, tree, every, n_every, 0, params, tp, torch.empty_like(k_full)), 3)
+    if not torch.equal(k_listed, k_full):
+        fail("B3's listed mode over every receiver differs from the full walk")
     mid = N_TREE // 2
     cons = torch.arange(mid, mid + 4096, dtype=torch.int32, device=dev)
     ms_cons, k_cons = time_ms(lambda: walk(pos_new[mid:mid + 4096], ss.pos, ss.mass, tree, params,
@@ -1266,14 +1284,14 @@ def phase_b3(dev, smi, mhz):
         fail("B3 on 4096 consecutive receivers differs from the same rows of the full walk")
     bound3 = bound(b3_count, 2, 20, N_TREE * (12 + 16 + 12) + m_nodes * 44, mhz)
     print(f"10c B3 full walk N={N_TREE}: {ms_full:.3f} ms per call, the pack kernel included "
-          f"({ms_full / N_TREE * 1e6:.3f} ns per receiver; on the caller's source table "
-          f"{ms_table:.3f} ms); bound "
+          f"({ms_full / N_TREE * 1e6:.3f} ns per receiver; listed, every receiver on one pack "
+          f"launch's tables, bit-equal: {ms_listed:.3f} ms without its pack); bound "
           f"{bound3['bound_ms']:.4f} ms: {bound3['bound_ms'] / ms_full:.2%}; rows of the "
           f"{idx.numel()} sampled receivers against their own launch: p99 {p99_full:.3e}, "
           f"{int((k_full[idx] == k_sub).all(1).sum())} bit-equal; 4096 consecutive receivers "
           f"{ms_cons:.3f} ms, bit-equal to the full walk's rows (4096 sampled: {ms_sub:.3f} ms); "
           f"[{smi}]")
-    del state, ss, tree, pos_new, k_full, k_table, table
+    del state, ss, tree, pos_new, k_full, k_listed, rec, table, every
     torch.cuda.empty_cache()
 
     # -- 10d. theta=0 against the all-pairs kernel B1 at N=16384 ---------------
@@ -1344,7 +1362,7 @@ def phase_b3(dev, smi, mhz):
         "plain_ms_receivers": int(idx.numel()),
         "ms_same_receivers": ms_sub,
         "ms_consecutive_4096": ms_cons,
-        "ms_on_callers_table": ms_table,
+        "ms_listed_every_receiver": ms_listed,
         "planted_fault_p99": p99_bad,
     }
 
@@ -1366,10 +1384,10 @@ def phase_tree_cli(dev, smi):
         counts = launch_counts()
         # one sort stage (K1, K2), one build (B5) and one B3 launch per step;
         # the diagnostics line at the last step sorts and builds once more and
-        # runs one group walk (its tiles, B4, then B3 over its deferred mask),
-        # as in JAX
-        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B4_tiles=1, B5=STEPS + 1,
-                                     K1=STEPS + 1, K2=STEPS + 1):
+        # runs one group walk (its tiles, its tables, B4, then B3 over its
+        # deferred list), as in JAX
+        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B4_tables=1, B4_tiles=1,
+                                     B5=STEPS + 1, K1=STEPS + 1, K2=STEPS + 1):
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1617,7 +1635,7 @@ def phase_b4(dev, smi, mhz):
                       dtype=torch.bool, device=dev), len(lengths), g_tile, tiles.r_cap)
             return m, lists._replace(chunks=lists.chunks[t0].repeat(len(lengths), 1),
                                      rows=lists.rows[t0].repeat(len(lengths)), bad=no,
-                                     pool_full=no)
+                                     pool_full=no, defer=None, defer_len=None)
 
         m_tiles, m_lists = made([ln for ln, _ in spec])
         f_tiles, f_lists = made([g_tile])
@@ -1749,8 +1767,9 @@ def phase_b4(dev, smi, mhz):
                      mhz)
     print(f"12e N={N_TREE} group walk (tiles of {tiles.g}, r_cap {tiles.r_cap}): {ms_group:.3f} ms "
           f"per call (tile set-up {ms_setup:.4f} ms; B4 {ms_kern:.3f} ms = walk kernel "
-          f"{ms_walk:.3f} + evaluation kernel with its table {ms_eval:.3f}; the rest B3 over the "
-          f"deferred mask and the merge); B3 full per-particle walk {ms_b3:.3f} ms; "
+          f"{ms_walk:.3f} + evaluation kernel with its table {ms_eval:.3f}; the rest the "
+          f"tables' pack launch and B3 over the deferred list); B3 full per-particle walk "
+          f"{ms_b3:.3f} ms; "
           f"{nt} tiles, {int(lists.bad.sum())} bad, {int(lists.pool_full.sum())} without pool "
           f"room, {deferred} receivers deferred ({pool_deferred} for the pool; {deferred2} with "
           f"twice the step budget); steps/tile max {int(lists.steps.max())} mean "
@@ -1889,6 +1908,254 @@ def phase_b4(dev, smi, mhz):
         "whole_walk_ms": ms_group,
         "b3_ms_same_run": ms_b3,
     }
+
+
+def glue_bytes(rows, n):
+    """Bytes the group walk's tables must move: per arena row the node (32
+    bytes) and its skip, first and count (12) read, its record (32) and its
+    table row (16) written; per source its position and mass (16) read and
+    its table row (16) written."""
+    return rows * (32 + 12 + 32 + 16) + n * (16 + 16)
+
+
+def parent_glue(pos_new, src_pos, src_mass, tree, tiles, lists, params, tp, g0):
+    """What the group walk ran after its walk kernel while it merged B3's
+    rows by a mask: the eager [node | source] table (four strided ops), the
+    evaluation on it, the deferred masks gathered per receiver, B3's pack
+    (the records alone) and its walk over all receivers behind the mask,
+    reading the table's source rows, and ``torch.where``.
+    Returns (acc, table, deferred mask, pool mask)."""
+    from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+    from wgpu_n_body_tpu_torch.ops.tree_build import NODE_F32_COLS
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import source_table
+
+    table = source_table(tree, src_pos, src_mass, params.g * params.dt)
+    acc = gcuda.group_eval_lists_cuda(pos_new, src_pos, src_mass, tree, tiles, lists, params, g0,
+                                      table)
+    bad = tiles.deferred | lists.bad[tiles.tile_id]
+    full = lists.pool_full[tiles.tile_id] & ~bad
+    deferred = bad | full
+    self_idx = None
+    if g0:
+        self_idx = torch.arange(g0, g0 + pos_new.shape[0], dtype=torch.int32,
+                                device=pos_new.device)
+    # B3 as the parent launched it with the table in hand: its pack writes
+    # the records alone, and its walk reads the table's source rows in place
+    rows, n = tree.nodes_f32.shape[0], src_pos.shape[0]
+    rec = torch.empty((rows, NODE_F32_COLS), dtype=torch.float32, device=pos_new.device)
+    tree_walk_cuda._pack(tree, src_pos, src_mass, float(params.g * params.dt), rec, None, None)
+    fallback = torch.empty_like(acc)
+    err = tree_walk_cuda._library().tree_walk_launch(
+        pos_new.data_ptr(), rec.data_ptr(), table.data_ptr() + rows * 16,
+        tree.num_nodes.data_ptr(), None if self_idx is None else self_idx.data_ptr(),
+        deferred.data_ptr(), fallback.data_ptr(), None, pos_new.shape[0], n, rows,
+        float(tp.theta), float(params.e), *tree_walk_cuda._target(pos_new.device))
+    if err != 0:
+        fail(f"12i: the parent composition's B3 launch failed: cudaError_t {err}")
+    return torch.where(deferred[:, None], fallback, acc), table, deferred, full
+
+
+def new_glue(pos_new, src_pos, src_mass, tree, tiles, lists, params, tp, g0):
+    """The group walk's launches besides its walk kernel, as
+    ``group_tree_forces_cuda`` makes them: the tables in one pack launch,
+    the evaluation, B3 over the walk kernel's deferred list into the
+    evaluation's rows. Returns (acc, table)."""
+    from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+
+    rec, table = tree_walk_cuda.walk_tables_cuda(tree, src_pos, src_mass, params)
+    acc = gcuda.group_eval_lists_cuda(pos_new, src_pos, src_mass, tree, tiles, lists, params, g0,
+                                      table)
+    tree_walk_cuda.tree_forces_listed_cuda(pos_new, rec, table, tree, lists.defer,
+                                           lists.defer_len, g0, params, tp, out=acc)
+    return acc, table
+
+
+def held_glue(what, pos_new, src_pos, src_mass, tree, keys, tiles, params, tp, g0=0,
+              timed=False):
+    """12i on one walk: the walk kernel once, then the parent's composition
+    and the new one on the same lists (which tiles a full pool defers
+    depends on scheduling). The table and ``acc`` ``torch.equal``; the lazy
+    ``deferred_mask`` and ``pool_mask`` and their counts equal the parent's
+    masks'; the kernel's deferred list, sorted, equal to the plain
+    ``deferred_warps``. ``timed``: each composition's device ms besides the
+    evaluation kernel's, beside the tables' bytes bound. Returns a record."""
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupWalkStats, deferred_warps
+
+    lists = gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp)
+    acc_p, table_p, deferred, pool = parent_glue(pos_new, src_pos, src_mass, tree, tiles, lists,
+                                                 params, tp, g0)
+    acc_n, table_n = new_glue(pos_new, src_pos, src_mass, tree, tiles, lists, params, tp, g0)
+    torch.cuda.synchronize()
+    stats = GroupWalkStats(tiles, lists)
+    want, want_len = deferred_warps(tiles, lists)
+    k = int(lists.defer_len)
+    got = lists.defer[:k]
+    got = got[torch.argsort(got[:, 0])]
+    counts = (int(stats.deferred), int(stats.pool_deferred))
+    errors = [name for name, ok in (
+        ("table", torch.equal(table_n, table_p)),
+        ("acc", torch.equal(acc_n, acc_p)),
+        ("deferred_mask", torch.equal(stats.deferred_mask, deferred)),
+        ("pool_mask", torch.equal(stats.pool_mask, pool)),
+        ("deferred", counts == (int(deferred.sum()), int(pool.sum()))),
+        ("deferred list", k == int(want_len) and torch.equal(got, want)),
+        ("finite", bool(torch.isfinite(acc_n).all())),
+    ) if not ok]
+    if errors:
+        fail(f"12i {what}: the new walk's {errors} differ from the parent composition's")
+    rec = {"what": what, "n": pos_new.shape[0], "deferred": counts[0], "pool_deferred": counts[1],
+           "deferred_warps": k}
+    line = (f"12i {what}: table and acc torch.equal to the parent composition's, {counts[0]} "
+            f"deferred ({counts[1]} for the pool) in {k} listed warps, equal to deferred_warps")
+    if not lists.pool_full.any():  # the wrapper's own lists are the same
+        acc_w, _ = gcuda.group_tree_forces_cuda(pos_new, src_pos, src_mass, tree, keys, params,
+                                                tp, gid_offset=g0, tiles=tiles)
+        if not torch.equal(acc_w, acc_n):
+            fail(f"12i {what}: group_tree_forces_cuda differs from the composition on its lists")
+        line += "; group_tree_forces_cuda the same"
+    if timed:
+        rows, n = tree.nodes_f32.shape[0], src_pos.shape[0]
+        nbytes = glue_bytes(rows, n)
+        bound_ms = nbytes / HBM_PEAK * 1e3
+        for name, fn in (("parent", parent_glue), ("new", new_glue)):
+            _, parts, ops = device_ms(lambda: fn(pos_new, src_pos, src_mass, tree, tiles, lists,
+                                                 params, tp, g0), 10)
+            glue = {k_: v for k_, v in parts.items() if k_ != "group_eval_kernel"}
+            rec[f"{name}_glue_ms"] = sum(glue.values())
+            rec[f"{name}_glue_ms_by_launch"] = glue
+            rec[f"{name}_device_ops"] = ops
+            line += (f"; {name} glue {sum(glue.values()):.4f} ms of device time in {ops - 1} ops ("
+                     + ", ".join(f"{k_} {v:.4f}" for k_, v in glue.items()) + ")")
+        rec.update(bound_ms=bound_ms, bound_bytes=nbytes)
+        line += (f"; the tables' bytes bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s): "
+                 f"new glue at {bound_ms / rec['new_glue_ms']:.2%}")
+    print(line)
+    return rec
+
+
+def phase_glue(dev, smi):
+    """12i. The group walk's glue (B4 · G): the tables in one pack launch,
+    the deferred list from the walk kernels, B3 over that
+    list writing ``acc`` in place, held bit for bit to the composition it
+    replaced (the eager table, the mask gathers, B3's pack and masked walk,
+    ``torch.where``) on the same lists: the three cells' scenes (timed),
+    every tile over its step budget, a pool too small, split levels that
+    spill past the tile budget, a slice of receivers (gid_offset inside the
+    sources) and a LET import walk (gid_offset past them)."""
+    import dataclasses
+
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.ops import tree_walk_group_cuda as gcuda
+    from wgpu_n_body_tpu_torch.ops.tree_walk_group import step_budget
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.parallel import sharded_tree as st
+    from wgpu_n_body_tpu_torch.parallel.let_tree import assemble_import_forest, auto_let_cap
+
+    records = []
+
+    def scene(init, n, tp, seed=0):
+        params = SimParams(particle_num=n)
+        ss, tree, keys, pos_new = sorted_scene(init(torch.Generator().manual_seed(seed), params,
+                                                    dev), params, tp)
+        return params, ss, tree, keys, pos_new
+
+    # the cells' scenes: the uniform one defers nothing, the discs some
+    for what, init, n, tp in (("N=4M uniform theta=0.75", uniform_init, N_TREE, TreeParams()),
+                              ("N=4M disc theta=0.75", disc_init, N_TREE, TreeParams()),
+                              ("N=2M disc theta=0.5", disc_init, 2_000_000,
+                               TreeParams(theta=0.5))):
+        params, ss, tree, keys, pos_new = scene(init, n, tp)
+        tiles = gcuda.tile_setup_cuda(tree.split, n, tp)
+        records.append(held_glue(what, pos_new, ss.pos, ss.mass, tree, keys, tiles, params, tp,
+                                 timed=True))
+        del ss, tree, keys, pos_new, tiles
+        torch.cuda.empty_cache()
+    if records[0]["deferred"] or not records[1]["deferred"]:
+        fail("12i the uniform scene deferred receivers, or the N=4M disc none")
+
+    params, ss, tree, keys, pos_new = scene(disc_init, N_MAIN, TreeParams())
+    # a step budget of 256: most tiles over it
+    tp = TreeParams(walk_list_cap=128)
+    tiles = gcuda.tile_setup_cuda(tree.split, N_MAIN, tp)
+    r = held_glue("N=262144 disc walk_list_cap=128", pos_new, ss.pos, ss.mass, tree, keys, tiles,
+                  params, tp)
+    if not r["deferred"]:
+        fail("12i walk_list_cap=128 deferred nothing")
+    records.append(r)
+    # a pool of half the chunks the lists take
+    tp = TreeParams(theta=0.5)
+    tiles = gcuda.tile_setup_cuda(tree.split, N_MAIN, tp)
+    used = int((gcuda.group_walk_lists_cuda(pos_new, tree, tiles, tp).chunks >= 0).sum())
+    with pool_of(gcuda, used // 2):
+        r = held_glue(f"N=262144 disc theta=0.5, a pool of {used // 2} chunks", pos_new, ss.pos,
+                      ss.mass, tree, keys, tiles, params, tp)
+    if not r["pool_deferred"]:
+        fail("12i a pool of half the chunks deferred nothing for the pool")
+    records.append(r)
+    # a slice of the sorted receivers: receiver i is source g0 + i
+    g0, b = N_MAIN // 4, N_MAIN // 2
+    tp = TreeParams(walk_list_cap=256)
+    tiles = gcuda.tile_setup_cuda(tree.split[g0 : g0 + b], b, tp)
+    r = held_glue(f"receivers [{g0}, {g0 + b}) of N=262144, walk_list_cap=256",
+                  pos_new[g0 : g0 + b].contiguous(), ss.pos, ss.mass, tree, keys[g0 : g0 + b],
+                  tiles, params, tp, g0=g0)
+    if not r["deferred"]:
+        fail("12i the slice's walk deferred nothing")
+    records.append(r)
+    del ss, tree, keys, pos_new, tiles
+    # split levels that spill past the tile budget (every receiver a group
+    # start), on a real tree: B4 · T defers the spills in the last tile
+    n = 50_000
+    tp = TreeParams(walk_tile=256)
+    params, ss, tree, keys, pos_new = scene(uniform_init, n, tp)
+    tiles = gcuda.tile_setup_cuda(torch.zeros(n, dtype=torch.uint8, device=dev), n, tp)
+    r = held_glue(f"N={n} all split levels 0, walk_tile 256", pos_new, ss.pos, ss.mass, tree,
+                  keys, tiles, params, tp)
+    if r["deferred"] < int(tiles.deferred.sum()) or not tiles.deferred.any():
+        fail("12i the spilled receivers were not all deferred")
+    records.append(r)
+    # a LET import walk of two ranks (each N=262144, rank r in [-1, 1] x
+    # [r - 1, r] x [-1, 1]): rank 0's receivers against rank 1's export,
+    # numbered past every source; a pool of half the chunks defers tiles
+    p, n_l = 2, N_MAIN
+    tp = TreeParams()
+    tp_imp = dataclasses.replace(tp, walk_list_cap=tp.effective_import_list_cap())
+    cap = 2 * auto_let_cap(n_l, tp.theta)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ranks = []
+    for rank in range(p):
+        pos = torch.rand((n_l, 3), generator=gen, device=dev) * 2.0 - 1.0
+        pos[:, 1] = pos[:, 1] * 0.5 - 0.5 + rank
+        z = torch.zeros_like(pos)
+        ranks.append(ParticleState(pos, z, z, torch.ones(n_l, device=dev)))
+    params = SimParams(particle_num=p * n_l)
+    bound_ = torch.stack([st.let_bound(s.pos) for s in ranks]).amax(0)
+    locs = [st.let_sort_build(s, bound_, params, tp) for s in ranks]
+    boxes = [st.receiver_box(loc.pos_new) for loc in locs]
+    blo, bhi = torch.cat([x[0] for x in boxes]), torch.cat([x[1] for x in boxes])
+    imps = st.exchange_by_hand([st.let_export(loc, blo, bhi, rank, tp, cap)
+                                for rank, loc in enumerate(locs)])
+    loc, imp = locs[0], imps[0]
+    forest = assemble_import_forest(imp)
+    parts_pos = imp.parts[:, :, :3].reshape(-1, 3).contiguous()
+    parts_mass = imp.parts[:, :, 3].reshape(-1).contiguous()
+    tiles = gcuda.tile_setup_cuda(loc.tree.split, n_l, tp)._replace(
+        r_cap=step_budget(tp_imp.walk_list_cap))
+    used = int((gcuda.group_walk_lists_cuda(loc.pos_new, forest, tiles, tp_imp).chunks
+                >= 0).sum())
+    with pool_of(gcuda, used // 2):
+        r = held_glue(f"LET import walk, gid_offset {p * cap}, a pool of {used // 2} chunks",
+                      loc.pos_new, parts_pos, parts_mass, forest, loc.keys, tiles, params,
+                      tp_imp, g0=p * cap)
+    if not r["deferred"]:
+        fail("12i the import walk deferred nothing")
+    records.append(r)
+    print(f"12i the group walk's glue held to the parent composition in {len(records)} walks; "
+          f"[{smi}]")
+    return records
 
 
 def phase_host(dev, smi, mhz):
@@ -2202,12 +2469,13 @@ def phase_group_cli(dev, smi):
         out = run_cli(cli, argv)
         counts = launch_counts()
         diags = re.findall(r"'walk_deferred': (\d+)", out)
-        # each step sorts once (K1, K2), builds once (B5) and walks once (B4,
-        # then B3 over its deferred mask), and so does each diagnostics line
+        # each step sorts once (K1, K2), builds once (B5) and walks once (its
+        # tables, B4, then B3 over its deferred list), and so does each
+        # diagnostics line
         walks = STEPS + len(diags)
         if len(diags) != 1 or counts != expected_counts(B3=walks, B4=walks, B4_eval=walks,
-                                                        B4_tiles=walks, B5=walks, K1=walks,
-                                                        K2=walks):
+                                                        B4_tables=walks, B4_tiles=walks, B5=walks,
+                                                        K1=walks, K2=walks):
             fail(f"cli headless, {STEPS} steps and {len(diags)} diagnostics, launched {counts}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -2488,8 +2756,8 @@ def phase_visualize_cli(dev, smi, mesh=None, label="15c"):
             fail(f"{label} cli visualize wrote {len(frames)} frames and a GIF of "
                  f"{os.path.getsize(gif) if os.path.exists(gif) else 0} bytes")
         steps = 60  # --frames 60 x --steps-per-frame 1, the group walk's step
-        if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B4_tiles=steps,
-                                     B5=steps, K1=steps, K2=steps, B6=60):
+        if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B4_tables=steps,
+                                     B4_tiles=steps, B5=steps, K1=steps, K2=steps, B6=60):
             fail(f"{label} cli visualize launched {counts}")
         last = os.path.join(tmp, "host.png")
         renderer.write_png(last, renderer.render_frame(seen[0].cpu().numpy()))
@@ -2599,8 +2867,8 @@ def phase_serve(dev, smi, mesh=None, label="15e"):
         frames = 2 * len(script) + 1
         counts = launch_counts()
         if counts != expected_counts(B3=steps - steps0, B4=steps - steps0,
-                                     B4_eval=steps - steps0, B4_tiles=steps - steps0,
-                                     B5=steps - steps0,
+                                     B4_eval=steps - steps0, B4_tables=steps - steps0,
+                                     B4_tiles=steps - steps0, B5=steps - steps0,
                                      K1=steps - steps0, K2=steps - steps0, B6=frames,
                                      B6_blend=frames):
             fail(f"{label} {frames} frames and {steps - steps0} steps launched {counts}")
@@ -3043,9 +3311,10 @@ def phase_let_emulated(dev, smi):
         fail(f"17 emulated LET step overflowed: rows {rows}")
     if counts != expected_counts(B7=p):
         fail(f"17 {p} exports launched {counts}")
-    if forces_counts != expected_counts(B4_tiles=p, B4=2 * p, B4_eval=2 * p, B3=2 * p):
+    if forces_counts != expected_counts(B4_tiles=p, B4=2 * p, B4_eval=2 * p, B4_tables=2 * p,
+                                        B3=2 * p):
         fail(f"17 let_forces of {p} ranks launched {forces_counts}")
-    if fused_counts != expected_counts(B4_tiles=p, B8=p, B4=p, B4_eval=p, B3=p):
+    if fused_counts != expected_counts(B4_tiles=p, B8=p, B4=p, B4_eval=p, B4_tables=p, B3=p):
         fail(f"17c the fused let_forces of {p} ranks launched {fused_counts}")
     # 17c. each receiver's accepted nodes and members: the fused walk's lists
     # against the split walk's two (massless rows aside), where no walk
@@ -3245,14 +3514,15 @@ def phase_sharded(dev, smi, render):
                 for s in ("allgather", "ring")]
         tree_counts = {
             "replicated": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
-                                          B4_eval=steps, B4_tiles=steps, B3=steps),
+                                          B4_eval=steps, B4_tables=steps, B4_tiles=steps, B3=steps),
             # the LET step's two walks share one tile set-up
             "let": expected_counts(K1=steps, K2=steps, B5=steps, B4=2 * steps,
-                                   B4_eval=2 * steps, B4_tiles=steps, B3=2 * steps, B7=steps),
+                                   B4_eval=2 * steps, B4_tables=2 * steps, B4_tiles=steps,
+                                   B3=2 * steps, B7=steps),
             # the fused walk: one B8 and one group walk per step
             "let fused": expected_counts(K1=steps, K2=steps, B5=steps, B4=steps,
-                                         B4_eval=steps, B4_tiles=steps, B3=steps, B7=steps,
-                                         B8=steps),
+                                         B4_eval=steps, B4_tables=steps, B4_tiles=steps,
+                                         B3=steps, B7=steps, B8=steps),
         }
         runs += [("tree", s, N_TREE, c) for s, c in tree_counts.items()]
         singles = {}
@@ -3309,7 +3579,7 @@ def phase_sharded(dev, smi, render):
         # five points a backend, each a warm-up step and 10 timed ones
         k = 5 * 11
         bench_counts = launch_counts()
-        if bench_counts != expected_counts(B1=k, K1=k, K2=k, B5=k, B4=k, B4_eval=k,
+        if bench_counts != expected_counts(B1=k, K1=k, K2=k, B5=k, B4=k, B4_eval=k, B4_tables=k,
                                            B4_tiles=k, B3=k):
             fail(f"18b bench through the group launched {bench_counts}")
         keys = {"sim", "n", "s_per_step", "bodies_per_sec", "pairs_per_sec"}
@@ -3567,7 +3837,7 @@ def phase_energy_runs(dev, smi):
     out = run_cli(cli, argv)
     cli_s = time.perf_counter() - t0
     cli_counts = launch_counts()
-    want = expected_counts(K1=STEPS, K2=STEPS, B5=STEPS, B4=STEPS, B4_eval=STEPS,
+    want = expected_counts(K1=STEPS, K2=STEPS, B5=STEPS, B4=STEPS, B4_eval=STEPS, B4_tables=STEPS,
                            B4_tiles=STEPS, B3=STEPS, E1=1)
     if cli_counts != want:
         fail(f"20a cli headless --energy-every {STEPS} launched {cli_counts}, not {want}")
@@ -3854,6 +4124,7 @@ def main() -> None:
     b5["launches_per_particle_path"] = per_particle["B5"]
     k1["launches_per_particle_path"] = per_particle["K1"]
     b4t, b4 = phase_b4(dev, smi, mhz)
+    b4["glue"] = phase_glue(dev, smi)
     main_path = phase_group_cli(dev, smi)
     b4["launches"], b4["launches_eval"] = main_path["B4"], main_path["B4 eval"]
     b4t["launches"] = main_path["B4 tiles"]

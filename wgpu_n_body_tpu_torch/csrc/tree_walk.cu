@@ -6,7 +6,8 @@
 // per lane). The plain torch version is ops/tree_walk.py::tree_forces; the
 // wrapper is ops/tree_walk_cuda.py. It is the whole force of TreeSimHost and
 // of TreeSim(walk="per_particle"), and the group walk's fallback over the
-// receivers it defers.
+// receivers it defers (the same walk over a device list of warps that the
+// group walk's lists kernels write).
 //
 // What every receiver computes is the stackless walk of the DFS arena:
 //
@@ -44,6 +45,8 @@
 // - What a visit needs of a node is one 32-byte record, one sector: (cog,
 //   mass*g*dt | width, skip, first, count and no_child), which
 //   tree_walk_pack_kernel writes once per call from the arena's four arrays
+//   (for the group walk, in the same pass, its [node | source] table: the
+//   records' first halves and the source rows)
 //   (a visit of those costs three sectors, and a 1M-node arena then 96 MB
 //   of L2 instead of 32). The record is a warp-uniform load: one
 //   transaction, not 32 chains. The next record is loaded once the vote
@@ -111,13 +114,16 @@ __device__ __forceinline__ Record load_record(const float4* __restrict__ rec, co
   return Record{__ldg(&rec[2 * k]), __ldg(&rec[2 * k + 1])};
 }
 
-// The arena's rows as records, and (where src is not null) the sorted
-// sources as (position, mass*g*dt) rows.
+// The arena's rows as records, (where tab is not null) the same rows as the
+// node rows (cog, mass*g*dt) of the [node | source] table, and (where src is
+// not null) the sorted sources as (position, mass*g*dt) rows. mass*g*dt is
+// rounded once, as torch's multiply of a float32 tensor by the scalar gdt.
 __global__ void __launch_bounds__(kPackBlock) tree_walk_pack_kernel(
     const float4* __restrict__ nodes, const int* __restrict__ skip,
     const int* __restrict__ first, const int* __restrict__ count, float4* __restrict__ rec,
-    const int rows, const float gdt, const float* __restrict__ src_pos,
-    const float* __restrict__ src_mass, float4* __restrict__ src, const int n) {
+    float4* __restrict__ tab, const int rows, const float gdt,
+    const float* __restrict__ src_pos, const float* __restrict__ src_mass,
+    float4* __restrict__ src, const int n) {
   const int k = blockIdx.x * kPackBlock + threadIdx.x;
   if (k < rows) {
     const float4 cm = nodes[2 * k];    // cog xyz, mass
@@ -125,13 +131,15 @@ __global__ void __launch_bounds__(kPackBlock) tree_walk_pack_kernel(
     const int no_child = geo.z > 1.5f ? 2 : (geo.z > 0.0f ? 1 : 0);
     // a walk at node k goes to k + 1 or to this: forward, and inside the arena
     const int next = max(min(skip[k], rows - 1), k + 1);
-    rec[2 * k] = make_float4(cm.x, cm.y, cm.z, cm.w * gdt);
+    const float4 row = make_float4(cm.x, cm.y, cm.z, __fmul_rn(cm.w, gdt));
+    rec[2 * k] = row;
     rec[2 * k + 1] = make_float4(geo.x, __int_as_float(next), __int_as_float(first[k]),
                                  __int_as_float((count[k] << 2) | no_child));
+    if (tab != nullptr) tab[k] = row;
   }
   if (src != nullptr && k < n)
     src[k] = make_float4(src_pos[3 * k], src_pos[3 * k + 1], src_pos[3 * k + 2],
-                         src_mass[k] * gdt);
+                         __fmul_rn(src_mass[k], gdt));
 }
 
 // width < theta * sqrt(dx^2 + dy^2 + dz^2), rounded as the plain version.
@@ -155,15 +163,37 @@ __device__ __forceinline__ void sum_members(const float4* __restrict__ src, cons
 // COUNTS also writes, per receiver, (accepted nodes, members summed, visits
 // at which the lane was live, the warp's visits): the smoke's and the
 // study's instantiation.
+//
+// Receivers: [0, b), each where active is null or active[i], a warp per 32
+// consecutive ones; or, where warps is not null, a device list of warps:
+// entry w is (first receiver, lane mask), lane l walking receiver first + l
+// where bit l is set, and *n_warps entries are live (the group walk's lists
+// kernels write both: the receivers of its dropped tiles, 32 consecutive
+// ones of one tile per entry). A listed warp writes only its listed rows of
+// out; the grid covers the list's capacity, and warps past the count return
+// at once. Receiver i is source self_idx[i], or self_base + i where self_idx
+// is null. Both modes run the one walk below: a row's bits do not depend on
+// how its receiver was named.
 template <bool COUNTS>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) tree_walk_kernel(
     const float* __restrict__ pos_new, const float4* __restrict__ rec,
     const float4* __restrict__ src, const int* __restrict__ num_nodes_ptr,
     const int* __restrict__ self_idx, const unsigned char* __restrict__ active,
+    const int2* __restrict__ warps, const int* __restrict__ n_warps, const int self_base,
     float* __restrict__ out, int* __restrict__ counts, const int b, const int n, const int cap,
     const float theta, const float e) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool mine = i < b && (active == nullptr || active[i]);
+  int i = blockIdx.x * kBlock + threadIdx.x;
+  bool mine;
+  if (warps != nullptr) {
+    const int w = i >> 5;  // one per warp
+    if (w >= __ldg(n_warps)) return;
+    const int2 entry = __ldg(&warps[w]);
+    const int lane = threadIdx.x & 31;
+    i = entry.x + lane;
+    mine = (static_cast<unsigned>(entry.y) >> lane) & 1u;
+  } else {
+    mine = i < b && (active == nullptr || active[i]);
+  }
   float ax = 0.0f, ay = 0.0f, az = 0.0f;
   int n_far = 0, n_mem = 0, n_live = 0, n_warp = 0;
   if (__any_sync(kFull, mine)) {  // else: a warp of the deferred mask with nothing to walk
@@ -174,7 +204,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) tree_walk_kernel(
       px = pos_new[3 * i + 0];
       py = pos_new[3 * i + 1];
       pz = pos_new[3 * i + 2];
-      me = self_idx != nullptr ? self_idx[i] : i;
+      me = self_idx != nullptr ? self_idx[i] : self_base + i;
     }
     int resume = mine ? 0 : num_nodes;
     int cur = 0;
@@ -225,7 +255,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) tree_walk_kernel(
       a = load_record(rec, cur);
     }
   }
-  if (i < b) {  // a receiver that is not active gets 0, as in the plain version
+  // a receiver that is not active gets 0, as in the plain version; a listed
+  // warp writes its listed rows only
+  if (warps != nullptr ? mine : i < b) {
     out[3 * i + 0] = ax;
     out[3 * i + 1] = ay;
     out[3 * i + 2] = az;
@@ -242,14 +274,16 @@ cudaError_t launch_walk(int blocks, cudaStream_t stream, Args... args) {
 }  // namespace
 
 // The arena as the walk reads it. nodes (rows, 8) f32; skip/first/count
-// (rows,) int32; rec (rows, 8) f32 out; src_pos (n, 3), src_mass (n,) f32
+// (rows,) int32; rec (rows, 8) f32 out; tab (rows, 4) f32 out, the node rows
+// of the [node | source] table, or null; src_pos (n, 3), src_mass (n,) f32
 // and src (n, 4) f32 out, or src null where the caller holds the source rows
-// already. count must stay below 2^29. Launches on `stream`, returns the
-// cudaError_t of the launch (0 on success), does not synchronise.
+// already (the table's source rows are src = tab + rows). count must stay
+// below 2^29. Launches on `stream`, returns the cudaError_t of the launch (0
+// on success), does not synchronise.
 extern "C" int tree_walk_pack_launch(const void* nodes, const void* skip, const void* first,
-                                     const void* count, void* rec, int rows, float gdt,
-                                     const void* src_pos, const void* src_mass, void* src,
-                                     int n, int device, void* stream) {
+                                     const void* count, void* rec, void* tab, int rows,
+                                     float gdt, const void* src_pos, const void* src_mass,
+                                     void* src, int n, int device, void* stream) {
   if (rows < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -258,8 +292,8 @@ extern "C" int tree_walk_pack_launch(const void* nodes, const void* skip, const 
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(nodes), static_cast<const int*>(skip),
       static_cast<const int*>(first), static_cast<const int*>(count), static_cast<float4*>(rec),
-      rows, gdt, static_cast<const float*>(src_pos), static_cast<const float*>(src_mass),
-      static_cast<float4*>(src), n);
+      static_cast<float4*>(tab), rows, gdt, static_cast<const float*>(src_pos),
+      static_cast<const float*>(src_mass), static_cast<float4*>(src), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,8 +301,9 @@ extern "C" int tree_walk_pack_launch(const void* nodes, const void* skip, const 
 // src (n, 4) f32 sorted sources (position, mass*g*dt); num_nodes a device
 // int32 scalar; self_idx (b,) int32, or null where receiver i is source i;
 // active (b,) uint8 or null; out (b, 3) f32; counts (b, 4) int32 or null
-// (null launches the instantiation without counts). Launches on `stream`, returns the cudaError_t of the launch (0 on
-// success), does not synchronise.
+// (null launches the instantiation without counts). Launches on `stream`,
+// returns the cudaError_t of the launch (0 on success), does not
+// synchronise.
 extern "C" int tree_walk_launch(const void* pos_new, const void* rec, const void* src,
                                 const void* num_nodes, const void* self_idx, const void* active,
                                 void* out, void* counts, int b, int n, int rows, float theta,
@@ -283,9 +318,36 @@ extern "C" int tree_walk_launch(const void* pos_new, const void* rec, const void
         blocks, static_cast<cudaStream_t>(stream), static_cast<const float*>(pos_new),
         static_cast<const float4*>(rec), static_cast<const float4*>(src),
         static_cast<const int*>(num_nodes), static_cast<const int*>(self_idx),
-        static_cast<const unsigned char*>(active), static_cast<float*>(out),
+        static_cast<const unsigned char*>(active), static_cast<const int2*>(nullptr),
+        static_cast<const int*>(nullptr), 0, static_cast<float*>(out),
         static_cast<int*>(counts), b, n, rows - 1, theta, e);
   };
   err = counts != nullptr ? go(std::true_type{}) : go(std::false_type{});
   return static_cast<int>(err);
+}
+
+// The listed receivers of pos_new (b, 3) f32: warps (capacity, 2) int32
+// entries (first receiver, lane mask), of which the device int32 *n_warps
+// are live; receiver i is source self_base + i; rec, src and num_nodes as
+// for tree_walk_launch; out (b, 3) f32, of which only the listed rows are
+// written. Launches the instantiation without counts on `stream`, one warp
+// per entry of the capacity; returns the cudaError_t of the launch (0 on
+// success), does not synchronise.
+extern "C" int tree_walk_list_launch(const void* pos_new, const void* rec, const void* src,
+                                     const void* num_nodes, const void* warps,
+                                     const void* n_warps, int capacity, int self_base,
+                                     void* out, int b, int n, int rows, float theta, float e,
+                                     int device, void* stream) {
+  if (capacity <= 0) return 0;
+  if (rows < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kWarps = kBlock / 32;
+  return static_cast<int>(launch_walk<false>(
+      (capacity + kWarps - 1) / kWarps, static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(pos_new), static_cast<const float4*>(rec),
+      static_cast<const float4*>(src), static_cast<const int*>(num_nodes),
+      static_cast<const int*>(nullptr), static_cast<const unsigned char*>(nullptr),
+      static_cast<const int2*>(warps), static_cast<const int*>(n_warps), self_base,
+      static_cast<float*>(out), static_cast<int*>(nullptr), b, n, rows - 1, theta, e));
 }

@@ -30,8 +30,9 @@
 //     Lists go to device memory in chunks of kChunk ids taken from a pool
 //     with one atomic counter; the chunk table says where each tile's
 //     chunks are. A tile whose steps exceed r_cap stops and is flagged bad;
-//     one that finds the pool empty stops and is flagged pool_full; the
-//     wrapper defers both to the per-particle walk. Step counts are exact.
+//     one that finds the pool empty stops and is flagged pool_full; both are
+//     deferred to the per-particle walk, and (a') and (b) read the two flags.
+//     Step counts are exact.
 //     Which tiles find the pool empty depends on the order in which warps
 //     reach the counter, so the pool is sized to cover the lists of the
 //     scenes measured (ops/tree_walk_group.py::pool_chunks).
@@ -39,6 +40,19 @@
 //     way. The fused kernel these two replace kept the lists in shared
 //     memory and made three warps of every CTA wait while one walked (half
 //     of each tile's cycles, measured).
+// (a') group_defer_kernel, launched with (a): the receivers (a) and the tile
+//     set-up defer, as a device list for the per-particle walk
+//     (csrc/tree_walk.cu's tree_walk_list_kernel): entries (first receiver,
+//     lane mask) of 32 consecutive receivers of one piece, each tile's
+//     taken with one atomic from a device counter. A warp reads the flags
+//     and lengths of 32 tiles and lists, one tile after another, every
+//     receiver of a dropped tile and, of the others, those the tile set-up
+//     deferred. The set-up defers only receivers past walk_tile slots of a
+//     piece and the spills it merges into the last tile, so only a piece
+//     longer than walk_tile, or the last tile, reads its receivers' flags:
+//     no pass over every receiver, and a step that defers none lists none.
+//     It is its own kernel so that (a) keeps its registers (a tail in (a)
+//     took it from 32 to 40, or spilled).
 // (b) group_eval_kernel: one CTA of 128 threads per tile, receivers in
 //     registers, tiles in tile order (heaviest list first did not pay for
 //     its device sort at N=4M and lost on the disc scene: PERF.md). The list
@@ -117,21 +131,25 @@ static_assert(kBlock == 4 * 32, "the evaluation deals blocks of 32 receivers to 
 
 // ---- (a) the walk ----
 
+
 __global__ void __launch_bounds__(kWalkWarps * 32) group_lists_kernel(
     const float* __restrict__ pos_new, const float4* __restrict__ nodes,
     const int* __restrict__ skip, const int* __restrict__ first,
     const int* __restrict__ count, const int* __restrict__ num_nodes_ptr,
     const int* __restrict__ piece_start, const int* __restrict__ piece_len,
     int* __restrict__ ids, int* __restrict__ pool_next, int n_chunks,
-    int* __restrict__ chunks, int max_chunks, int* __restrict__ tile_bad,
-    int* __restrict__ tile_steps, int* __restrict__ tile_rows,
-    int* __restrict__ tile_full, int tiles, int g, int r_cap, int cap, float theta) {
+    int* __restrict__ chunks, int max_chunks, bool* __restrict__ tile_bad,
+    int* __restrict__ tile_steps, int* __restrict__ tile_rows, bool* __restrict__ tile_full,
+    int tiles, int g, int r_cap, int cap, float theta) {
   const int lane = threadIdx.x & 31;
   const int t = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
   if (t >= tiles) return;  // whole warps
   const int len = min(piece_len[t], g);
   if (len <= 0) {  // an unused tile of the static budget
-    if (lane == 0) tile_bad[t] = tile_steps[t] = tile_rows[t] = tile_full[t] = 0;
+    if (lane == 0) {
+      tile_bad[t] = tile_full[t] = false;
+      tile_steps[t] = tile_rows[t] = 0;
+    }
     return;
   }
   const int p0 = piece_start[t];
@@ -249,10 +267,63 @@ __global__ void __launch_bounds__(kWalkWarps * 32) group_lists_kernel(
     cur = __shfl_sync(kFull, jump ? nskip : k + 1, last);
   }
   if (lane == 0) {
-    tile_bad[t] = bad ? 1 : 0;
+    tile_bad[t] = bad;
     tile_steps[t] = bad ? r_cap : steps;
     tile_rows[t] = rows;
-    tile_full[t] = full ? 1 : 0;
+    tile_full[t] = full;
+  }
+}
+
+// ---- (a') the deferred list ----
+
+// Lane mask of the deferred receivers among the 32 of the piece [p0, p0 +
+// plen) from s0: all of them where the tile is dropped, else those the tile
+// set-up deferred.
+__device__ __forceinline__ unsigned deferred_lanes(bool dropped,
+                                                   const bool* __restrict__ deferred, int p0,
+                                                   int plen, int s0) {
+  const int s = s0 + (threadIdx.x & 31);
+  return __ballot_sync(kFull, s < plen && (dropped || deferred[p0 + s]));
+}
+
+// One warp per 32 tiles. A tile's entries go in piece order to positions
+// taken with one atomicAdd on *defer_len. A list of ceil(n / 32) + tiles
+// entries holds any tile set's: a piece of len receivers gives at most
+// ceil(len / 32).
+__global__ void __launch_bounds__(kWalkWarps * 32) group_defer_kernel(
+    const int* __restrict__ piece_start, const int* __restrict__ piece_len,
+    const bool* __restrict__ tile_bad, const bool* __restrict__ tile_full,
+    const bool* __restrict__ deferred,
+    int2* __restrict__ defer, int* __restrict__ defer_len, int tiles, int g) {
+  const int lane = threadIdx.x & 31;
+  const int t0 = (blockIdx.x * kWalkWarps + (threadIdx.x >> 5)) * 32;
+  const int t = t0 + lane;
+  bool dropped = false;
+  int plen = 0;
+  if (t < tiles) {
+    dropped = tile_bad[t] || tile_full[t];
+    plen = piece_len[t];
+  }
+  unsigned todo = __ballot_sync(kFull, t < tiles && (dropped || plen > g || t == tiles - 1));
+  while (todo != 0) {
+    const int k = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const bool drop_k = __shfl_sync(kFull, dropped, k);
+    const int len_k = __shfl_sync(kFull, plen, k);
+    const int p0 = piece_start[t0 + k];
+    int live = 0;
+    for (int s0 = 0; s0 < len_k; s0 += 32)
+      live += deferred_lanes(drop_k, deferred, p0, len_k, s0) != 0;
+    if (live == 0) continue;
+    int at = 0;
+    if (lane == 0) at = atomicAdd(defer_len, live);
+    at = __shfl_sync(kFull, at, 0);
+    for (int s0 = 0; s0 < len_k; s0 += 32) {
+      const unsigned lanes = deferred_lanes(drop_k, deferred, p0, len_k, s0);
+      if (lanes == 0) continue;
+      if (lane == 0) defer[at] = make_int2(p0 + s0, static_cast<int>(lanes));
+      ++at;
+    }
   }
 }
 
@@ -313,8 +384,8 @@ template <int PER>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
     const float* __restrict__ pos_new, const float4* __restrict__ table,
     const int* __restrict__ ids, const int* __restrict__ chunks, int max_chunks,
-    const int* __restrict__ tile_rows, const int* __restrict__ tile_skip,
-    const int* __restrict__ piece_start, const int* __restrict__ piece_len,
+    const int* __restrict__ tile_rows, const bool* __restrict__ tile_bad,
+    const bool* __restrict__ tile_full, const int* __restrict__ piece_start, const int* __restrict__ piece_len,
     float* __restrict__ out, int g, int self_base, float e,
     unsigned long long* __restrict__ pairs) {
   __shared__ float4 s_row[kStages][kChunk];
@@ -325,7 +396,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) group_eval_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int len = min(piece_len[t], g);
-  if (len <= 0 || tile_skip[t]) return;  // empty, or deferred: the fallback writes it
+  if (len <= 0 || tile_bad[t] || tile_full[t]) return;  // empty, or deferred: B3 writes it
   const int p0 = piece_start[t];
   const int nrows = tile_rows[t];
   const int nst = (nrows + kChunk - 1) / kChunk;
@@ -418,17 +489,20 @@ cudaError_t launch_eval(int tiles, int g, cudaStream_t stream, Args... args) {
 // (a) pos_new (b, 3) f32 receivers; nodes (cap+1, 8) f32; skip/first/count
 // (cap+1,) int32; num_nodes a device int32 scalar; piece_start/piece_len
 // (tiles,) int32; ids (n_chunks * chunk,) int32 pool; pool_next a device
-// int32 counter, zero; chunks (tiles, max_chunks) int32; tile_bad/
-// tile_steps/tile_rows/tile_full (tiles,) int32. g = walk_tile in [1, 512],
-// chunk must equal kChunk. Launches on `stream`, returns the cudaError_t of
-// the launch (0 on success), does not synchronise.
+// int32 counter, zero; chunks (tiles, max_chunks) int32; tile_bad/tile_full
+// (tiles,) bool, tile_steps/tile_rows (tiles,) int32 out; deferred (b,)
+// bool, the tile set-up's; defer (ceil(b / 32) + tiles, 2) int32 out and
+// defer_len a device int32 counter, zero: the deferred list (a'). g = walk_tile in [1, 512], chunk must equal kChunk. Launches (a)
+// and (a') on `stream`, returns the cudaError_t of the launches (0 on
+// success), does not synchronise.
 extern "C" int group_lists_launch(const void* pos_new, const void* nodes, const void* skip,
                                   const void* first, const void* count, const void* num_nodes,
                                   const void* piece_start, const void* piece_len, void* ids,
                                   void* pool_next, int n_chunks, int chunk, void* chunks,
                                   int max_chunks, void* tile_bad, void* tile_steps,
-                                  void* tile_rows, void* tile_full, int tiles, int g,
-                                  int r_cap, int cap, float theta, int device, void* stream) {
+                                  void* tile_rows, void* tile_full, const void* deferred,
+                                  void* defer, void* defer_len, int tiles, int g, int r_cap,
+                                  int cap, float theta, int device, void* stream) {
   if (tiles <= 0) return 0;
   if (g < 1 || g > kMaxTile || chunk != kChunk || max_chunks * kChunk < r_cap)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -441,27 +515,34 @@ extern "C" int group_lists_launch(const void* pos_new, const void* nodes, const 
       static_cast<const int*>(count), static_cast<const int*>(num_nodes),
       static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
       static_cast<int*>(ids), static_cast<int*>(pool_next), n_chunks,
-      static_cast<int*>(chunks), max_chunks, static_cast<int*>(tile_bad),
-      static_cast<int*>(tile_steps), static_cast<int*>(tile_rows), static_cast<int*>(tile_full),
+      static_cast<int*>(chunks), max_chunks, static_cast<bool*>(tile_bad),
+      static_cast<int*>(tile_steps), static_cast<int*>(tile_rows), static_cast<bool*>(tile_full),
       tiles, g, r_cap, cap, theta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kTilesPerBlock = kWalkWarps * 32;
+  group_defer_kernel<<<(tiles + kTilesPerBlock - 1) / kTilesPerBlock, kWalkWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
+      static_cast<const bool*>(tile_bad), static_cast<const bool*>(tile_full),
+      static_cast<const bool*>(deferred), static_cast<int2*>(defer), static_cast<int*>(defer_len), tiles, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // (b) pos_new (b, 3) f32 receivers (sorted slice starting at gid_offset);
 // table (cap+1+n, 4) f32 [node cog, mass*g*dt | source position,
-// mass*g*dt]; ids/chunks/tile_rows from (a); tile_skip (tiles,) int32,
-// nonzero for a deferred tile; out (b, 3) f32 (rows of deferred tiles are
-// left unwritten). self_base =
-// cap + 1 + gid_offset: the id of receiver 0 as a source. pairs: null, or a
+// mass*g*dt]; ids/chunks/tile_rows/tile_bad/tile_full from (a), a tile
+// with either flag set deferred; out (b, 3) f32 (rows of deferred tiles are
+// left unwritten). self_base = cap + 1 + gid_offset: the id of receiver 0 as a source. pairs: null, or a
 // device uint64 that each evaluated tile adds rows x 32 x ceil(len / 32) to.
 // Launches on `stream`, returns the cudaError_t of the launch, does not
 // synchronise.
 extern "C" int group_eval_launch(const void* pos_new, const void* table, const void* ids,
                                  const void* chunks, int max_chunks, const void* tile_rows,
-                                 const void* tile_skip, const void* piece_start,
-                                 const void* piece_len, void* out, int tiles, int g,
-                                 int self_base, float e, void* pairs, int device,
-                                 void* stream) {
+                                 const void* tile_bad, const void* tile_full,
+                                 const void* piece_start, const void* piece_len, void* out,
+                                 int tiles, int g, int self_base, float e, void* pairs,
+                                 int device, void* stream) {
   if (tiles <= 0) return 0;
   if (g < 1 || g > kMaxTile) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -469,7 +550,8 @@ extern "C" int group_eval_launch(const void* pos_new, const void* table, const v
   err = launch_eval<1>(tiles, g, static_cast<cudaStream_t>(stream),
                        static_cast<const float*>(pos_new), static_cast<const float4*>(table),
                        static_cast<const int*>(ids), static_cast<const int*>(chunks), max_chunks,
-                       static_cast<const int*>(tile_rows), static_cast<const int*>(tile_skip),
+                       static_cast<const int*>(tile_rows), static_cast<const bool*>(tile_bad),
+                       static_cast<const bool*>(tile_full),
                        static_cast<const int*>(piece_start), static_cast<const int*>(piece_len),
                        static_cast<float*>(out), g, self_base, e,
                        static_cast<unsigned long long*>(pairs));

@@ -91,7 +91,8 @@ def _load_counter_kernels(device: torch.device) -> None:
     on an H100), which would stall the first traced step."""
     one = torch.ones(1, dtype=torch.int32, device=device)
     no = torch.zeros(1, dtype=torch.bool, device=device)
-    stats = GroupWalkStats(no, no, Tiles(one, one, one, one, no, 1, 1, 1),
+    tile_id = torch.zeros(1, dtype=torch.int64, device=device)
+    stats = GroupWalkStats(Tiles(tile_id, one, one, one, no, 1, 1, 1),
                            GroupLists(one, one, no, one, one, no))
     pairs, deferred, _ = _walk_counts(stats)
     torch.add(pairs, deferred)  # a running total's add (``utils/profiling.py::count``)

@@ -1,14 +1,19 @@
 """Wrapper of the hand-written per-particle walk kernel (``csrc/tree_walk.cu``).
 
 ``tree_forces_cuda`` has the signature of ``ops/tree_walk.py::tree_forces``
-(the JAX package's ``tree_forces``), plus ``table``: a caller that already
-holds the ``[node | source]`` table of this tree and these sources
-(``ops/tree_walk_group.py::source_table``, as the group walk does) hands it
-over and the walk reads its source rows; otherwise the pack kernel writes
-them. For CUDA tensors it launches the pack kernel (the arena as one 32-byte
-record per node) and then the walk, one warp per 32 consecutive receivers;
-for CPU tensors it returns the plain version; every other device raises. A
-CUDA tensor never falls back to the plain version.
+(the JAX package's ``tree_forces``). For CUDA tensors it launches the pack
+kernel (the arena as one 32-byte record per node, and the sources as rows of
+position and mass * g * dt) and then the walk, one warp per 32 consecutive
+receivers; for CPU tensors it returns the plain version; every other device
+raises. A CUDA tensor never falls back to the plain version.
+
+The group walk (``ops/tree_walk_group_cuda.py``) takes the two launches
+apart: ``walk_tables_cuda`` is one pack launch that writes the records and
+the whole ``[node | source]`` table (``ops/tree_walk_group.py::
+source_table``), whose source rows the walk reads, and
+``tree_forces_listed_cuda`` walks only the receivers of a device list of
+warps, writing their rows into the caller's output in place. CUDA tensors
+only.
 
 The kernel is built like the other kernels (``ops/cuda_build.py``), with
 their flags: its theta test rounds as the plain version by intrinsics that
@@ -32,8 +37,13 @@ SOURCE = _PKG / "csrc" / "tree_walk.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the theta test rounds by intrinsics
 
-#: Kernel launches since import (or since a caller set it to 0).
+#: Walk launches since import (or since a caller set it to 0): one per
+#: ``tree_forces_cuda`` (whose pack launch goes with it) or
+#: ``tree_forces_listed_cuda`` call on the card.
 LAUNCHES = 0
+#: ``walk_tables_cuda`` launches (the pack kernel writing the group walk's
+#: tables), likewise.
+LAUNCHES_TABLES = 0
 _lib: ctypes.CDLL | None = None
 
 
@@ -50,14 +60,19 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[0]))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tree_walk_pack_launch.argtypes = [
-            p, p, p, p, p, i, f,  # nodes, skip, first, count, rec, rows, gdt
+            p, p, p, p, p, p, i, f,  # nodes, skip, first, count, rec, tab, rows, gdt
             p, p, p, i, i, p,  # src_pos, src_mass, src, n, device, stream
         ]
         lib.tree_walk_launch.argtypes = [
             p, p, p, p, p, p, p, p,  # pos_new, rec, src, num_nodes, self_idx, active, out, counts
             i, i, i, f, f, i, p,  # b, n, rows, theta, e, device, stream
         ]
-        lib.tree_walk_pack_launch.restype = lib.tree_walk_launch.restype = i
+        lib.tree_walk_list_launch.argtypes = [
+            p, p, p, p, p, p, i, i,  # pos_new, rec, src, num_nodes, warps, n_warps, capacity, self_base
+            p, i, i, i, f, f, i, p,  # out, b, n, rows, theta, e, device, stream
+        ]
+        for fn in (lib.tree_walk_pack_launch, lib.tree_walk_launch, lib.tree_walk_list_launch):
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -80,23 +95,20 @@ def tree_forces_cuda(
     tree_params: TreeParams,
     active: torch.Tensor | None = None,
     self_idx: torch.Tensor | None = None,
-    table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, 3) acc*dt of receivers ``pos_new`` from the tree over the
     sorted sources ``src_pos``/``src_mass`` (see ``tree_walk.tree_forces``).
 
     CUDA tensors go through the kernel; CPU tensors through the plain
-    version; anything else raises. ``table`` (CUDA only) is
-    ``tree_walk_group.source_table(tree, src_pos, src_mass, g * dt)`` where
-    the caller has it already: its source rows are read in place.
+    version; anything else raises.
     """
     if pos_new.device.type == "cpu":
-        _one_device(pos_new, src_pos, src_mass, tree, active, self_idx)
+        _one_device(tree, pos_new, src_pos, src_mass, active, self_idx)
         return tree_forces(
             pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx
         )
     return _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
-                   table, None)
+                   None)
 
 
 def tree_forces_counts_cuda(
@@ -116,70 +128,152 @@ def tree_forces_counts_cuda(
     b = pos_new.shape[0]
     counts = torch.zeros((b, 4), dtype=torch.int32, device=pos_new.device)
     out = _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
-                  None, counts)
+                  counts)
     return out, counts
 
 
-def _one_device(pos_new, src_pos, src_mass, tree, *optional) -> None:
-    tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
-               tree.count, tree.num_nodes]
-    tensors += [t for t in optional if t is not None]
-    devices = {t.device for t in tensors}
+def _one_device(tree, *tensors) -> None:
+    """Raise unless the tree's arrays and the given tensors (None skipped)
+    lie on one device."""
+    found = [tree.nodes_f32, tree.skip, tree.first, tree.count, tree.num_nodes]
+    found += [t for t in tensors if t is not None]
+    devices = {t.device for t in found}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
 
 
-def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx, table,
-            counts) -> torch.Tensor:
-    global LAUNCHES
-    _one_device(pos_new, src_pos, src_mass, tree, active, self_idx, table)
-    device = pos_new.device
-    if device.type != "cuda":
-        raise ValueError(f"tree_forces_cuda takes CUDA or CPU tensors, got {device}")
-    b, n = pos_new.shape[0], src_pos.shape[0]
-    rows = tree.nodes_f32.shape[0]
-    _check("pos_new", pos_new, torch.float32, (b, 3))
+def _check_arena(tree, src_pos, src_mass) -> tuple[int, int]:
+    """(arena rows, sources) of a tree and its sorted sources, checked."""
+    rows, n = tree.nodes_f32.shape[0], src_pos.shape[0]
     _check("src_pos", src_pos, torch.float32, (n, 3))
     _check("src_mass", src_mass, torch.float32, (n,))
     _check("nodes_f32", tree.nodes_f32, torch.float32, (rows, NODE_F32_COLS))
     for name in ("skip", "first", "count"):
         _check(name, getattr(tree, name), torch.int32, (rows,))
     _check("num_nodes", tree.num_nodes, torch.int32, ())
+    if rows < 1 or rows + n >= 2**31 or n >= 2**29:
+        raise ValueError(f"the arena's {rows} rows and the {n} sources do not fit the kernel")
+    return rows, n
+
+
+def _target(device: torch.device) -> tuple[int, int]:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream
+
+
+def _pack(tree, src_pos, src_mass, gdt: float, rec, tab, src) -> None:
+    """One pack launch: the records into ``rec``, the table's node rows into
+    ``tab`` and the source rows into ``src`` (either may be None)."""
+    err = _library().tree_walk_pack_launch(
+        tree.nodes_f32.data_ptr(), tree.skip.data_ptr(), tree.first.data_ptr(),
+        tree.count.data_ptr(), rec.data_ptr(), None if tab is None else tab.data_ptr(),
+        rec.shape[0], gdt, src_pos.data_ptr(), src_mass.data_ptr(),
+        None if src is None else src.data_ptr(), src_pos.shape[0], *_target(rec.device),
+    )
+    if err != 0:
+        raise RuntimeError(f"tree_walk pack kernel launch failed: cudaError_t {err}")
+
+
+def walk_tables_cuda(
+    tree: TreeArrays, src_pos: torch.Tensor, src_mass: torch.Tensor, params: SimParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(records, table) of the group walk, in one pack launch over the arena
+    and the sources: the walk's (rows, 8) float32 records and the (rows + N,
+    4) float32 ``[node | source]`` table, ``torch.equal`` to
+    ``tree_walk_group.source_table(tree, src_pos, src_mass, g * dt)``. CUDA
+    tensors only."""
+    global LAUNCHES_TABLES
+    _one_device(tree, src_pos, src_mass)
+    device = src_pos.device
+    if device.type != "cuda":
+        raise ValueError(f"walk_tables_cuda takes CUDA tensors, got {device}")
+    rows, n = _check_arena(tree, src_pos, src_mass)
+    rec = torch.empty((rows, NODE_F32_COLS), dtype=torch.float32, device=device)
+    table = torch.empty((rows + n, 4), dtype=torch.float32, device=device)
+    _pack(tree, src_pos, src_mass, float(params.g * params.dt), rec, table, table[rows:])
+    LAUNCHES_TABLES += 1
+    return rec, table
+
+
+def tree_forces_listed_cuda(
+    pos_new: torch.Tensor,
+    rec: torch.Tensor,
+    table: torch.Tensor,
+    tree: TreeArrays,
+    warps: torch.Tensor,
+    n_warps: torch.Tensor,
+    self_base: int,
+    params: SimParams,
+    tree_params: TreeParams,
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """The walk of the receivers a device list names, written into ``out``
+    in place (the other rows are left as they are); returns ``out``. CUDA
+    tensors only.
+
+    ``warps`` is (capacity, 2) int32, entry w (first receiver, lane mask):
+    lane l walks receiver first + l where bit l is set; the () int32
+    ``n_warps`` on the device says how many are live (the group walk's lists
+    kernel writes both). Receiver i is source ``self_base + i`` (past the
+    sources: none). ``rec`` and ``table`` are ``walk_tables_cuda``'s of this
+    tree and sources. One launch of the per-particle walk kernel, whatever
+    the count: its grid covers the capacity, and warps past the count return
+    at once; each row is computed as ``tree_forces_cuda`` computes it."""
+    global LAUNCHES
+    device = pos_new.device
+    if device.type != "cuda":
+        raise ValueError(f"tree_forces_listed_cuda takes CUDA tensors, got {device}")
+    _one_device(tree, pos_new, rec, table, warps, n_warps, out)
+    b, rows = pos_new.shape[0], tree.nodes_f32.shape[0]
+    n = table.shape[0] - rows
+    _check("pos_new", pos_new, torch.float32, (b, 3))
+    _check("out", out, torch.float32, (b, 3))
+    _check("rec", rec, torch.float32, (rows, NODE_F32_COLS))
+    _check("table", table, torch.float32, (rows + n, 4))
+    _check("warps", warps, torch.int32, (warps.shape[0], 2))
+    _check("n_warps", n_warps, torch.int32, ())
+    _check("num_nodes", tree.num_nodes, torch.int32, ())
+    err = _library().tree_walk_list_launch(
+        pos_new.data_ptr(), rec.data_ptr(), table.data_ptr() + rows * 16,
+        tree.num_nodes.data_ptr(), warps.data_ptr(), n_warps.data_ptr(), warps.shape[0],
+        int(self_base), out.data_ptr(), b, n, rows, float(tree_params.theta), float(params.e),
+        *_target(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"tree_walk list kernel launch failed: cudaError_t {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
+            counts) -> torch.Tensor:
+    global LAUNCHES
+    _one_device(tree, pos_new, src_pos, src_mass, active, self_idx)
+    device = pos_new.device
+    if device.type != "cuda":
+        raise ValueError(f"tree_forces_cuda takes CUDA or CPU tensors, got {device}")
+    b = pos_new.shape[0]
+    _check("pos_new", pos_new, torch.float32, (b, 3))
+    rows, n = _check_arena(tree, src_pos, src_mass)
     if self_idx is not None:  # None: receiver i is source i, the kernel's default
         _check("self_idx", self_idx, torch.int32, (b,))
     if active is not None:
         _check("active", active, torch.bool, (b,))
-    if rows < 1 or rows + n >= 2**31 or n >= 2**29:
-        raise ValueError(f"the arena's {rows} rows and the {n} sources do not fit the kernel")
 
     out = torch.empty((b, 3), dtype=torch.float32, device=device)
     if b == 0:
         return out
     # the arena as one 32-byte record per node; the sources as (position,
-    # mass * g * dt) rows, the table's where the caller has them
+    # mass * g * dt) rows
     rec = torch.empty((rows, NODE_F32_COLS), dtype=torch.float32, device=device)
-    if table is None:
-        src = torch.empty((n, 4), dtype=torch.float32, device=device)
-        src_ptr, packed_src = src.data_ptr(), src.data_ptr()
-    else:
-        _check("table", table, torch.float32, (rows + n, 4))
-        src_ptr, packed_src = table.data_ptr() + rows * 16, None
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    lib = _library()
-    err = lib.tree_walk_pack_launch(
-        tree.nodes_f32.data_ptr(), tree.skip.data_ptr(), tree.first.data_ptr(),
-        tree.count.data_ptr(), rec.data_ptr(), rows, float(params.g * params.dt),
-        src_pos.data_ptr(), src_mass.data_ptr(), packed_src, n, index, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"tree_walk pack kernel launch failed: cudaError_t {err}")
-    err = lib.tree_walk_launch(
-        pos_new.data_ptr(), rec.data_ptr(), src_ptr, tree.num_nodes.data_ptr(),
+    src = torch.empty((n, 4), dtype=torch.float32, device=device)
+    _pack(tree, src_pos, src_mass, float(params.g * params.dt), rec, None, src)
+    err = _library().tree_walk_launch(
+        pos_new.data_ptr(), rec.data_ptr(), src.data_ptr(), tree.num_nodes.data_ptr(),
         self_idx.data_ptr() if self_idx is not None else None,
         active.data_ptr() if active is not None else None,
         out.data_ptr(), counts.data_ptr() if counts is not None else None,
-        b, n, rows, float(tree_params.theta), float(params.e), index, stream,
+        b, n, rows, float(tree_params.theta), float(params.e), *_target(device),
     )
     if err != 0:
         raise RuntimeError(f"tree_walk kernel launch failed: cudaError_t {err}")

@@ -195,6 +195,15 @@ class GroupLists(NamedTuple):
     pool_full: (t_cap,) bool, the pool had no room for the tile's list.
     A bad or pool_full tile's receivers are deferred; its list, steps and
     rows are not meaningful past the point where it stopped.
+
+    The lists kernels (``tree_walk_group_cuda.group_walk_lists_cuda``) also
+    write, where the plain version leaves None:
+    defer:     (ceil(n / 32) + t_cap, 2) int32 the deferred receivers as
+               warps of the per-particle walk, (first receiver, lane mask),
+               of which ``defer_len`` are live (``deferred_warps`` is the
+               plain version, in tile order; the kernel's order is the
+               order in which tiles finish).
+    defer_len: () int32 on the device.
     """
 
     ids: torch.Tensor
@@ -203,26 +212,37 @@ class GroupLists(NamedTuple):
     steps: torch.Tensor
     rows: torch.Tensor
     pool_full: torch.Tensor
+    defer: torch.Tensor | None = None
+    defer_len: torch.Tensor | None = None
 
 
 class GroupWalkStats(NamedTuple):
-    """What one group walk can report, kept as masks and its tiles and
-    lists: each count is reduced on the device when it is read, so a step
-    that reads none launches none.
+    """What one group walk can report, kept as its tiles and lists: the
+    deferred masks and each count are built on the device when a caller
+    reads them, so a step that reads none launches none.
 
-    deferred_mask: (n,) bool receivers sent down the fallback walk.
-    pool_mask:     (n,) bool of those, the ones deferred for want of list
-                   pool room.
-    eval_pairs:    () int64 receiver-row pairs the evaluation computed,
-                   counted by it (``eval_pairs``' rule) while a profiler
-                   records; None otherwise.
+    eval_pairs: () int64 receiver-row pairs the evaluation computed,
+                counted by it (``eval_pairs``' rule) while a profiler
+                records; None otherwise.
     """
 
-    deferred_mask: torch.Tensor
-    pool_mask: torch.Tensor
     tiles: Tiles
     lists: GroupLists
     eval_pairs: torch.Tensor | None = None
+
+    @property
+    def deferred_mask(self) -> torch.Tensor:
+        """(n,) bool receivers sent down the fallback walk: those the tile
+        set-up defers, and every receiver of a bad or pool_full tile."""
+        t = self.tiles.tile_id
+        return self.tiles.deferred | self.lists.bad[t] | self.lists.pool_full[t]
+
+    @property
+    def pool_mask(self) -> torch.Tensor:
+        """(n,) bool of those, the ones deferred for want of list pool room
+        alone."""
+        t = self.tiles.tile_id
+        return self.lists.pool_full[t] & ~(self.tiles.deferred | self.lists.bad[t])
 
     @property
     def deferred(self) -> torch.Tensor:
@@ -370,6 +390,33 @@ def group_walk_lists(
         rows=full_len(rows, torch.int32),
         pool_full=full_len(full, torch.bool),
     )
+
+
+def defer_capacity(n: int, t_cap: int) -> int:
+    """Entries of the deferred list that any tiles of n receivers fill at
+    most: a piece of p receivers gives at most ceil(p / 32)."""
+    return -(-n // 32) + t_cap
+
+
+def deferred_warps(tiles: Tiles, lists: GroupLists) -> tuple[torch.Tensor, torch.Tensor]:
+    """((W, 2) int32, () int32): the deferred receivers (``GroupWalkStats.
+    deferred_mask``) as warps of the per-particle walk, and W, in tile order:
+    each piece cut into runs of 32 receivers from its start, entry (first
+    receiver of the run, lane mask with bit l set where receiver first + l is
+    deferred), runs with no deferred receiver left out. The plain version of
+    the list the lists kernel writes (``GroupLists.defer``)."""
+    n = tiles.tile_id.shape[0]
+    deferred = GroupWalkStats(tiles, lists).deferred_mask
+    lane = tiles.slot.to(torch.int64) % 32
+    first = torch.arange(n, dtype=torch.int64, device=lane.device) - lane
+    starts, run = torch.unique_consecutive(first, return_inverse=True)
+    bits = torch.zeros(starts.shape[0], dtype=torch.int64, device=lane.device)
+    bits.index_add_(0, run, torch.where(deferred, torch.ones_like(lane) << lane, 0))
+    live = bits != 0
+    mask = bits[live]
+    mask = torch.where(mask >= 2**31, mask - 2**32, mask)  # as int32 bits
+    warps = torch.stack([starts[live], mask], 1).to(torch.int32)
+    return warps, torch.tensor(warps.shape[0], dtype=torch.int32, device=lane.device)
 
 
 def list_ids(lists: GroupLists, pad: int = -1) -> torch.Tensor:
@@ -536,13 +583,11 @@ def group_tree_forces(
     pairs = torch.zeros((), dtype=torch.int64, device=pos_new.device) if tracing() else None
     acc = group_eval_lists(pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset,
                            pairs)
-    bad = tiles.deferred | lists.bad[tiles.tile_id]
-    full = lists.pool_full[tiles.tile_id] & ~bad
-    deferred = bad | full
-    idx = deferred.nonzero().flatten()
+    stats = GroupWalkStats(tiles, lists, pairs)
+    idx = stats.deferred_mask.nonzero().flatten()
     if idx.numel():
         acc[idx] = tree_forces(
             pos_new[idx], src_pos, src_mass, tree, params, tree_params,
             self_idx=gid_offset + idx,
         )
-    return acc, GroupWalkStats(deferred, full, tiles, lists, pairs)
+    return acc, stats

@@ -3,13 +3,20 @@ and of its tile set-up (``csrc/tile_setup.cu``).
 
 ``group_tree_forces_cuda`` has the signature of
 ``ops/tree_walk_group.py::group_tree_forces`` (the JAX package's
-``group_tree_forces``). For CUDA tensors it makes the tiles with the tile
-set-up kernels (``tile_setup_cuda``), launches the walk kernel (one warp per
-tile: the interaction lists, as ids in a pool), the evaluation kernel (one
-CTA per tile), and then the per-particle walk kernel (``csrc/tree_walk.cu``)
-once over the deferred receivers as a mask, so a step needs no host read.
-While a profiler records, the evaluation kernel also counts the
-receiver-row pairs it computes (``GroupWalkStats.eval_pairs``).
+``group_tree_forces``). For CUDA tensors it launches only hand-written
+kernels: the tile set-up kernels (``tile_setup_cuda``), one pack launch that
+writes the walk's tables (``tree_walk_cuda.walk_tables_cuda``: the
+``[node | source]`` table the evaluation reads and the per-particle walk's
+records), the walk kernel (one warp per tile: the interaction lists, as ids
+in a pool, and each tile's flags) with, in the same launcher call,
+``group_defer_kernel`` (the list of deferred receivers, on the device), the
+evaluation kernel (one CTA per tile), and the per-particle walk kernel
+(``csrc/tree_walk.cu``) once over that device-side list, writing the
+deferred receivers' rows into the evaluation's output in place. So a step
+needs no host read, and no pass over every receiver or the whole arena
+yields nothing when none is deferred. While a profiler records, the
+evaluation kernel also counts the receiver-row pairs it computes
+(``GroupWalkStats.eval_pairs``).
 For CPU tensors it returns the plain version; every other device raises. A
 CUDA tensor never falls back to the plain version.
 """
@@ -23,12 +30,17 @@ import torch
 
 from wgpu_n_body_tpu_torch.ops import cuda_build
 from wgpu_n_body_tpu_torch.ops.tree_build import NODE_F32_COLS, TreeArrays
-from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import _check, tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import (
+    _check,
+    tree_forces_listed_cuda,
+    walk_tables_cuda,
+)
 from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
     LIST_CHUNK,
     GroupLists,
     GroupWalkStats,
     Tiles,
+    defer_capacity,
     group_tree_forces,
     max_chunks,
     pool_chunks,
@@ -151,10 +163,11 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, p,  # pos_new, nodes, skip, first, count, num_nodes
             p, p, p, p, i, i,  # piece_start, piece_len, ids, pool_next, n_chunks, chunk
             p, i, p, p, p, p,  # chunks, max_chunks, bad, steps, rows, full
+            p, p, p,  # deferred, defer, defer_len
             i, i, i, i, f, i, p,  # tiles, g, r_cap, cap, theta, device, stream
         ]
         lib.group_eval_launch.argtypes = [
-            p, p, p, p, i, p, p,  # pos_new, table, ids, chunks, max_chunks, rows, skip
+            p, p, p, p, i, p, p, p,  # pos_new, table, ids, chunks, max_chunks, rows, bad, full
             p, p, p,  # piece_start, piece_len, out
             i, i, i, f, p, i, p,  # tiles, g, self_base, e, pairs, device, stream
         ]
@@ -187,7 +200,8 @@ def group_walk_lists_cuda(
 ) -> GroupLists:
     """The walk kernel's counterpart of ``tree_walk_group.group_walk_lists``,
     CUDA tensors only. The pool holds ``pool_chunks(n)`` chunks; tiles take
-    them in the order their walks ask."""
+    them in the order their walks ask. The lists also carry the deferred
+    list the kernels write besides (``GroupLists.defer``, ``defer_len``)."""
     global LAUNCHES
     device = pos_new.device
     if device.type != "cuda":
@@ -201,30 +215,37 @@ def group_walk_lists_cuda(
     _check("num_nodes", tree.num_nodes, torch.int32, ())
     _check("piece_start", tiles.piece_start, torch.int32, (tiles.t_cap,))
     _check("piece_len", tiles.piece_len, torch.int32, (tiles.t_cap,))
+    _check("deferred", tiles.deferred, torch.bool, (n,))
     if not 1 <= tiles.g <= MAX_TILE:
         raise ValueError(f"walk_tile must be in [1, {MAX_TILE}] on CUDA, got {tiles.g}")
     n_chunks = pool_chunks(n)
     mc = max_chunks(tiles)
 
     ids = torch.empty(n_chunks * LIST_CHUNK, dtype=torch.int32, device=device)
-    pool_next = torch.zeros((), dtype=torch.int32, device=device)
+    # the pool's next chunk, and the deferred list's length
+    counters = torch.zeros(2, dtype=torch.int32, device=device)
     chunks = torch.full((tiles.t_cap, mc), -1, dtype=torch.int32, device=device)
-    per_tile = torch.empty((4, tiles.t_cap), dtype=torch.int32, device=device)
+    per_tile = torch.empty((2, tiles.t_cap), dtype=torch.int32, device=device)
+    flags = torch.empty((2, tiles.t_cap), dtype=torch.bool, device=device)
+    defer = torch.empty((defer_capacity(n, tiles.t_cap), 2), dtype=torch.int32, device=device)
+    lists = GroupLists(ids=ids, chunks=chunks, bad=flags[0], steps=per_tile[0],
+                       rows=per_tile[1], pool_full=flags[1], defer=defer,
+                       defer_len=counters[1])
     err = _library().group_lists_launch(
         pos_new.data_ptr(), tree.nodes_f32.data_ptr(), tree.skip.data_ptr(),
         tree.first.data_ptr(), tree.count.data_ptr(), tree.num_nodes.data_ptr(),
         tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), ids.data_ptr(),
-        pool_next.data_ptr(), n_chunks, LIST_CHUNK, chunks.data_ptr(), mc,
-        per_tile[0].data_ptr(), per_tile[1].data_ptr(), per_tile[2].data_ptr(),
-        per_tile[3].data_ptr(), tiles.t_cap, tiles.g, tiles.r_cap, rows - 1,
-        float(tree_params.theta), _device_index(device),
+        counters[0].data_ptr(), n_chunks, LIST_CHUNK, chunks.data_ptr(), mc,
+        lists.bad.data_ptr(), lists.steps.data_ptr(), lists.rows.data_ptr(),
+        lists.pool_full.data_ptr(), tiles.deferred.data_ptr(),
+        defer.data_ptr(), lists.defer_len.data_ptr(), tiles.t_cap, tiles.g, tiles.r_cap,
+        rows - 1, float(tree_params.theta), _device_index(device),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"group_lists kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1
-    return GroupLists(ids=ids, chunks=chunks, bad=per_tile[0] != 0, steps=per_tile[1],
-                      rows=per_tile[2], pool_full=per_tile[3] != 0)
+    return lists
 
 
 def group_eval_lists_cuda(
@@ -258,6 +279,8 @@ def group_eval_lists_cuda(
     _check("src_mass", src_mass, torch.float32, (n_src,))
     _check("chunks", lists.chunks, torch.int32, (t_cap, mc))
     _check("rows", lists.rows, torch.int32, (t_cap,))
+    _check("bad", lists.bad, torch.bool, (t_cap,))
+    _check("pool_full", lists.pool_full, torch.bool, (t_cap,))
     _check("piece_start", tiles.piece_start, torch.int32, (t_cap,))
     _check("piece_len", tiles.piece_len, torch.int32, (t_cap,))
     if lists.ids.dtype != torch.int32 or lists.ids.dim() != 1:
@@ -274,11 +297,10 @@ def group_eval_lists_cuda(
     if table is None:  # one 16-byte row per id
         table = source_table(tree, src_pos, src_mass, params.g * params.dt)
     _check("table", table, torch.float32, (cap + 1 + n_src, 4))
-    skip = (lists.bad | lists.pool_full).to(torch.int32)
     err = _library().group_eval_launch(
         pos_new.data_ptr(), table.data_ptr(), lists.ids.data_ptr(), lists.chunks.data_ptr(), mc,
-        lists.rows.data_ptr(), skip.data_ptr(), tiles.piece_start.data_ptr(),
-        tiles.piece_len.data_ptr(), out.data_ptr(), t_cap, tiles.g,
+        lists.rows.data_ptr(), lists.bad.data_ptr(), lists.pool_full.data_ptr(),
+        tiles.piece_start.data_ptr(), tiles.piece_len.data_ptr(), out.data_ptr(), t_cap, tiles.g,
         cap + 1 + gid_offset, float(params.e), None if pairs is None else pairs.data_ptr(),
         _device_index(device), torch.cuda.current_stream(device).cuda_stream,
     )
@@ -303,21 +325,23 @@ def group_tree_forces_cuda(
     ``tree_walk_group.group_tree_forces``).
 
     CUDA tensors go through the kernels, then the per-particle kernel over
-    the deferred receivers; CPU tensors through the plain version; anything
-    else raises. ``tiles``: the receivers' tiles where the caller has made
-    them (``tile_setup_cuda``, with r_cap from this walk's walk_list_cap):
-    the LET step's two walks share one set, and the import walk, whose
-    receivers are not the tree's bodies, needs them. Otherwise, on the card,
-    the tile kernels make them from the split levels the build kernels
-    wrote (``tree.split``) at the receivers' sorted indices [gid_offset,
-    gid_offset + B); the plain version derives them from ``keys``. Under a
-    profiler the stages show as ranges (``group_tiles``; ``group_kernel``
-    around the walk kernel's ``group_walk`` and the evaluation's
-    ``group_eval``; ``group_fallback``), which ``utils/profile_step.py``
-    reads. ``stats`` holds the deferred masks, the tiles and the lists:
-    its counts are reduced only when a caller reads them. While a profiler
-    records, ``stats.eval_pairs`` holds the evaluation kernel's count of
-    the pairs it computed; otherwise it is None and nothing is counted.
+    the list of deferred receivers the walk kernels wrote; CPU tensors
+    through the plain version; anything else raises. ``tiles``: the
+    receivers' tiles where the caller has made them (``tile_setup_cuda``,
+    with r_cap from this walk's walk_list_cap): the LET step's two walks
+    share one set, and the import walk, whose receivers are not the tree's
+    bodies, needs them. Otherwise, on the card, the tile kernels make them
+    from the split levels the build kernels wrote (``tree.split``) at the
+    receivers' sorted indices [gid_offset, gid_offset + B); the plain
+    version derives them from ``keys``. Under a profiler the stages show as
+    ranges (``group_tiles``; ``group_tables``, the pack launch;
+    ``group_kernel`` around the walk kernel's ``group_walk`` and the
+    evaluation's ``group_eval``; ``group_fallback``, the per-particle
+    kernel over the list), which ``utils/profile_step.py`` reads. ``stats``
+    holds the tiles and the lists: its masks and counts are built only when
+    a caller reads them. While a profiler records, ``stats.eval_pairs``
+    holds the evaluation kernel's count of the pairs it computed; otherwise
+    it is None and nothing is counted.
     """
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
@@ -336,7 +360,7 @@ def group_tree_forces_cuda(
         )
     if device.type != "cuda":
         raise ValueError(f"group_tree_forces_cuda takes CUDA or CPU tensors, got {device}")
-    g0 = int(gid_offset)
+    g0 = check_receivers(gid_offset, n, src_pos.shape[0])
     if tiles is None:
         if tree.split is None:
             raise ValueError("group_tree_forces_cuda on CUDA takes the build's split levels "
@@ -345,26 +369,19 @@ def group_tree_forces_cuda(
             # the receivers are sorted bodies [g0, g0 + n); a slice's first split
             # level is never read (its first receiver starts a piece anyway)
             tiles = tile_setup_cuda(tree.split[g0 : g0 + n], n, tree_params)
+    with trace_scope("group_tables"):
+        # the [node | source] table, and the fallback walk's records
+        rec, table = walk_tables_cuda(tree, src_pos, src_mass, params)
     with trace_scope("group_kernel"):
         with trace_scope("group_walk"):
             lists = group_walk_lists_cuda(pos_new, tree, tiles, tree_params)
         with trace_scope("group_eval"):
-            # the [node | source] table, shared with the fallback's walk
-            table = source_table(tree, src_pos, src_mass, params.g * params.dt)
             pairs = torch.zeros((), dtype=torch.int64, device=device) if tracing() else None
             acc = group_eval_lists_cuda(
-                pos_new, src_pos, src_mass, tree, tiles, lists, params, gid_offset, table, pairs
+                pos_new, src_pos, src_mass, tree, tiles, lists, params, g0, table, pairs
             )
     with trace_scope("group_fallback"):
-        bad = tiles.deferred | lists.bad[tiles.tile_id]
-        full = lists.pool_full[tiles.tile_id] & ~bad
-        deferred = bad | full
-        self_idx = None  # receiver i is source i, unless the receivers are a later slice
-        if g0:
-            self_idx = torch.arange(g0, g0 + n, dtype=torch.int32, device=device)
-        fallback = tree_forces_cuda(
-            pos_new, src_pos, src_mass, tree, params, tree_params, active=deferred,
-            self_idx=self_idx, table=table,
-        )
-        acc = torch.where(deferred[:, None], fallback, acc)
-    return acc, GroupWalkStats(deferred, full, tiles, lists, pairs)
+        # receiver i is source g0 + i: a later slice of the sources, or none
+        tree_forces_listed_cuda(pos_new, rec, table, tree, lists.defer, lists.defer_len, g0,
+                                params, tree_params, out=acc)
+    return acc, GroupWalkStats(tiles, lists, pairs)

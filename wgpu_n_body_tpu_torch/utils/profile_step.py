@@ -18,15 +18,18 @@ simulator's own step. Prints:
   it (``morton_keys``, ``morton_sort``, ``tree_build``, ``theta_walk`` and
   ``counters`` from ``TreeSim``, ``leapfrog.drift`` and ``leapfrog.kick``
   from the leapfrog;
-  inside the group walk ``group_tiles``, ``group_kernel`` (B4: the walk
-  kernel in ``group_walk``, the source table and the evaluation kernel in
-  ``group_eval``) and ``group_fallback`` (B3 over the deferred mask, and
-  the merge) from ``group_tree_forces_cuda``; a kernel in none of them
+  inside the group walk ``group_tiles`` (B4 · T), ``group_tables`` (one
+  pack launch: the [node | source] table and B3's records), ``group_kernel``
+  (B4: the walk kernel and the fills of its chunk table and counters in
+  ``group_walk``, the evaluation kernel in ``group_eval``) and
+  ``group_fallback`` (B3 over the walk kernel's list of deferred
+  receivers) from ``group_tree_forces_cuda``; a kernel in none of them
   counts to ``(no range)``),
   busy time as the union of kernel intervals, the idle share of the
   window, the top kernels and every kernel of ``morton_keys``,
-  ``morton_sort`` and ``tree_build`` (the key kernel, CUB's sort passes,
-  the four kernels of ``csrc/tree_build.cu``), and the peak device memory;
+  ``morton_sort``, ``tree_build`` (the key kernel, CUB's sort passes, the
+  four kernels of ``csrc/tree_build.cu``) and of the force walk's ranges,
+  and the peak device memory;
 - ``TreeSim.diagnose`` of the last state (the group walk's deferred count).
 A naive step's kernels all count to its ``naive_step`` range. With ``--sim
 tree-host`` (N defaults to 4,000,000, singleton leaves) the step's host side
@@ -66,8 +69,11 @@ from wgpu_n_body_tpu_torch.utils.chip import card, launches_of, profiler_events,
 
 STEPS = 3  # in the profiler window
 RANGES = ("naive_step", "morton_keys", "morton_sort", "tree_build", "leapfrog.drift",
-          "theta_walk", "counters", "leapfrog.kick", "group_tiles", "group_kernel", "group_walk",
-          "group_eval", "group_fallback")  # outer to inner
+          "theta_walk", "counters", "leapfrog.kick", "group_tiles", "group_tables",
+          "group_kernel", "group_walk", "group_eval", "group_fallback")  # outer to inner
+#: ranges whose every kernel is listed, whatever its rank
+LISTED = ("morton_keys", "morton_sort", "tree_build", "theta_walk", "group_tiles",
+          "group_tables", "group_walk", "group_eval", "group_fallback")
 HOST_RANGES = ("tree_step", "host_build", "host_copy_down", "host_octree", "host_copy_up",
                "theta_walk")  # of a TreeSimHost step, on the host's timeline
 #: the stages of a sharded tree step, which do not nest
@@ -191,8 +197,8 @@ def main(argv=None) -> int:
     ranked = sorted(by_kernel.items(), key=lambda x: -x[1])
     for (where, name), us in ranked[:15]:
         print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
-    for (where, name), us in ranked[15:]:  # the build stage's kernels, whatever their rank
-        if where in ("morton_keys", "morton_sort", "tree_build"):
+    for (where, name), us in ranked[15:]:  # the build's and the walk's, whatever their rank
+        if where in LISTED:
             print(f"    {where:14s} {us / STEPS:10.1f} us/step  {name}")
     if args.sim == "tree-host":
         host = host_ranges(events)
