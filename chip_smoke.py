@@ -62,9 +62,13 @@ Phases (any failure exits non-zero):
     bit-equal to it, and on 4096 consecutive receivers;
 11. run ``cli headless --sim tree --tree-kw walk='"per_particle"' --steps
     10`` in-process at the default N=4,000,000 and check that each step
-    launched K1, K2, the build (B5) and B3 once (and the diagnostics one
-    sort and build more and its group walk, B4 · T, B4 and B3 once), the
-    state is sane and the checkpoint reloads;
+    launched K1, K2, the build (B5), B3 and one records-only pack once
+    (and the diagnostics one sort and build more and its group walk, B4 · T,
+    the table's pack, B4 and B3 once), the state is sane and the checkpoint
+    reloads; 11b: one traced step of that state, whose counters
+    ``walk.pp_*`` (every 64th warp walked again by B3's counting
+    instantiation) equal one full counting launch's sums on the same warps,
+    and whose state equals the untraced step's bit for bit;
 12. the group walk kernels (B4: a walk kernel writing each tile's list of
     ids, an evaluation kernel summing them) against their plain versions on
     every tile at N=262144 (uniform and disc, walk_tile 128/256/512: list
@@ -1375,12 +1379,27 @@ def phase_tree_cli(dev, smi):
     from wgpu_n_body_tpu_torch.params import SimParams
     from wgpu_n_body_tpu_torch.utils.checkpoint import load_checkpoint
 
+    from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
+
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "tree.npz")
         argv = ["headless", "--sim", "tree", "--tree-kw", 'walk="per_particle"',
                 "--steps", str(STEPS), "--diag-every", str(STEPS), "--checkpoint", ckpt]
         zero_launch_counts()
-        out = run_cli(cli, argv)
+        # pack launches by what they write; "load": init_state's one run of the
+        # counters' kernels, on an arena of no node (two rows)
+        packs = {"records": 0, "tables": 0, "load": 0}
+        pack = tree_walk_cuda._pack
+
+        def counted_pack(tree, src_pos, src_mass, gdt, rec, tab, src):
+            packs["load" if rec.shape[0] == 2 else "records" if tab is None else "tables"] += 1
+            pack(tree, src_pos, src_mass, gdt, rec, tab, src)
+
+        tree_walk_cuda._pack = counted_pack
+        try:
+            out = run_cli(cli, argv)
+        finally:
+            tree_walk_cuda._pack = pack
         counts = launch_counts()
         # one sort stage (K1, K2), one build (B5) and one B3 launch per step;
         # the diagnostics line at the last step sorts and builds once more and
@@ -1389,6 +1408,10 @@ def phase_tree_cli(dev, smi):
         if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B4_tables=1, B4_tiles=1,
                                      B5=STEPS + 1, K1=STEPS + 1, K2=STEPS + 1):
             fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
+        # one records-only pack with each step's B3 launch (none with the
+        # untraced step's counters), the table's pack with the diagnostics
+        if packs != {"records": STEPS, "tables": 1, "load": 1}:
+            fail(f"cli headless --sim tree, {STEPS} per-particle steps, packed {packs}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
         us = float(re.search(r"mean: (\S+) us/step", out).group(1))
@@ -1403,9 +1426,63 @@ def phase_tree_cli(dev, smi):
             fail("the tree run changed the mass multiset")
     print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches, "
           f"{counts['K1']} key kernel (K1) launches, {counts['K2']} reorders (K2) and "
-          f"{counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {us:.1f} us/step; "
-          f"[{smi}]")
+          f"{counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {packs['records']} "
+          f"records-only packs, {us:.1f} us/step; [{smi}]")
+    counts["counters"] = phase_pp_counters(dev, smi, st)
     return counts
+
+
+def phase_pp_counters(dev, smi, state):
+    """11b. A traced per-particle step's sampled counters (every 64th warp
+    walked again by B3's counting instantiation) equal the sums of one full
+    counting launch over the step's receivers on the same warps; the traced
+    step's state equals the untraced step's bit for bit."""
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.models import tree as tree_model
+    from wgpu_n_body_tpu_torch.ops import tree_walk_cuda
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.utils import profiling
+
+    sim = TreeSim(SimParams(particle_num=state.n), TreeParams(walk="per_particle"))
+    sim.init_state(None, lambda *_: state, dev)  # loads the counters' kernels
+    step = sim.step_fn()
+    plain = step(state)
+    seen = []
+    sampled = tree_model._per_particle_counts
+
+    def keep(*args):
+        seen.append(args)
+        return sampled(*args)
+
+    tree_model._per_particle_counts = keep
+    profiling.reset_counters()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            traced = step(state)
+            torch.cuda.synchronize()
+    finally:
+        tree_model._per_particle_counts = sampled
+    got = profiling.counters()
+    profiling.reset_counters()
+    if not all(torch.equal(a, b) for a, b in zip(plain, traced)):
+        fail("11b: the traced per-particle step differs from the untraced one")
+    if len(seen) != 1:
+        fail(f"11b: a traced step sampled its warps {len(seen)} times")
+    pos_new, src_pos, src_mass, tree, params, tp = seen[0]
+    _, full = tree_walk_cuda.tree_forces_counts_cuda(pos_new, src_pos, src_mass, tree, params, tp)
+    rows = tree_model._sampled_rows(pos_new.shape[0], dev)
+    c = full[rows].long().sum(0)
+    want = {"walk.pp_receivers": int(rows.numel()), "walk.pp_live_visits": int(c[2]),
+            "walk.pp_warp_visits": int(c[3]), "walk.pp_interactions": int(c[0] + c[1])}
+    if got != want:
+        fail(f"11b: the sampled counters {got} differ from the full launch's {want}")
+    fill = 100.0 * want["walk.pp_live_visits"] / want["walk.pp_warp_visits"]
+    print(f"11b traced per-particle step N={state.n}: counters equal the full counting launch "
+          f"on {want['walk.pp_receivers']} sampled receivers (lane fill {fill:.2f}%, "
+          f"{want['walk.pp_interactions'] / want['walk.pp_receivers']:.1f} interactions each); "
+          f"traced and untraced states bit-equal; [{smi}]")
+    return dict(want, lane_fill_pct=fill)
 
 
 def tiles_differ(a, b):

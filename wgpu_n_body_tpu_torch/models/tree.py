@@ -33,7 +33,14 @@ kernel), its receivers and deferred receivers, the list pool's chunks its
 lists took and the chunks the pool holds to the counters ``walk.pairs``,
 ``walk.eval_pairs``, ``walk.receivers``, ``walk.deferred``,
 ``walk.pool_chunks`` and ``walk.pool_cap`` (``utils/profiling.py::count``).
-With no profiler a step opens no range and counts nothing.
+The per-particle walk shows its pack and its walk as ``pp_pack`` and
+``pp_walk`` inside ``theta_walk``; in ``counters`` it walks every 64th warp
+of its receivers again with the kernel's counting instantiation and adds the
+receivers sampled, their live visits, their warps' visits and their
+interactions (nodes accepted plus members summed) to ``walk.pp_receivers``,
+``walk.pp_live_visits``, ``walk.pp_warp_visits`` and
+``walk.pp_interactions``; its own walk stays the untraced kernel. With no
+profiler a step opens no range, counts nothing and samples nothing.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import torch
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
+from wgpu_n_body_tpu_torch.ops.tree_build import TreeArrays
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
-from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_cuda
+from wgpu_n_body_tpu_torch.ops.tree_walk import warp_walk_counts
+from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_counts_cuda, tree_forces_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupLists, GroupWalkStats, Tiles, pool_chunks
 from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
@@ -99,6 +108,55 @@ def _load_counter_kernels(device: torch.device) -> None:
     torch.zeros((), dtype=torch.int64, device=device)  # the evaluation's counter, zeroed
 
 
+#: A traced per-particle step counts every ``PP_SAMPLE``-th warp of its
+#: receivers.
+PP_SAMPLE = 64
+
+
+def _sampled_rows(n: int, device: torch.device) -> torch.Tensor:
+    """(k,) int64 on ``device``: receivers [32w, 32w + 32) of the warps w =
+    0, PP_SAMPLE, 2 PP_SAMPLE, ... of n receivers (the last one cut at n)."""
+    stride = 32 * PP_SAMPLE
+    m = -(-n // stride)
+    k = 32 * (m - 1) + min(32, n - stride * (m - 1))
+    starts = torch.arange(0, n, stride, device=device)
+    return (starts[:, None] + torch.arange(32, device=device)).flatten()[:k]
+
+
+def _per_particle_counts(pos_new, src_pos, src_mass, tree, params, tp):
+    """(walk.pp_receivers, walk.pp_live_visits, walk.pp_warp_visits,
+    walk.pp_interactions) of the per-particle walk: the sampled warps
+    (``_sampled_rows``) walked again by the kernel's counting instantiation,
+    each receiver its own row, so each warp is the step's own and takes the
+    same traversal; summed on the device (the plain ``warp_walk_counts`` on
+    a CPU state). A host int, then () int64 tensors."""
+    rows = _sampled_rows(pos_new.shape[0], pos_new.device)
+    recv = pos_new[rows]
+    if pos_new.is_cuda:
+        _, c = tree_forces_counts_cuda(recv, src_pos, src_mass, tree, params, tp,
+                                       self_idx=rows.to(torch.int32))
+    else:
+        c = warp_walk_counts(recv, tree, tp)
+    far, members, live, visits = c.sum(0, dtype=torch.int64)
+    return rows.shape[0], live, visits, far + members
+
+
+def _load_pp_counter_kernels(device: torch.device, params: SimParams, tp: TreeParams) -> None:
+    """Run the per-particle counters' operations once (the counting walk on
+    an arena of no node), for the reason ``_load_counter_kernels`` gives."""
+    i32 = torch.int32
+    zeros = torch.zeros((2, 8), dtype=torch.float32, device=device)
+    tree = TreeArrays(zeros, torch.ones(2, dtype=i32, device=device),
+                      torch.zeros(2, dtype=i32, device=device),
+                      torch.zeros(2, dtype=i32, device=device),
+                      torch.zeros((), dtype=i32, device=device),
+                      torch.ones((), device=device), torch.zeros((), dtype=torch.bool, device=device))
+    pos = torch.zeros((1, 3), device=device)
+    _, live, visits, _ = _per_particle_counts(pos, pos, torch.zeros(1, device=device), tree,
+                                              params, tp)
+    torch.add(live, visits)  # a running total's add (``utils/profiling.py::count``)
+
+
 class TreeSim(Simulator):
     """Barnes-Hut O(N log N) backend, device-resident."""
 
@@ -118,8 +176,11 @@ class TreeSim(Simulator):
     def init_state(self, generator, init_fn, device) -> ParticleState:
         device = torch.device(device)
         self.check_device(device)
-        if device.type == "cuda" and self.add_params.walk == "group":
-            _load_counter_kernels(device)
+        if device.type == "cuda":
+            if self.add_params.walk == "group":
+                _load_counter_kernels(device)
+            else:
+                _load_pp_counter_kernels(device, self.sim_params, self.add_params)
         return super().init_state(generator, init_fn, device)
 
     def _sort_build(self, state: ParticleState):
@@ -138,20 +199,30 @@ class TreeSim(Simulator):
         def force_of(tree, keys):
             def force(pos_new, pos_old, mass):
                 with trace_scope("theta_walk"):
-                    if tp.walk != "group":
-                        return tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
-                    acc, stats = group_tree_forces_cuda(
-                        pos_new, pos_old, mass, tree, keys, params, tp
-                    )
+                    if tp.walk == "group":
+                        acc, stats = group_tree_forces_cuda(
+                            pos_new, pos_old, mass, tree, keys, params, tp
+                        )
+                    else:
+                        acc = tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
                 if tracing():
                     with trace_scope("counters"):
-                        pairs, deferred, pool_used = _walk_counts(stats)
-                        count("walk.pairs", pairs)
-                        count("walk.eval_pairs", stats.eval_pairs)
-                        count("walk.receivers", pos_new.shape[0])
-                        count("walk.deferred", deferred)
-                        count("walk.pool_chunks", pool_used)
-                        count("walk.pool_cap", pool_chunks(pos_new.shape[0]))
+                        if tp.walk == "group":
+                            pairs, deferred, pool_used = _walk_counts(stats)
+                            count("walk.pairs", pairs)
+                            count("walk.eval_pairs", stats.eval_pairs)
+                            count("walk.receivers", pos_new.shape[0])
+                            count("walk.deferred", deferred)
+                            count("walk.pool_chunks", pool_used)
+                            count("walk.pool_cap", pool_chunks(pos_new.shape[0]))
+                        else:
+                            sampled, live, visits, inter = _per_particle_counts(
+                                pos_new, pos_old, mass, tree, params, tp
+                            )
+                            count("walk.pp_receivers", sampled)
+                            count("walk.pp_live_visits", live)
+                            count("walk.pp_warp_visits", visits)
+                            count("walk.pp_interactions", inter)
                 return acc
 
             return force

@@ -173,3 +173,59 @@ def walk_counts(
         narrowest = torch.where(better, row[:, WIDTH], narrowest)
         cur = torch.where(done, cur, torch.where(far | near, skip[at], cur + 1))
     return out
+
+
+def warp_walk_counts(
+    pos_new: torch.Tensor,
+    tree: TreeArrays,
+    tree_params: TreeParams,
+) -> torch.Tensor:
+    """What the walk kernel's counting instantiation (``csrc/tree_walk.cu``,
+    ``tree_walk_cuda.tree_forces_counts_cuda``) writes, by its warp rule:
+    (B, 4) int64 per receiver [nodes accepted, members of the terminal cells
+    it opened, visits of its warp at which it was live, visits of its warp].
+
+    Receivers [32w, 32w + 32) of ``pos_new`` share warp w's traversal. A
+    lane is live at the warp's node iff that node is not under one it has
+    accepted or summed (``resume``); a live lane takes its own theta test
+    (the plain rounding, as ``walk_counts``); the warp goes to the next row
+    if any live lane opens the node, else to its skip, clamped as the pack
+    kernel clamps it. The first two columns equal ``walk_counts``'.
+    """
+    dev = pos_new.device
+    b = pos_new.shape[0]
+    i64 = torch.int64
+    rows = tree.nodes_f32.shape[0]
+    num_nodes = min(int(tree.num_nodes), rows - 1)
+    n_warps = -(-b // 32)
+    pad = n_warps * 32 - b
+    p = torch.cat([pos_new, pos_new.new_zeros((pad, 3))]).view(n_warps, 32, 3)
+    real = (torch.arange(n_warps * 32, device=dev) < b).view(n_warps, 32)
+    nxt_all = torch.maximum(torch.clamp(tree.skip.to(i64), max=rows - 1),
+                            torch.arange(1, rows + 1, dtype=i64, device=dev))
+    count = tree.count.to(i64)
+    cur = torch.zeros(n_warps, dtype=i64, device=dev)
+    resume = torch.where(real, 0, num_nodes).to(i64)
+    out = torch.zeros((n_warps, 32, 4), dtype=i64, device=dev)
+    while True:
+        going = cur < num_nodes
+        if not bool(going.any()):
+            break
+        at = torch.clamp(cur, max=rows - 1)
+        row = tree.nodes_f32[at]  # (W, 8)
+        d = row[:, None, :3] - p
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        accept = row[:, None, WIDTH] < tree_params.theta * torch.sqrt(r2)
+        terminal = (row[:, NO_CHILD] > 0.0)[:, None]
+        live = going[:, None] & (cur[:, None] >= resume)
+        far = live & accept
+        near = live & ~accept & terminal
+        opens = (live & ~accept & ~terminal).any(1)
+        out[..., 0] += far
+        out[..., 1] += near * count[at][:, None]
+        out[..., 2] += live
+        out[..., 3] += going[:, None]
+        nxt = nxt_all[at]
+        resume = torch.where(far | near, nxt[:, None], resume)
+        cur = torch.where(going, torch.where(opens, cur + 1, nxt), cur)
+    return out.view(n_warps * 32, 4)[:b]

@@ -5,7 +5,8 @@
 kernel (the arena as one 32-byte record per node, and the sources as rows of
 position and mass * g * dt) and then the walk, one warp per 32 consecutive
 receivers; for CPU tensors it returns the plain version; every other device
-raises. A CUDA tensor never falls back to the plain version.
+raises. A CUDA tensor never falls back to the plain version. Under a profiler
+the two launches are in the ranges ``pp_pack`` and ``pp_walk``.
 
 The group walk (``ops/tree_walk_group_cuda.py``) takes the two launches
 apart: ``walk_tables_cuda`` is one pack launch that writes the records and
@@ -22,6 +23,7 @@ nvcc never contracts, so the file needs no ``-fmad=false``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
 
@@ -31,6 +33,7 @@ from wgpu_n_body_tpu_torch.ops import cuda_build
 from wgpu_n_body_tpu_torch.ops.tree_build import NODE_F32_COLS, TreeArrays
 from wgpu_n_body_tpu_torch.ops.tree_walk import tree_forces
 from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "tree_walk.cu"
@@ -39,7 +42,8 @@ NVCC_FLAGS = list(cuda_build.BASE_FLAGS)  # the theta test rounds by intrinsics
 
 #: Walk launches since import (or since a caller set it to 0): one per
 #: ``tree_forces_cuda`` (whose pack launch goes with it) or
-#: ``tree_forces_listed_cuda`` call on the card.
+#: ``tree_forces_listed_cuda`` call on the card; the counting instantiation
+#: (``tree_forces_counts_cuda``) is not counted.
 LAUNCHES = 0
 #: ``walk_tables_cuda`` launches (the pack kernel writing the group walk's
 #: tables), likewise.
@@ -123,8 +127,11 @@ def tree_forces_counts_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's counting instantiation, CUDA tensors only: ((B, 3)
     acc*dt, (B, 4) int32 per receiver: nodes accepted, members summed,
-    visits at which the receiver was live, visits of its warp). For
-    ``chip_smoke.py`` and ``utils/tree_walk_study.py``; no step calls it."""
+    visits at which the receiver was live, visits of its warp), by the rule
+    of ``tree_walk.py::warp_walk_counts``. For ``chip_smoke.py``,
+    ``utils/tree_walk_study.py`` and the counters of a traced per-particle
+    step (``models/tree.py``); it counts in no ``LAUNCHES`` and opens no
+    profiler range."""
     b = pos_new.shape[0]
     counts = torch.zeros((b, 4), dtype=torch.int32, device=pos_new.device)
     out = _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
@@ -247,7 +254,12 @@ def tree_forces_listed_cuda(
 
 def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
             counts) -> torch.Tensor:
+    """The pack launch, then the walk over receivers [0, b). Without
+    ``counts`` (a step's walk) the two are in the profiler ranges ``pp_pack``
+    and ``pp_walk`` and count in ``LAUNCHES``; the counting instantiation is
+    neither traced nor counted."""
     global LAUNCHES
+    walk = counts is None
     _one_device(tree, pos_new, src_pos, src_mass, active, self_idx)
     device = pos_new.device
     if device.type != "cuda":
@@ -267,15 +279,18 @@ def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_
     # mass * g * dt) rows
     rec = torch.empty((rows, NODE_F32_COLS), dtype=torch.float32, device=device)
     src = torch.empty((n, 4), dtype=torch.float32, device=device)
-    _pack(tree, src_pos, src_mass, float(params.g * params.dt), rec, None, src)
-    err = _library().tree_walk_launch(
-        pos_new.data_ptr(), rec.data_ptr(), src.data_ptr(), tree.num_nodes.data_ptr(),
-        self_idx.data_ptr() if self_idx is not None else None,
-        active.data_ptr() if active is not None else None,
-        out.data_ptr(), counts.data_ptr() if counts is not None else None,
-        b, n, rows, float(tree_params.theta), float(params.e), *_target(device),
-    )
+    with trace_scope("pp_pack") if walk else contextlib.nullcontext():
+        _pack(tree, src_pos, src_mass, float(params.g * params.dt), rec, None, src)
+    with trace_scope("pp_walk") if walk else contextlib.nullcontext():
+        err = _library().tree_walk_launch(
+            pos_new.data_ptr(), rec.data_ptr(), src.data_ptr(), tree.num_nodes.data_ptr(),
+            self_idx.data_ptr() if self_idx is not None else None,
+            active.data_ptr() if active is not None else None,
+            out.data_ptr(), counts.data_ptr() if counts is not None else None,
+            b, n, rows, float(tree_params.theta), float(params.e), *_target(device),
+        )
     if err != 0:
         raise RuntimeError(f"tree_walk kernel launch failed: cudaError_t {err}")
-    LAUNCHES += 1
+    if walk:
+        LAUNCHES += 1
     return out
