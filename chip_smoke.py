@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --only graph [--repo DIR]   # phases 1 and 21 alone
 
 Phases (any failure exits non-zero):
  1. a CUDA device is present; print the card's name and power limit;
@@ -196,7 +197,7 @@ Phases (any failure exits non-zero):
     rank's share, summed by ``all_reduce``), equal to the single device's at
     rtol 1e-6; 18b ``cli bench`` through the group (``cli.run_rank``: each
     point of the sweep 8192·{1,2,4,8,16} for naive and tree on the sharded
-    sims, JAX's keys, 11 steps a point counted) beside one device's, ``cli visualize`` (60 frames, the
+    sims, JAX's keys, 12 steps a point counted) beside one device's, ``cli visualize`` (60 frames, the
     last against the host render of the gathered positions) and a 40-frame
     ``serve`` flight (each frame against the host render of the gathered
     pre-step state) through the group, beside phase 15's;
@@ -223,7 +224,25 @@ Phases (any failure exits non-zero):
     ``tests/test_runners.py:146-160`` (N=512 spherical, 10,000 steps in
     chunks of 1000, |dE/E| < 3e-2) and BASELINE config 5 (N=4096, 100,000
     steps, |dE/E| finite and < 0.1), both through ``OfflineHeadless`` with
-    B1 and E1, the drift and the wall seconds printed.
+    B1 and E1, the drift and the wall seconds printed;
+21. the graphed TreeSim step (``models/step_graph.py``) on the four step
+    cells' configurations (N=4M uniform and disc, group walk; N=2M disc at
+    theta=0.5; N=4M uniform, per-particle walk): 21a twelve calls (the
+    first, the capture, ten replays with a rewind before the eighth to a
+    copy of the fifth's output) bit-equal on every field to the eager step,
+    the capture cut into one graph per innermost range with the counters
+    as eager work, the memory reserved before and after the capture, and a
+    traced replay's counters equal to a traced eager step's; 21b a planted
+    arena overflow (a clustered state handed in at the 8th call) raises at
+    the end of its batch through ``OfflineHeadless`` at chunk 1 and 3; 21c
+    no ``aten::_local_scalar_dense`` in three traced graphed runner steps;
+    21d the N=2M disc step's split graphs against one whole-step graph, in
+    turns; 21e with ``--repo DIR`` (another checkout), the cell
+    ``disc-2m-theta05`` through each checkout's ``nbody_bench/run.py``,
+    untraced and traced, in turns (parent, change, change, parent). Phases
+    11 and 13 run ``cli headless`` on the graphed step: the launches their
+    wrappers count are those of the two plain calls and the two captures,
+    and each replay launches what one capture counted.
 Every kernel's record has its bound: the larger of its special-function
 ops at 16 per SM per clock (at the card's maximum SM clock, nvidia-smi's
 ``clocks.max.sm``), its float32 flops at 67 TFLOP/s and its bytes at
@@ -1371,6 +1390,35 @@ def phase_b3(dev, smi, mhz):
     }
 
 
+@contextlib.contextmanager
+def kept_steps():
+    """The list of the steps ``TreeSim.make_step()`` returns inside the
+    block (the CLI's graphed steps)."""
+    from wgpu_n_body_tpu_torch.models import TreeSim
+
+    made, make = [], TreeSim.make_step
+
+    def keep(self):
+        made.append(make(self))
+        return made[-1]
+
+    TreeSim.make_step = keep
+    try:
+        yield made
+    finally:
+        TreeSim.make_step = make
+
+
+def graphed_bodies(made, steps):
+    """How many times the graphed step ran its body through the launchers
+    (its plain calls and its captures; a replay launches what one capture
+    counted, and counts nothing); fails unless one step made ``steps``
+    calls, all but two replays."""
+    if len(made) != 1 or (made[0].calls, made[0].replays) != (steps, steps - 2):
+        fail(f"the CLI's graphed steps: {[(m.calls, m.replays) for m in made]}")
+    return made[0].calls - made[0].replays + made[0].captures
+
+
 def phase_tree_cli(dev, smi):
     """11. The tree headless path through the CLI at the default N."""
     from wgpu_n_body_tpu_torch import cli
@@ -1397,20 +1445,24 @@ def phase_tree_cli(dev, smi):
 
         tree_walk_cuda._pack = counted_pack
         try:
-            out = run_cli(cli, argv)
+            with kept_steps() as made:
+                out = run_cli(cli, argv)
         finally:
             tree_walk_cuda._pack = pack
         counts = launch_counts()
-        # one sort stage (K1, K2), one build (B5) and one B3 launch per step;
-        # the diagnostics line at the last step sorts and builds once more and
-        # runs one group walk (its tiles, its tables, B4, then B3 over its
-        # deferred list), as in JAX
-        if counts != expected_counts(B3=STEPS + 1, B4=1, B4_eval=1, B4_tables=1, B4_tiles=1,
-                                     B5=STEPS + 1, K1=STEPS + 1, K2=STEPS + 1):
-            fail(f"cli headless --sim tree, {STEPS} steps, launched {counts}")
-        # one records-only pack with each step's B3 launch (none with the
+        # one sort stage (K1, K2), one build (B5) and one B3 launch per body
+        # the graphed step ran through the launchers (its replays launch the
+        # same, uncounted); the diagnostics line at the last step sorts and
+        # builds once more and runs one group walk (its tiles, its tables,
+        # B4, then B3 over its deferred list), as in JAX
+        bodies = graphed_bodies(made, STEPS)
+        if counts != expected_counts(B3=bodies + 1, B4=1, B4_eval=1, B4_tables=1, B4_tiles=1,
+                                     B5=bodies + 1, K1=bodies + 1, K2=bodies + 1):
+            fail(f"cli headless --sim tree, {STEPS} steps ({bodies} bodies run), launched "
+                 f"{counts}")
+        # one records-only pack with each body's B3 launch (none with the
         # untraced step's counters), the table's pack with the diagnostics
-        if packs != {"records": STEPS, "tables": 1, "load": 1}:
+        if packs != {"records": bodies, "tables": 1, "load": 1}:
             fail(f"cli headless --sim tree, {STEPS} per-particle steps, packed {packs}")
         if "'overflowed': False" not in out:
             fail("the tree diagnostics do not report a healthy arena")
@@ -1426,8 +1478,10 @@ def phase_tree_cli(dev, smi):
             fail("the tree run changed the mass multiset")
     print(f"11 headless tree N={N_TREE} theta=0.75 per-particle walk: {counts['B3']} B3 launches, "
           f"{counts['K1']} key kernel (K1) launches, {counts['K2']} reorders (K2) and "
-          f"{counts['B5']} builds (B5) in {STEPS} steps + 1 diagnostics, {packs['records']} "
-          f"records-only packs, {us:.1f} us/step; [{smi}]")
+          f"{counts['B5']} builds (B5) counted in {STEPS} steps ({bodies} bodies through the "
+          f"launchers: two plain calls and two captures, then {STEPS - 2} replays of one "
+          f"capture's launches each) + 1 diagnostics, {packs['records']} records-only packs, "
+          f"{us:.1f} us/step; [{smi}]")
     counts["counters"] = phase_pp_counters(dev, smi, st)
     return counts
 
@@ -2543,13 +2597,16 @@ def phase_group_cli(dev, smi):
         argv = ["headless", "--steps", str(STEPS), "--diag-every", str(STEPS),
                 "--checkpoint", ckpt]
         zero_launch_counts()
-        out = run_cli(cli, argv)
+        with kept_steps() as made:
+            out = run_cli(cli, argv)
         counts = launch_counts()
         diags = re.findall(r"'walk_deferred': (\d+)", out)
-        # each step sorts once (K1, K2), builds once (B5) and walks once (its
-        # tables, B4, then B3 over its deferred list), and so does each
-        # diagnostics line
-        walks = STEPS + len(diags)
+        # each body the graphed step runs through the launchers (two plain
+        # calls, two captures; a replay launches one capture's, uncounted)
+        # sorts once (K1, K2), builds once (B5) and walks once (its tables,
+        # B4, then B3 over its deferred list), and so does each diagnostics
+        # line
+        walks = graphed_bodies(made, STEPS) + len(diags)
         if len(diags) != 1 or counts != expected_counts(B3=walks, B4=walks, B4_eval=walks,
                                                         B4_tables=walks, B4_tiles=walks, B5=walks,
                                                         K1=walks, K2=walks):
@@ -2583,7 +2640,8 @@ def phase_group_cli(dev, smi):
     print(f"13 headless defaults (TreeSim N={N_TREE}, theta=0.75, group walk): K1 "
           f"{counts['K1']}, K2 {counts['K2']}, B5 builds {counts['B5']}, B4 · T "
           f"{counts['B4 tiles']}, B4 walk {counts['B4']} and evaluation {counts['B4 eval']}, B3 "
-          f"{counts['B3']} launches in {STEPS} steps + {len(diags)} diagnostics (walk_deferred "
+          f"{counts['B3']} launches counted in {STEPS} steps (two plain calls and two "
+          f"captures, then {STEPS - 2} replays) + {len(diags)} diagnostics (walk_deferred "
           f"{diags[0]}, walk_pool_deferred {pool[0]}), {us:.1f} us/step; B4 · T's tiles from the "
           f"build's split levels equal the plain ones; [{smi}]")
     return counts
@@ -2817,7 +2875,8 @@ def phase_visualize_cli(dev, smi, mesh=None, label="15c"):
             t0 = time.perf_counter()
             argv = ["visualize", "--out", out, "--gif", gif]
             if mesh is None:
-                text = run_cli(cli, argv)
+                with kept_steps() as made:
+                    text = run_cli(cli, argv)
             else:
                 buf = io.StringIO()
                 with contextlib.redirect_stdout(buf):
@@ -2832,7 +2891,10 @@ def phase_visualize_cli(dev, smi, mesh=None, label="15c"):
         if len(frames) != 60 or not os.path.getsize(gif):
             fail(f"{label} cli visualize wrote {len(frames)} frames and a GIF of "
                  f"{os.path.getsize(gif) if os.path.exists(gif) else 0} bytes")
-        steps = 60  # --frames 60 x --steps-per-frame 1, the group walk's step
+        # --frames 60 x --steps-per-frame 1, the group walk's step: its bodies
+        # through the launchers (one device: the graphed step's two plain calls
+        # and two captures)
+        steps = 60 if mesh is not None else graphed_bodies(made, 60)
         if counts != expected_counts(B3=steps, B4=steps, B4_eval=steps, B4_tables=steps,
                                      B4_tiles=steps, B5=steps, K1=steps, K2=steps, B6=60):
             fail(f"{label} cli visualize launched {counts}")
@@ -2943,12 +3005,15 @@ def phase_serve(dev, smi, mesh=None, label="15e"):
             fail(f"{label} focus=0 stepped")
         frames = 2 * len(script) + 1
         counts = launch_counts()
-        if counts != expected_counts(B3=steps - steps0, B4=steps - steps0,
-                                     B4_eval=steps - steps0, B4_tables=steps - steps0,
-                                     B4_tiles=steps - steps0, B5=steps - steps0,
-                                     K1=steps - steps0, K2=steps - steps0, B6=frames,
+        walked = steps - steps0
+        if mesh is None:  # the graphed step's bodies through the launchers since the warm-up's
+            step = viewer.runner._step
+            walked = step.calls - step.replays + step.captures - steps0
+        if counts != expected_counts(B3=walked, B4=walked, B4_eval=walked, B4_tables=walked,
+                                     B4_tiles=walked, B5=walked, K1=walked, K2=walked, B6=frames,
                                      B6_blend=frames):
-            fail(f"{label} {frames} frames and {steps - steps0} steps launched {counts}")
+            fail(f"{label} {frames} frames and {steps - steps0} steps ({walked} bodies through "
+                 f"the launchers) launched {counts}")
         if get("/quit") != b"bye" or not done.wait(timeout=10):
             fail(f"{label} /quit did not set the done event")
     finally:
@@ -3460,9 +3525,9 @@ def phase_let_emulated(dev, smi):
               + ", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items(),
                                                            key=lambda kv: -kv[1])))
     del tiles
-    # the single-device default step on the same bodies
+    # the single-device default step on the same bodies, eager as the stages are
     sim = TreeSim(params, tp)
-    step = sim.make_step()
+    step = sim.step_fn()
     whole = ParticleState(*(torch.cat([getattr(s, f) for s in ranks]) for f in state._fields))
     del state, ranks
     torch.cuda.synchronize()
@@ -3653,8 +3718,9 @@ def phase_sharded(dev, smi, render):
                     fail("18b cli bench returned non-zero")
             lines[what] = [json.loads(x) for x in buf.getvalue().splitlines()
                            if x.startswith("{")]
-        # five points a backend, each a warm-up step and 10 timed ones
-        k = 5 * 11
+        # five points a backend, each two warm-up steps (``time_steps``: the second
+        # captures a one-card TreeSim's graphed step) and 10 timed ones
+        k = 5 * 12
         bench_counts = launch_counts()
         if bench_counts != expected_counts(B1=k, K1=k, K2=k, B5=k, B4=k, B4_eval=k, B4_tables=k,
                                            B4_tiles=k, B3=k):
@@ -3911,11 +3977,12 @@ def phase_energy_runs(dev, smi):
     argv = ["headless", "--steps", str(STEPS), "--energy-every", str(STEPS)]
     zero_launch_counts()
     t0 = time.perf_counter()
-    out = run_cli(cli, argv)
+    with kept_steps() as made:
+        out = run_cli(cli, argv)
     cli_s = time.perf_counter() - t0
     cli_counts = launch_counts()
-    want = expected_counts(K1=STEPS, K2=STEPS, B5=STEPS, B4=STEPS, B4_eval=STEPS, B4_tables=STEPS,
-                           B4_tiles=STEPS, B3=STEPS, E1=1)
+    k = graphed_bodies(made, STEPS)  # the graphed step's bodies through the launchers
+    want = expected_counts(K1=k, K2=k, B5=k, B4=k, B4_eval=k, B4_tables=k, B4_tiles=k, B3=k, E1=1)
     if cli_counts != want:
         fail(f"20a cli headless --energy-every {STEPS} launched {cli_counts}, not {want}")
     energies = [float(x) for x in re.findall(r"total energy (\S+)", out)]
@@ -3956,7 +4023,273 @@ def phase_energy_runs(dev, smi):
             "drift": drift}
 
 
+#: The graphed step's cases (phase 21): the benchmark's four step cells'
+#: configurations and scenes, (label, N, scene, TreeParams keywords).
+GRAPH_CASES = (
+    ("headless-4m-uniform", N_TREE, "uniform", {}),
+    ("headless-4m-disc", N_TREE, "disc", {}),
+    ("disc-2m-theta05", 2_000_000, "disc", {"theta": 0.5}),
+    ("headless-4m-per-particle", N_TREE, "uniform", {"walk": "per_particle"}),
+)
+#: the cuts a captured step keeps, after ``tree_step``: one per innermost
+#: range, the counters as eager work
+GRAPH_CUTS = {
+    "group": [("morton_keys",), ("morton_sort",), ("tree_build",), ("leapfrog.drift",),
+              ("theta_walk", "group_tiles"), ("theta_walk", "group_tables"),
+              ("theta_walk", "group_kernel", "group_walk"),
+              ("theta_walk", "group_kernel", "group_eval"), ("theta_walk", "group_fallback"),
+              ("counters",), ("leapfrog.kick",), ("overflow_flag",)],
+    "per_particle": [("morton_keys",), ("morton_sort",), ("tree_build",), ("leapfrog.drift",),
+                     ("theta_walk", "pp_pack"), ("theta_walk", "pp_walk"), ("counters",),
+                     ("leapfrog.kick",), ("overflow_flag",)],
+}
+#: parent, change, change, parent: the turns of phase 21e
+TURNS = ("parent", "change", "change", "parent")
+
+
+def graph_scene(scene, n, dev, seed=0):
+    from wgpu_n_body_tpu_torch.inits import disc_init, uniform_init
+    from wgpu_n_body_tpu_torch.params import SimParams
+
+    init = disc_init if scene == "disc" else uniform_init
+    return init(torch.Generator().manual_seed(seed), SimParams(particle_num=n), dev)
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def traced_counters(step, state):
+    """(output, the counters) of one call of ``step`` under the profiler."""
+    from wgpu_n_body_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        out = step(state)
+        torch.cuda.synchronize()
+    got = profiling.counters()
+    profiling.reset_counters()
+    return out, got
+
+
+def phase_graph_case(dev, smi, label, n, scene, kw):
+    """21a. One configuration: 12 calls of the graphed step (its first
+    call, the capture, then 10 replays, a rewind before the 8th call to a
+    copy of the 5th call's output) each bit-equal on every field to the
+    eager step's; the cuts of the capture; the graph pool's bytes; a traced
+    replay's counters equal to a traced eager step's."""
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+
+    params, tp = SimParams(particle_num=n), TreeParams(**kw)
+    state = graph_scene(scene, n, dev)
+    eager_sim, sim = TreeSim(params, tp), TreeSim(params, tp)
+    for s in (eager_sim, sim):
+        s.init_state(None, lambda *_: state, dev)  # loads the counters' kernels
+    eager, step = eager_sim.step_fn(), sim.make_step()
+    a, b = state, clone_state(state)
+    reserved = []
+    for i in range(1, 13):
+        if i == 8:
+            a, b = clone_state(kept), clone_state(kept)
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(dev))
+        a, b = eager(a), step(b)
+        torch.cuda.synchronize()
+        if i == 2:
+            torch.cuda.empty_cache()
+            reserved.append(torch.cuda.memory_reserved(dev))
+        if i == 5:
+            kept = clone_state(b)
+        off = [f for f, x, y in zip(state._fields, a, b) if not torch.equal(x, y)]
+        if off:
+            fail(f"21a {label}: call {i} of the graphed step differs from the eager step in {off}")
+    if (step.calls, step.replays, step.captures) != (12, 10, 2):
+        fail(f"21a {label}: calls, replays, captures {step.calls, step.replays, step.captures}")
+    cuts = [tuple(name for _, name in seg.path[1:]) for seg in step.plans[0]]
+    if cuts != GRAPH_CUTS[tp.walk] or [s.path[0][1] for s in step.plans[0]] != ["tree_step"] * len(cuts):
+        fail(f"21a {label}: the capture's cuts {cuts}")
+    graphs = sum(seg.graph is not None for seg in step.plans[0])
+    a, want = traced_counters(eager, clone_state(b))
+    b, got = traced_counters(step, b)
+    steps = {k: got.pop(k, None) for k in ("step.steps", "step.replayed")}
+    if not all(torch.equal(x, y) for x, y in zip(a, b)) or got != want or steps != {
+            "step.steps": 1, "step.replayed": 1}:
+        fail(f"21a {label}: a traced replay's counters {got} {steps} (outputs equal "
+             f"{all(torch.equal(x, y) for x, y in zip(a, b))}), the eager step's {want}")
+    pool = reserved[1] - reserved[0]
+    print(f"21a {label} (N={n}, {scene}, {kw or 'defaults'}): 12 calls (first, capture, 10 "
+          f"replays, a rewind before the 8th) bit-equal to the eager step on every field; "
+          f"{graphs} graphs a direction, cuts {[c[-1] for c in cuts]}; reserved bytes before and "
+          f"after the capture {reserved[0]} -> {reserved[1]} (the pool and the side stream's "
+          f"scratch: {pool}); a traced replay's counters equal the eager step's; [{smi}]")
+    del a, b, kept, eager, step, eager_sim, sim, state
+    torch.cuda.empty_cache()
+    return {"graphs": graphs, "reserved_before": reserved[0], "reserved_after": reserved[1],
+            "pool_bytes": pool}
+
+
+def phase_graph_overflow(dev, smi):
+    """21b. A planted overflow raises at the end of its batch: an arena
+    between the N=262144 uniform scene's nodes and those of the same scene
+    with its bodies gathered in clusters of 17 within 1e-6 (each a chain of
+    cells down to the last level), the clustered state handed in at the 8th
+    call (the second of the third batch of 3), through ``OfflineHeadless``;
+    21c no device read in a graphed runner step: no
+    ``aten::_local_scalar_dense`` or ``aten::item`` in its trace."""
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
+    from wgpu_n_body_tpu_torch.runners.headless import OfflineHeadless
+
+    n = N_MAIN
+    params = SimParams(particle_num=n)
+    fits = graph_scene("uniform", n, dev)
+    c = n // 17
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pos = fits.pos.clone()
+    pos[:17 * c] = (fits.pos[:c].repeat_interleave(17, 0)
+                    + 1e-6 * torch.randn((17 * c, 3), generator=gen, device=dev))
+    clustered = fits._replace(pos=pos)
+    probe = TreeSim(params, TreeParams(node_capacity_factor=4.0))
+    nodes = [probe.diagnose(s)["num_nodes"] for s in (fits, clustered)]
+    if not 2 * nodes[0] < nodes[1]:
+        fail(f"21b the clustered scene has not twice the uniform one's nodes: {nodes}")
+    tp = TreeParams(node_capacity_factor=(nodes[0] + nodes[1]) / 2 / n)
+    raised = {}
+    for chunk in (1, 3):
+        sim = TreeSim(params, tp)
+        runner = OfflineHeadless(sim, lambda *_: ParticleState(*fits), device=dev)
+        step, calls = runner._step, iter(range(1, 100))
+        runner._step = lambda state: step(clustered if next(calls) == 8 else state)
+        try:
+            runner.run(12, chunk=chunk)
+            raised[chunk] = None
+        except RuntimeError as e:
+            if "arena overflow" not in str(e):
+                raise
+            raised[chunk] = runner.step_num
+        if raised[chunk] != (8 if chunk == 1 else 9) or step.replays < 5:
+            fail(f"21b chunk {chunk}: the planted overflow raised at step {raised[chunk]} "
+                 f"({step.replays} replays)")
+    sim = TreeSim(params, TreeParams())
+    runner = OfflineHeadless(sim, lambda *_: ParticleState(*fits), device=dev)
+    for _ in range(2):
+        runner.step()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            runner.step()
+    reads = [e.key for e in prof.key_averages() if e.key in ("aten::_local_scalar_dense",
+                                                             "aten::item")]
+    if reads:
+        fail(f"21c graphed runner steps read the device: {reads}")
+    print(f"21b planted overflow (arena of {tp.capacity(n)} nodes: the uniform scene "
+          f"{nodes[0]}, clustered {nodes[1]}) at the 8th call raised after step {raised[1]} "
+          f"(chunk 1) and {raised[3]} (chunk 3); 21c three traced graphed runner steps: no "
+          f"aten::_local_scalar_dense or aten::item; [{smi}]")
+    return {"nodes": nodes, "raised_at": raised}
+
+
+def phase_graph_whole(dev, smi):
+    """21d. The 2M disc θ=0.5 step untraced, synchronised after each step as
+    the runner does: the split graphs' replay against one whole-step graph
+    of the same body (captured here for the comparison only), in turns."""
+    from wgpu_n_body_tpu_torch.models import TreeSim
+    from wgpu_n_body_tpu_torch.models.step_graph import replay
+    from wgpu_n_body_tpu_torch.params import SimParams, TreeParams
+
+    n = 2_000_000
+    sim = TreeSim(SimParams(particle_num=n), TreeParams(theta=0.5))
+    state = graph_scene("disc", n, dev)
+    sim.init_state(None, lambda *_: state, dev)
+    step = sim.make_step()
+    step(step(state))
+    whole = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(step._stream):
+        torch.cuda.synchronize()
+        whole.capture_begin()
+        step._body(0)
+        whole.capture_end()
+    torch.cuda.synchronize()
+    plan = step.plans[0]
+
+    def timed(fn, reps=40):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    turns = {"split": [], "whole": []}
+    for kind in ("split", "whole", "whole", "split", "split", "whole"):
+        turns[kind].append(timed((lambda: replay(plan)) if kind == "split" else whole.replay))
+    split, one = (float(np.mean(turns[k])) for k in ("split", "whole"))
+    print(f"21d N={n} disc theta=0.5, synchronised steps, median ms per turn: split "
+          f"{turns['split']}, whole-step graph {turns['whole']}: the whole-step graph saves "
+          f"{split - one:.4f} ms a step; [{smi}]")
+    del whole, step, sim, state
+    torch.cuda.empty_cache()
+    return {"split_ms": turns["split"], "whole_ms": turns["whole"], "saves_ms": split - one}
+
+
+def phase_graph_turns(smi, repo, seconds=10):
+    """21e. The cell ``disc-2m-theta05`` through the benchmark (``nbody_bench/run.py``
+    of each checkout, ``--seconds`` 10), untraced and traced, in turns with
+    the checkout at ``repo`` (parent, change, change, parent): step_ms,
+    force_err, enqueue_ms, starve_ms, idle_pct.step, the kernels' ranges and
+    the traced window's idle gaps by what the host was doing."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for trace in (0, 1):
+        for i, who in enumerate(TURNS):
+            root = repo if who == "parent" else here
+            seed = 3_000_000_011 + 7 * i
+            cmd = [sys.executable, "nbody_bench/run.py", "--workload", "disc-2m-theta05",
+                   "--seed", str(seed), "--seconds", str(seconds), "--trace", str(trace)]
+            p = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+            if p.returncode != 0:
+                fail(f"21e {who} run failed: {p.stderr[-3000:]}")
+            res = json.loads(p.stdout.strip().splitlines()[-1])
+            nums = {k: v["value"] for k, v in res["metrics"].items()}
+            rows.append({"who": who, "trace": trace, "seed": seed, "correct": res["correct"],
+                         "metrics": nums, "idle_gaps": res.get("breakdown", {}).get("idle_gaps")})
+            print(f"21e {who} trace {trace} seed {seed}: correct {res['correct']} "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in sorted(nums.items()))
+                  + (f"; idle gaps (s over the window) {rows[-1]['idle_gaps']}" if trace else ""))
+            if not res["correct"]:
+                fail(f"21e {who} trace {trace}: not correct: {res['checks']}")
+    print(f"21e done; [{smi}]")
+    return rows
+
+
+def phase_graph(dev, smi, repo=None):
+    """21. The graphed TreeSim step."""
+    cases = {label: phase_graph_case(dev, smi, label, n, scene, kw)
+             for label, n, scene, kw in GRAPH_CASES}
+    rec = {"cases": cases, "overflow": phase_graph_overflow(dev, smi),
+           "whole_step": phase_graph_whole(dev, smi)}
+    if repo:
+        rec["turns"] = phase_graph_turns(smi, repo)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graph_phase.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's main path on one NVIDIA GPU")
+    ap.add_argument("--only", choices=["graph"], default=None,
+                    help="run phase 1 and this phase alone")
+    ap.add_argument("--repo", default=None,
+                    help="another checkout (with this benchmark laid over it) for phase 21e")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -3988,6 +4321,12 @@ def main() -> None:
     smi = card()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    if args.only == "graph":
+        phase_graph(dev, smi, args.repo)
+        print(f"chip_smoke --only graph elapsed {time.perf_counter() - t_start:.1f} s; [{smi}]")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return
 
     # -- 2. build every kernel, one nvcc per source, all at once ------------
     t0 = time.perf_counter()
@@ -4253,6 +4592,7 @@ def main() -> None:
     # the main path: `cli headless --energy-every` at the defaults (20a)
     e1["launches"], e1["launches_naive_cli"] = runs.pop("launches"), e1_naive_launches
     e1.update(runs)
+    phase_graph(dev, smi, args.repo)
 
     kernels = [b1, b2, b3, b4, b4t, b5, k1, b6, b7, b8, e1]
     for k in kernels:

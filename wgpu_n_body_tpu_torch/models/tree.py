@@ -19,19 +19,27 @@ the receivers it defers) or the stackless per-particle walk
 version for a CPU state. Both values of ``walk_engine`` run the group
 walk's skip-engine semantics (ROADMAP C).
 
-Every build's overflow flag is kept on the device, OR-ed over the steps
-since the last check, so the runner can raise on an overflow in any batch
-with one host read where it already synchronises (``raise_on_overflow``).
+``make_step()`` returns ``models/step_graph.py::GraphedStep``: on one CUDA
+device the eager step (``step_fn()``), writing into buffers it is given,
+captured once into CUDA graphs and replayed; a CPU state takes the eager
+step.
+
+Every build's overflow flag is OR-ed into one device byte per device, over
+the steps since the last check, and copied to the host behind it
+(``step_graph.OverflowFlag``: pinned memory on a CUDA device), so the runner
+can raise on an overflow in any batch where it already synchronises
+(``raise_on_overflow``) with no read of a device tensor.
 
 Under ``torch.profiler`` a step shows the host ranges ``tree_step`` and,
 inside it in order, ``morton_keys``, ``morton_sort``, ``tree_build``,
 ``leapfrog.drift``, ``theta_walk`` (the group walk's own ranges inside),
-``counters`` and ``leapfrog.kick``. In ``counters``, outside the walk's
-range, the group walk adds its receiver-row pairs, the pairs its
-evaluation kernel computed (whole 32-receiver blocks, counted by the
-kernel), its receivers and deferred receivers, the list pool's chunks its
-lists took and the chunks the pool holds to the counters ``walk.pairs``,
-``walk.eval_pairs``, ``walk.receivers``, ``walk.deferred``,
+``counters``, ``leapfrog.kick`` and ``overflow_flag``. In ``counters``,
+outside the walk's range, the group walk adds its receiver-row pairs, the
+pairs its evaluation kernel computed (whole 32-receiver blocks: counted by
+the kernel in an eager step, by the same rule, ``eval_pairs``, from a
+replayed step's lists), its receivers and deferred receivers, the list
+pool's chunks its lists took and the chunks the pool holds to the counters
+``walk.pairs``, ``walk.eval_pairs``, ``walk.receivers``, ``walk.deferred``,
 ``walk.pool_chunks`` and ``walk.pool_cap`` (``utils/profiling.py::count``).
 The per-particle walk shows its pack and its walk as ``pp_pack`` and
 ``pp_walk`` inside ``theta_walk``; in ``counters`` it walks every 64th warp
@@ -48,16 +56,23 @@ from __future__ import annotations
 import torch
 
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
+from wgpu_n_body_tpu_torch.models.step_graph import GraphedStep, OverflowFlag
 from wgpu_n_body_tpu_torch.ops.integrate import leapfrog_step
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build import TreeArrays
 from wgpu_n_body_tpu_torch.ops.tree_build_cuda import build_tree_cuda
 from wgpu_n_body_tpu_torch.ops.tree_walk import warp_walk_counts
 from wgpu_n_body_tpu_torch.ops.tree_walk_cuda import tree_forces_counts_cuda, tree_forces_cuda
-from wgpu_n_body_tpu_torch.ops.tree_walk_group import GroupLists, GroupWalkStats, Tiles, pool_chunks
+from wgpu_n_body_tpu_torch.ops.tree_walk_group import (
+    GroupLists,
+    GroupWalkStats,
+    Tiles,
+    eval_pairs,
+    pool_chunks,
+)
 from wgpu_n_body_tpu_torch.ops.tree_walk_group_cuda import MAX_TILE, group_tree_forces_cuda
 from wgpu_n_body_tpu_torch.params import ParticleState, SimParams, TreeParams
-from wgpu_n_body_tpu_torch.utils.profiling import count, trace_scope, tracing
+from wgpu_n_body_tpu_torch.utils.profiling import count, trace_scope, traced
 
 
 def validate_tree_params(tp: TreeParams) -> None:
@@ -93,6 +108,20 @@ def _walk_counts(stats: GroupWalkStats) -> tuple[torch.Tensor, torch.Tensor, tor
     return stats.pairs, stats.deferred.to(torch.int64), stats.pool_used
 
 
+def _count_group(stats: GroupWalkStats, n: int) -> None:
+    """The group walk's counters of one walk of ``n`` receivers; a walk
+    whose evaluation counted nothing (one captured into a graph) has its
+    evaluated pairs counted by ``eval_pairs``' rule from its lists."""
+    pairs, deferred, pool_used = _walk_counts(stats)
+    count("walk.pairs", pairs)
+    count("walk.eval_pairs", eval_pairs(stats.tiles, stats.lists)
+          if stats.eval_pairs is None else stats.eval_pairs)
+    count("walk.receivers", n)
+    count("walk.deferred", deferred)
+    count("walk.pool_chunks", pool_used)
+    count("walk.pool_cap", pool_chunks(n))
+
+
 def _load_counter_kernels(device: torch.device) -> None:
     """Run the walk counters' operations once, on a walk of one receiver.
     A step launches them only under a profiler, and CUDA loads a kernel's
@@ -104,6 +133,7 @@ def _load_counter_kernels(device: torch.device) -> None:
     stats = GroupWalkStats(Tiles(tile_id, one, one, one, no, 1, 1, 1),
                            GroupLists(one, one, no, one, one, no))
     pairs, deferred, _ = _walk_counts(stats)
+    eval_pairs(stats.tiles, stats.lists)  # a replayed walk's count (``_count_group``)
     torch.add(pairs, deferred)  # a running total's add (``utils/profiling.py::count``)
     torch.zeros((), dtype=torch.int64, device=device)  # the evaluation's counter, zeroed
 
@@ -157,6 +187,16 @@ def _load_pp_counter_kernels(device: torch.device, params: SimParams, tp: TreePa
     torch.add(live, visits)  # a running total's add (``utils/profiling.py::count``)
 
 
+def _count_per_particle(pos_new, src_pos, src_mass, tree, params, tp) -> None:
+    """The per-particle walk's counters of one walk (``_per_particle_counts``)."""
+    sampled, live, visits, inter = _per_particle_counts(pos_new, src_pos, src_mass, tree,
+                                                        params, tp)
+    count("walk.pp_receivers", sampled)
+    count("walk.pp_live_visits", live)
+    count("walk.pp_warp_visits", visits)
+    count("walk.pp_interactions", inter)
+
+
 class TreeSim(Simulator):
     """Barnes-Hut O(N log N) backend, device-resident."""
 
@@ -166,7 +206,7 @@ class TreeSim(Simulator):
         # (tree.rs:42-51); here the default lives in TreeParams itself.
         self.add_params = add_params or TreeParams()
         validate_tree_params(self.add_params)
-        self._overflowed: torch.Tensor | None = None
+        self._flags: dict[torch.device, OverflowFlag] = {}
 
     def check_device(self, device: torch.device) -> None:
         """Raise ValueError for parameters that ``device`` does not take
@@ -183,60 +223,70 @@ class TreeSim(Simulator):
                 _load_pp_counter_kernels(device, self.sim_params, self.add_params)
         return super().init_state(generator, init_fn, device)
 
-    def _sort_build(self, state: ParticleState):
+    def _sort_build(self, state: ParticleState, mass_out: torch.Tensor | None = None):
         """(sorted state, arena, sorted packed keys). Under a profiler the
         key kernel shows in the range ``morton_keys``, the sort in
-        ``morton_sort``, the reorder and the build in ``tree_build``."""
+        ``morton_sort``, the reorder and the build in ``tree_build``.
+        ``mass_out``: where the sorted masses go."""
         tp = self.add_params
         perm, bound, keys = morton_order_cuda(state.pos, tp.max_depth)
         with trace_scope("tree_build"):
-            state_sorted, tree = build_tree_cuda(state, perm, keys, bound, tp)
+            state_sorted, tree = build_tree_cuda(state, perm, keys, bound, tp, mass_out)
         return state_sorted, tree, keys
 
     def step_fn(self) -> StepFn:
+        """The eager step, ``step(state, out=None)``: with ``out``
+        (ParticleState buffers of the state's shape) it writes the new
+        state's fields there, the body ``GraphedStep`` captures. Last, in the
+        range ``overflow_flag``, it ORs the arena's overflow into the
+        device's ``OverflowFlag`` and refreshes its host copy."""
         params, tp = self.sim_params, self.add_params
 
-        def force_of(tree, keys):
+        def force_of(tree, keys, acc_out):
             def force(pos_new, pos_old, mass):
                 with trace_scope("theta_walk"):
                     if tp.walk == "group":
                         acc, stats = group_tree_forces_cuda(
-                            pos_new, pos_old, mass, tree, keys, params, tp
+                            pos_new, pos_old, mass, tree, keys, params, tp, out=acc_out
                         )
                     else:
-                        acc = tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp)
-                if tracing():
-                    with trace_scope("counters"):
-                        if tp.walk == "group":
-                            pairs, deferred, pool_used = _walk_counts(stats)
-                            count("walk.pairs", pairs)
-                            count("walk.eval_pairs", stats.eval_pairs)
-                            count("walk.receivers", pos_new.shape[0])
-                            count("walk.deferred", deferred)
-                            count("walk.pool_chunks", pool_used)
-                            count("walk.pool_cap", pool_chunks(pos_new.shape[0]))
-                        else:
-                            sampled, live, visits, inter = _per_particle_counts(
-                                pos_new, pos_old, mass, tree, params, tp
-                            )
-                            count("walk.pp_receivers", sampled)
-                            count("walk.pp_live_visits", live)
-                            count("walk.pp_warp_visits", visits)
-                            count("walk.pp_interactions", inter)
+                        acc = tree_forces_cuda(pos_new, pos_old, mass, tree, params, tp,
+                                               out=acc_out)
+                if tp.walk == "group":
+                    traced("counters", _count_group, stats, pos_new.shape[0])
+                else:
+                    traced("counters", _count_per_particle, pos_new, pos_old, mass, tree, params,
+                           tp)
                 return acc
 
             return force
 
-        def step(state: ParticleState) -> ParticleState:
+        def step(state: ParticleState, out: ParticleState | None = None) -> ParticleState:
+            flag = self.overflow_flag(state.pos.device)
             with trace_scope("tree_step"):
                 # Sort and build from the pre-step positions, as the
                 # reference does before its compute dispatch (tree.rs:271-297).
-                state_sorted, tree, keys = self._sort_build(state)
-                flag = tree.overflowed
-                self._overflowed = flag if self._overflowed is None else self._overflowed | flag
-                return leapfrog_step(state_sorted, params, force_of(tree, keys))
+                mass_out, acc_out = (None, None) if out is None else (out.mass, out.acc)
+                state_sorted, tree, keys = self._sort_build(state, mass_out)
+                new = leapfrog_step(state_sorted, params, force_of(tree, keys, acc_out), out=out)
+                with trace_scope("overflow_flag"):
+                    flag.publish(tree.overflowed)
+                return new
 
         return step
+
+    def make_step(self) -> StepFn:
+        """The step to call in a loop: a ``GraphedStep``, replayed from CUDA
+        graphs on one CUDA device, the eager step on a CPU state (see
+        ``models/step_graph.py``, and its rule for how long a returned state
+        stays valid)."""
+        return GraphedStep(self)
+
+    def overflow_flag(self, device: torch.device) -> OverflowFlag:
+        """The overflow flag of this simulator's steps on ``device``."""
+        if device not in self._flags:
+            self._flags[device] = OverflowFlag(device)
+        return self._flags[device]
 
     def _overflow_error(self) -> RuntimeError:
         cap = self.add_params.capacity(self.sim_params.particle_num)
@@ -246,11 +296,10 @@ class TreeSim(Simulator):
         )
 
     def raise_on_overflow(self) -> None:
-        """Raise if any build since the last call overflowed its arena.
-        One host read of a device flag: call it where the host waits for
-        the device anyway."""
-        flag, self._overflowed = self._overflowed, None
-        if flag is not None and bool(flag):
+        """Raise if any build since the last call overflowed its arena, by
+        the flags' host copies: call it where the host has waited for the
+        device anyway."""
+        if any([f.take() for f in self._flags.values()]):
             raise self._overflow_error()
 
     def check_overflow(self, state: ParticleState) -> None:

@@ -31,14 +31,19 @@ ForceFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def leapfrog_step(
-    state: ParticleState, params: SimParams, force_fn: ForceFn
+    state: ParticleState, params: SimParams, force_fn: ForceFn,
+    out: ParticleState | None = None,
 ) -> ParticleState:
-    """One reference-exact KDK step; returns new tensors, reads ``state``."""
+    """One reference-exact KDK step; returns new tensors, reads ``state``.
+    ``out``: a state whose ``pos`` and ``vel`` the drift and the closing
+    half-kick write instead, bit for bit the same (its ``acc`` and ``mass``
+    are the caller's to fill: the new state takes the force's output and
+    ``state.mass``)."""
     half = params.dt / 2.0
     with trace_scope("leapfrog.drift"):
         vel_h = state.vel + state.acc * half
-        pos_new = state.pos + vel_h * params.dt
+        pos_new = torch.add(state.pos, vel_h * params.dt, out=None if out is None else out.pos)
     acc_new = force_fn(pos_new, state.pos, state.mass)
     with trace_scope("leapfrog.kick"):
-        vel_new = vel_h + acc_new * half
+        vel_new = torch.add(vel_h, acc_new * half, out=None if out is None else out.vel)
     return ParticleState(pos=pos_new, vel=vel_new, acc=acc_new, mass=state.mass)

@@ -144,13 +144,15 @@ def _checked(state, perm, keys, params, bound=None) -> torch.device:
     return state.pos.device
 
 
-def _reorder(state, perm, keys, params):
+def _reorder(state, perm, keys, params, mass_out=None):
     """The reorder kernel on checked CUDA tensors: (sorted state, split
-    (n,) uint8, window (n,) uint8)."""
+    (n,) uint8, window (n,) uint8); the sorted masses into ``mass_out``
+    where it is given."""
     global LAUNCHES_REORDER
     n = state.pos.shape[0]
     bucket = min(params.leaf_bucket, n)  # no window of more than n bodies exists
-    ss = ParticleState(*(torch.empty_like(t) for t in state))
+    ss = ParticleState(*(torch.empty_like(t) for t in state[:3]),
+                       torch.empty_like(state.mass) if mass_out is None else mass_out)
     split = torch.empty(n, dtype=torch.uint8, device=keys.device)
     window = torch.empty(n, dtype=torch.uint8, device=keys.device)
     err = _library().tree_reorder_launch(
@@ -177,7 +179,7 @@ def reorder_cuda(state: ParticleState, perm: torch.Tensor, keys: torch.Tensor,
     return _reorder(state, perm, keys, params)
 
 
-def _launch(state, perm, keys, bound, params):
+def _launch(state, perm, keys, bound, params, mass_out=None):
     """The kernels on checked CUDA tensors: (sorted state, TreeArrays, the
     in-block scans (n, 4) float64, the block prefixes (blocks + 1, 4)
     float64, the window levels (n,) uint8)."""
@@ -192,7 +194,7 @@ def _launch(state, perm, keys, bound, params):
             f"build_tree_cuda takes 1 <= n with (max_depth+1)*n and the capacity below 2^31, "
             f"got n={n}, capacity {cap}"
         )
-    ss, split, window = _reorder(state, perm, keys, params)
+    ss, split, window = _reorder(state, perm, keys, params, mass_out)
     bucket = min(bucket, n)  # no window of more than n bodies exists: the same tree
     lib = _library()
     nb = -(-n // lib.tree_build_scan_block())
@@ -236,19 +238,29 @@ def build_tree_cuda(
     keys: torch.Tensor,
     bound: torch.Tensor,
     params: TreeParams,
+    mass_out: torch.Tensor | None = None,
 ) -> tuple[ParticleState, TreeArrays]:
     """(sorted state, DFS node arena) of bodies in their input order, the
     sort's permutation ``perm`` (n,) int32 and the sorted packed ``keys``
     (n,) int64 (see ``tree_build.reorder`` and ``tree_build.build_tree``).
+    ``mass_out``: an (n,) float32 tensor the sorted masses are written into
+    (the sorted state's ``mass``), or None for a new one.
 
     CUDA tensors go through the kernels; CPU tensors through the plain
     version; anything else raises, as do inputs of another type, shape or
     layout than the kernels take, on either device.
     """
-    if _checked(state, perm, keys, params, bound).type == "cpu":
+    device = _checked(state, perm, keys, params, bound)
+    if mass_out is not None:
+        _check("mass_out", mass_out, torch.float32, tuple(state.mass.shape))
+        if mass_out.device != device:
+            raise ValueError(f"mass_out on {mass_out.device}, the state on {device}")
+    if device.type == "cpu":
         ss = reorder(state, perm)
+        if mass_out is not None:
+            ss = ss._replace(mass=mass_out.copy_(ss.mass))
         return ss, build_tree(ss, keys, bound, params)
-    return _launch(state, perm, keys, bound, params)[:2]
+    return _launch(state, perm, keys, bound, params, mass_out)[:2]
 
 
 def build_tree_cuda_with_sums(

@@ -99,20 +99,23 @@ def tree_forces_cuda(
     tree_params: TreeParams,
     active: torch.Tensor | None = None,
     self_idx: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(B, 3) acc*dt of receivers ``pos_new`` from the tree over the
-    sorted sources ``src_pos``/``src_mass`` (see ``tree_walk.tree_forces``).
+    sorted sources ``src_pos``/``src_mass`` (see ``tree_walk.tree_forces``),
+    written into ``out`` where it is given.
 
     CUDA tensors go through the kernel; CPU tensors through the plain
     version; anything else raises.
     """
     if pos_new.device.type == "cpu":
         _one_device(tree, pos_new, src_pos, src_mass, active, self_idx)
-        return tree_forces(
+        acc = tree_forces(
             pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx
         )
+        return acc if out is None else out.copy_(acc)
     return _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
-                   None)
+                   None, out)
 
 
 def tree_forces_counts_cuda(
@@ -253,11 +256,12 @@ def tree_forces_listed_cuda(
 
 
 def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_idx,
-            counts) -> torch.Tensor:
-    """The pack launch, then the walk over receivers [0, b). Without
-    ``counts`` (a step's walk) the two are in the profiler ranges ``pp_pack``
-    and ``pp_walk`` and count in ``LAUNCHES``; the counting instantiation is
-    neither traced nor counted."""
+            counts, out=None) -> torch.Tensor:
+    """The pack launch, then the walk over receivers [0, b), into ``out``
+    (a new tensor where it is None). Without ``counts`` (a step's walk) the
+    two are in the profiler ranges ``pp_pack`` and ``pp_walk`` and count in
+    ``LAUNCHES``; the counting instantiation is neither traced nor
+    counted."""
     global LAUNCHES
     walk = counts is None
     _one_device(tree, pos_new, src_pos, src_mass, active, self_idx)
@@ -272,7 +276,10 @@ def _launch(pos_new, src_pos, src_mass, tree, params, tree_params, active, self_
     if active is not None:
         _check("active", active, torch.bool, (b,))
 
-    out = torch.empty((b, 3), dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty((b, 3), dtype=torch.float32, device=device)
+    _check("out", out, torch.float32, (b, 3))
+    _one_device(tree, out)
     if b == 0:
         return out
     # the arena as one 32-byte record per node; the sources as (position,

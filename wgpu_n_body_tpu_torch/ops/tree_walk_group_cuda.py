@@ -259,6 +259,7 @@ def group_eval_lists_cuda(
     gid_offset: int = 0,
     table: torch.Tensor | None = None,
     pairs: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The evaluation kernel's counterpart of
     ``tree_walk_group.group_eval_lists``, CUDA tensors only: (n, 3) acc*dt;
@@ -266,7 +267,8 @@ def group_eval_lists_cuda(
     ``source_table(tree, src_pos, src_mass, g * dt)`` where the caller has
     it already; otherwise it is built here. ``pairs``: a () int64 tensor on
     the device that the kernel adds the receiver-row pairs it computes to
-    (``tree_walk_group.eval_pairs``' rule), or None to count nothing."""
+    (``tree_walk_group.eval_pairs``' rule), or None to count nothing.
+    ``out``: the (n, 3) float32 tensor to write into, or None for a new one."""
     global LAUNCHES_EVAL
     device = pos_new.device
     if device.type != "cuda":
@@ -293,7 +295,11 @@ def group_eval_lists_cuda(
         if pairs.device != device:
             raise ValueError(f"pairs on {pairs.device}, receivers on {device}")
 
-    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    _check("out", out, torch.float32, (n, 3))
+    if out.device != device:
+        raise ValueError(f"out on {out.device}, receivers on {device}")
     if table is None:  # one 16-byte row per id
         table = source_table(tree, src_pos, src_mass, params.g * params.dt)
     _check("table", table, torch.float32, (cap + 1 + n_src, 4))
@@ -320,6 +326,7 @@ def group_tree_forces_cuda(
     tree_params: TreeParams,
     gid_offset: int = 0,
     tiles: Tiles | None = None,
+    out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, GroupWalkStats]:
     """((B, 3) acc*dt, stats) of the group walk (see
     ``tree_walk_group.group_tree_forces``).
@@ -341,7 +348,9 @@ def group_tree_forces_cuda(
     holds the tiles and the lists: its masks and counts are built only when
     a caller reads them. While a profiler records, ``stats.eval_pairs``
     holds the evaluation kernel's count of the pairs it computed; otherwise
-    it is None and nothing is counted.
+    (a capture included) it is None and nothing is counted. ``out``: the
+    (B, 3) float32 tensor the forces are written into, or None for a new
+    one.
     """
     tensors = [pos_new, src_pos, src_mass, tree.nodes_f32, tree.skip, tree.first,
                tree.count, tree.num_nodes, keys]
@@ -355,9 +364,10 @@ def group_tree_forces_cuda(
     if tiles is not None and tiles.tile_id.shape != (n,):
         raise ValueError(f"tiles of {tiles.tile_id.shape[0]} receivers for {n} receivers")
     if device.type == "cpu":
-        return group_tree_forces(
+        acc, stats = group_tree_forces(
             pos_new, src_pos, src_mass, tree, keys, params, tree_params, gid_offset, tiles=tiles
         )
+        return (acc, stats) if out is None else (out.copy_(acc), stats)
     if device.type != "cuda":
         raise ValueError(f"group_tree_forces_cuda takes CUDA or CPU tensors, got {device}")
     g0 = check_receivers(gid_offset, n, src_pos.shape[0])
@@ -378,7 +388,7 @@ def group_tree_forces_cuda(
         with trace_scope("group_eval"):
             pairs = torch.zeros((), dtype=torch.int64, device=device) if tracing() else None
             acc = group_eval_lists_cuda(
-                pos_new, src_pos, src_mass, tree, tiles, lists, params, g0, table, pairs
+                pos_new, src_pos, src_mass, tree, tiles, lists, params, g0, table, pairs, out
             )
     with trace_scope("group_fallback"):
         # receiver i is source g0 + i: a later slice of the sources, or none

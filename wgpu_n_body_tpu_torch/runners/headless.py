@@ -119,12 +119,18 @@ class OfflineHeadless:
             elif hasattr(self.sim, "raise_on_overflow"):
                 self.sim.raise_on_overflow()
 
+    def _unreplayed(self) -> int:
+        """Calls of a graphed step (``models/step_graph.py``) that built or
+        captured its graphs rather than replayed them; 0 for another step."""
+        return getattr(self._step, "calls", 0) - getattr(self._step, "replays", 0)
+
     def step(self) -> float:
         """One synchronised step; returns wall seconds (incl. launch)."""
         with self.timer.step() as box:
+            before = self._unreplayed()
             with trace_scope("runner.enqueue"):
                 self.state = self._step(self.state)
-            box["sync"] = self.state.pos
+            box["sync"], box["warmup"] = self.state.pos, self._unreplayed() != before
         self.step_num += 1
         self._check_batch(1, 0, print)
         return self.timer.times_s[-1]
@@ -177,10 +183,11 @@ class OfflineHeadless:
         while done < steps:
             k = min(chunk, steps - done)
             with self.timer.step() as box:
+                before = self._unreplayed()
                 with trace_scope("runner.enqueue"):
                     for _ in range(k):
                         self.state = self._step(self.state)
-                box["sync"] = self.state.pos
+                box["sync"], box["warmup"] = self.state.pos, self._unreplayed() != before
             self.step_num += k
             done += k
             self._check_batch(k, reshard_every, log_fn)

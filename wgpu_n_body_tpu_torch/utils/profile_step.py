@@ -10,7 +10,8 @@ CUDA card.
 N defaults to 4,000,000 and the walk to ``group``: the ``cli headless``
 defaults (uniform scene, θ=0.75); with ``--sim naive`` to 262144, the naive
 headless size (the all-pairs kernel B1). Every number comes from the
-simulator's own step. Prints:
+simulator's own step (``make_step()``: TreeSim's is replayed from CUDA
+graphs after two warm-up calls, ``models/step_graph.py``). Prints:
 - the wall of 5 synchronised steps (2 with ``--sim tree-host``), with the SM
   clock and power;
 - a ``torch.profiler`` window of 3 steps: kernel time per profiler range on
@@ -168,7 +169,8 @@ def main(argv=None) -> int:
         print(f"TreeSim N={n} theta={tp.theta} walk={tp.walk}")
         sim = TreeSim(params, tp)
     step = sim.make_step()
-    state = step(uniform_init(torch.Generator().manual_seed(0), params, dev))  # warm
+    state = step(uniform_init(torch.Generator().manual_seed(0), params, dev))  # builds
+    state = step(state)  # TreeSim's graphed step captures at its second call
     torch.cuda.synchronize()
 
     walls = []
