@@ -128,8 +128,10 @@ def test_another_shape_or_other_parameters_are_captured_again(change):
 
 
 def test_only_one_card_treesim_takes_the_graphed_step():
-    """A CPU state goes to TreeSim's eager step, counting nothing; NaiveSim,
-    TreeSimHost and ShardedTreeSim keep the base class's eager step."""
+    """A CPU state goes to TreeSim's eager step, counting nothing; NaiveSim
+    and TreeSimHost keep the base class's eager step. Of the multi-GPU
+    steps only ShardedTreeSim's replicated schedule, a tree step on one card
+    per rank, takes the graphed step too (tests/test_torch_bench_replicated_16m.py)."""
     sim = TreeSim(SP, TreeParams(**TP))
     step = sim.make_step()
     assert isinstance(step, GraphedStep)
@@ -138,8 +140,9 @@ def test_only_one_card_treesim_takes_the_graphed_step():
         out = step(state)
     assert _equal(out, sim.step_fn()(state)) and step.calls == 0 and step.key is None
     assert "step.steps" not in profiling.counters()
-    for cls in (NaiveSim, TreeSimHost, ShardedTreeSim):
+    for cls in (NaiveSim, TreeSimHost):
         assert cls.make_step is Simulator.make_step
+    assert ShardedTreeSim.make_step is not Simulator.make_step
     assert not isinstance(NaiveSim(SP).make_step(), GraphedStep)
 
 

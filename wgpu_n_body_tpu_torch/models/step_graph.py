@@ -1,10 +1,14 @@
-"""TreeSim's step on one CUDA device, replayed from captured CUDA graphs: the
+"""A tree step on one CUDA device, replayed from captured CUDA graphs: the
 port's counterpart of the JAX runner's compiled chunk
 (``wgpu_n_body_tpu/runners/headless.py::_compile_chunk``).
 
-``TreeSim.make_step()`` returns a ``GraphedStep``. A CPU state goes to the
-eager step (``TreeSim.step_fn()``). A CUDA state goes through the same step
-as a body that writes the new state into a buffer it is given:
+``TreeSim.make_step()`` returns a ``GraphedStep``, and so does
+``ShardedTreeSim.make_step()`` under the ``replicated`` schedule, one per
+rank: its captures hold the step's ``all_gather``s (NCCL captures
+collectives; the first call, eager, makes the communicator), and every
+rank replays in the same order. A CPU state goes to the eager step (the
+simulator's ``step_fn()``). A CUDA state goes through the same step as a
+body that writes the new state into a buffer it is given:
 
 - the first call of a key (each field's shape, dtype and device, the
   ``SimParams`` and the ``TreeParams``) makes two state buffers, copies the
@@ -15,10 +19,11 @@ as a body that writes the new state into a buffer it is given:
   any graph), then captures the body twice, from each buffer into the other
   (``record``). A capture cuts the body at every profiler range it opens or
   closes (``utils/profiling.py::trace_scope``): one CUDA graph per innermost
-  range, ``morton_keys``, ``morton_sort``, ``tree_build``,
+  range (TreeSim's ``morton_keys``, ``morton_sort``, ``tree_build``,
   ``leapfrog.drift``, the walk's ranges, ``leapfrog.kick`` and
-  ``overflow_flag``, all in one memory pool; a cut that captured nothing is
-  dropped;
+  ``overflow_flag``; the replicated step's ``rep_gather`` besides), and one
+  for the work between ranges, all in one memory pool; a cut that captured
+  nothing is dropped;
 - every later call replays the graphs of the buffer the state is in, in
   order, each inside the ranges that were open around it, so a traced step's
   device work counts to the ranges an eager step's does. The walk's
@@ -41,11 +46,12 @@ the buffer of the last state returned. A caller that keeps a state longer
 copies it (to the host, or with ``clone``); work it enqueues on the state
 before the next step is ordered on the stream and needs no copy.
 
-Overflow: the step's last graph (``overflow_flag``) ORs its build's overflow
+Overflow: TreeSim's last graph (``overflow_flag``) ORs its build's overflow
 flag into one device byte (``OverflowFlag``, the eager step's too) and
 copies that byte into pinned host memory. ``TreeSim.raise_on_overflow``
 reads the host byte after the synchronisation the runner makes anyway: no
-read of a device tensor.
+read of a device tensor. ``ShardedTreeSim`` folds its health into one
+device vector in place, which ``read_health`` reduces over the ranks.
 
 Under ``torch.profiler`` each call counts ``step.steps`` and each replay
 ``step.replayed`` (``utils/profiling.py::count``); a CPU state's call counts
@@ -251,7 +257,9 @@ def _shares(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 class GraphedStep:
-    """``TreeSim``'s step to call in a loop (see the module's docstring)."""
+    """A tree simulator's step to call in a loop (see the module's
+    docstring): ``sim.step_fn()`` is a step ``(state, out)`` that writes the
+    new state into the buffers ``out`` where it can."""
 
     def __init__(self, sim, plain: bool = False):
         self.sim = sim

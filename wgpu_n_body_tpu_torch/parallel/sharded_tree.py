@@ -33,14 +33,27 @@ O(N / P + P * let_cap) memory per rank.
 
 Every step's health (``[build_overflow, let_overflow, walk_deferred,
 let_rows_max]``, ``sharded_tree.py:332-340``) stays on the device, folded
-over the steps since it was last read; ``read_health`` reduces it over the
-ranks with ``all_reduce`` once per chunk, after the synchronisation the
-chunk ends with anyway. Under the fused walk the overflow flag also
-covers the packed forest: more kept import rows than ``let_forest_cap``
-(``sharded_tree.py:354-358``).
+in place into one vector over the steps since it was last read;
+``read_health`` reduces it over the ranks with ``all_reduce`` once per
+chunk, after the synchronisation the chunk ends with anyway. Under the
+fused walk the overflow flag also covers the packed forest: more kept
+import rows than ``let_forest_cap`` (``sharded_tree.py:354-358``).
 
 Like TreeSim, every step reorders particles: globally (replicated) or
 within each rank's slice (let).
+
+``make_step()`` under ``replicated`` is ``models/step_graph.py::GraphedStep``,
+as TreeSim's: on a CUDA device the step, the three ``all_gather``s
+included, is captured into CUDA graphs at its second call and replayed
+(NCCL captures collectives; the first, eager call has made the
+communicator). ``let`` and a CPU state keep the eager step.
+
+Under ``torch.profiler`` the replicated step shows, inside
+``sharded_tree_step``: the half-kick in ``leapfrog.drift``, the gathers in
+``rep_gather``, ``morton_keys``, ``morton_sort``, ``tree_build``, the drift
+of the slice in ``leapfrog.drift``, ``theta_walk``, the group walk's
+counters of this rank's receivers in ``counters`` (``models/tree.py``'s
+``walk.*``), and the closing half-kick in ``leapfrog.kick``.
 """
 
 from __future__ import annotations
@@ -51,7 +64,13 @@ from typing import NamedTuple
 import torch
 
 from wgpu_n_body_tpu_torch.models.base import Simulator, StepFn
-from wgpu_n_body_tpu_torch.models.tree import check_walk_tile, validate_tree_params
+from wgpu_n_body_tpu_torch.models.step_graph import GraphedStep
+from wgpu_n_body_tpu_torch.models.tree import (
+    _count_group,
+    _load_counter_kernels,
+    check_walk_tile,
+    validate_tree_params,
+)
 from wgpu_n_body_tpu_torch.ops import import_forest_cuda, morton
 from wgpu_n_body_tpu_torch.ops.morton_cuda import morton_order_cuda
 from wgpu_n_body_tpu_torch.ops.tree_build import FAR, TreeArrays, morton_order, reorder
@@ -77,7 +96,7 @@ from wgpu_n_body_tpu_torch.parallel.mesh import (
     all_to_all,
     shard_state,
 )
-from wgpu_n_body_tpu_torch.utils.profiling import trace_scope
+from wgpu_n_body_tpu_torch.utils.profiling import trace_scope, traced
 
 SCHEDULES = ("replicated", "let")
 
@@ -212,7 +231,8 @@ def let_forces(local: LetLocal, imp: LetExport, params: SimParams, tp: TreeParam
 
 class RepGlobal(NamedTuple):
     """The whole sorted system and its arena, as every rank builds it, with
-    this rank's slice of receivers."""
+    this rank's slice of receivers, and where the slice's forces go
+    (``acc_out``; None for a new tensor)."""
 
     pos_s: torch.Tensor
     mass_s: torch.Tensor
@@ -221,13 +241,17 @@ class RepGlobal(NamedTuple):
     velh_l: torch.Tensor
     pos_new: torch.Tensor
     start: int
+    acc_out: torch.Tensor | None = None
 
 
 def rep_prologue(pos_all: torch.Tensor, velh_all: torch.Tensor, mass_all: torch.Tensor,
-                 rank: int, size: int, params: SimParams, tp: TreeParams) -> RepGlobal:
+                 rank: int, size: int, params: SimParams, tp: TreeParams,
+                 out: ParticleState | None = None) -> RepGlobal:
     """The deterministic global sort and build of the gathered (pos, vel_h,
     mass), and this rank's slice of the sorted receivers, drifted
-    (``sharded_tree.py:238-274``)."""
+    (``sharded_tree.py:238-274``) in the range ``leapfrog.drift``. ``out``:
+    buffers of the slice's new state; the drift writes its ``pos``, the
+    walk its ``acc``."""
     perm, bound, keys = morton_order_cuda(pos_all, tp.max_depth)
     with trace_scope("tree_build"):
         # the reorder gathers vel_h in the vel and acc slots (acc is unread)
@@ -236,24 +260,31 @@ def rep_prologue(pos_all: torch.Tensor, velh_all: torch.Tensor, mass_all: torch.
     n_local = ss.n // size
     rows = slice(rank * n_local, (rank + 1) * n_local)
     velh_l = ss.vel[rows]
-    return RepGlobal(ss.pos, ss.mass, tree, keys[rows], velh_l,
-                     ss.pos[rows] + velh_l * params.dt, rows.start)
+    with trace_scope("leapfrog.drift"):
+        pos_new = torch.add(ss.pos[rows], velh_l * params.dt,
+                            out=None if out is None else out.pos)
+    return RepGlobal(ss.pos, ss.mass, tree, keys[rows], velh_l, pos_new, rows.start,
+                     None if out is None else out.acc)
 
 
 def rep_forces(g: RepGlobal, params: SimParams, tp: TreeParams):
     """(acc, deferred receivers) of this rank's slice from the global tree
     (``sharded_tree.py:276``): receivers local, sources and self indices
-    global."""
+    global. The group walk's counters (``models/tree.py::_count_group``)
+    count this rank's receivers while a profiler records."""
     with trace_scope("theta_walk"):
         if tp.walk == "group":
             acc, stats = group_tree_forces_cuda(g.pos_new, g.pos_s, g.mass_s, g.tree, g.keys_l,
-                                                params, tp, gid_offset=g.start)
-            return acc, stats.deferred
-        n_local = g.pos_new.shape[0]
-        idx = torch.arange(g.start, g.start + n_local, dtype=torch.int32,
-                           device=g.pos_new.device)
-        acc = tree_forces_cuda(g.pos_new, g.pos_s, g.mass_s, g.tree, params, tp, self_idx=idx)
-        return acc, torch.zeros((), dtype=torch.int32, device=acc.device)
+                                                params, tp, gid_offset=g.start, out=g.acc_out)
+        else:
+            n_local = g.pos_new.shape[0]
+            idx = torch.arange(g.start, g.start + n_local, dtype=torch.int32,
+                               device=g.pos_new.device)
+            acc = tree_forces_cuda(g.pos_new, g.pos_s, g.mass_s, g.tree, params, tp,
+                                   self_idx=idx, out=g.acc_out)
+            return acc, torch.zeros((), dtype=torch.int32, device=acc.device)
+    traced("counters", _count_group, stats, g.pos_new.shape[0])
+    return acc, stats.deferred
 
 
 # ------------------------------------------------------------------- sim
@@ -270,10 +301,8 @@ def _health_vec(build_ov, let_ov, deferred, rows_max) -> torch.Tensor:
     ])
 
 
-def _fold(a: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:
+def _fold(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Two health vectors as one: flags and rows by max, deferrals summed."""
-    if a is None:
-        return b
     return torch.stack([torch.maximum(a[0], b[0]), torch.maximum(a[1], b[1]), a[2] + b[2],
                         torch.maximum(a[3], b[3])])
 
@@ -333,11 +362,13 @@ class ShardedTreeSim(Simulator):
         # resolved now, so that checkpoints record the int
         self.let_cap = _resolve_let_cap(let_cap, sim_params, mesh, tp)
         self._import_list_cap = tp.let_import_list_cap  # what a reshard returns to
-        self._health: torch.Tensor | None = None
+        #: this rank's health since the last ``read_health``, folded in place
+        self._health = torch.zeros(4, dtype=torch.int64, device=mesh.device)
 
-    def _run(self, state: ParticleState, walk: bool):
+    def _run(self, state: ParticleState, walk: bool, out: ParticleState | None = None):
         """One step's stages on this rank: (new state, or None without the
-        walk; health vector of this rank)."""
+        walk; health vector of this rank). ``out``: buffers the replicated
+        step writes the slice's new state into (``GraphedStep``'s body)."""
         params, tp, mesh = self.sim_params, self.add_params, self.mesh
         half = params.dt / 2.0
         if self.schedule == "let":
@@ -358,29 +389,50 @@ class ShardedTreeSim(Simulator):
             health = _health_vec(local.tree.overflowed, let_ov, deferred, rows_max)
             return ParticleState(local.pos_new, local.velh_s + acc * half, acc,
                                  local.mass_s), health
-        vel_h = state.vel + state.acc * half
-        g = rep_prologue(all_gather(state.pos, mesh.size), all_gather(vel_h, mesh.size),
-                         all_gather(state.mass, mesh.size), mesh.rank, mesh.size, params, tp)
-        zero = torch.zeros((), dtype=torch.int32, device=g.pos_s.device)
+        with trace_scope("leapfrog.drift"):
+            vel_h = state.vel + state.acc * half
+        with trace_scope("rep_gather"):
+            gathered = (all_gather(state.pos, mesh.size), all_gather(vel_h, mesh.size),
+                        all_gather(state.mass, mesh.size))
+        g = rep_prologue(*gathered, mesh.rank, mesh.size, params, tp, out)
+        del gathered  # free for the walk: the sorted copies are what the step reads on
         if not walk:
+            zero = torch.zeros((), dtype=torch.int32, device=g.pos_s.device)
             return None, _health_vec(g.tree.overflowed, False, zero, 0)
         acc, deferred = rep_forces(g, params, tp)
         mass_l = g.mass_s[g.start : g.start + acc.shape[0]]
-        return (ParticleState(g.pos_new, g.velh_l + acc * half, acc, mass_l),
+        with trace_scope("leapfrog.kick"):
+            vel_new = torch.add(g.velh_l, acc * half, out=None if out is None else out.vel)
+        return (ParticleState(g.pos_new, vel_new, acc, mass_l),
                 _health_vec(g.tree.overflowed, False, deferred, 0))
 
     def step_fn(self) -> StepFn:
-        """The step (it reads ``add_params`` at every call, so an escalated
-        import budget takes effect at the next step). Its health is folded
-        into this rank's record until ``read_health``."""
+        """The eager step, ``step(state, out=None)`` (it reads ``add_params``
+        at every call, so an escalated import budget takes effect at the
+        next step). Its health is folded into this rank's record, in place,
+        until ``read_health``. With ``out`` (buffers of the state's shape)
+        the replicated step writes the new state's fields there: the body
+        ``GraphedStep`` captures."""
 
-        def step(state: ParticleState) -> ParticleState:
+        def step(state: ParticleState, out: ParticleState | None = None) -> ParticleState:
             with trace_scope("sharded_tree_step"):
-                new, health = self._run(state, walk=True)
-            self._health = _fold(self._health, health)
+                new, health = self._run(state, walk=True, out=out)
+                self._record(health)
             return new
 
         return step
+
+    def make_step(self) -> StepFn:
+        """The step to call in a loop: under ``replicated`` a
+        ``GraphedStep`` (replayed from CUDA graphs on a CUDA device, the
+        eager step on a CPU state; see ``models/step_graph.py`` for how long
+        a returned state stays valid); under ``let`` the eager step."""
+        return GraphedStep(self) if self.schedule == "replicated" else self.step_fn()
+
+    def _record(self, health: torch.Tensor) -> None:
+        """Fold a step's health into this rank's record, in place, so that a
+        replayed step folds into the vector its capture saw."""
+        self._health.copy_(_fold(self._health, health))
 
     def init_state(self, generator, init_fn, device=None) -> ParticleState:
         """This rank's slice of the scene ``init_fn`` draws on the CPU from
@@ -388,7 +440,11 @@ class ShardedTreeSim(Simulator):
         Under ``let`` the slices are those of the global Morton order, as a
         reshard leaves them: in the draw's order every rank's box would be
         the whole scene and its first exports the whole tree (the JAX
-        package starts so, and overflows at scale)."""
+        package starts so, and overflows at scale). On a CUDA device the
+        group walk's counter kernels are loaded first, as TreeSim loads them
+        (``models/tree.py::_load_counter_kernels``)."""
+        if self.mesh.device.type == "cuda" and self.add_params.walk == "group":
+            _load_counter_kernels(self.mesh.device)
         whole = init_fn(generator, self.sim_params, "cpu")
         if self.schedule == "let":
             whole = reorder(whole, morton_order(whole.pos, self.add_params.max_depth)[0].long())
@@ -398,10 +454,8 @@ class ShardedTreeSim(Simulator):
         """The health of the steps since the last read, reduced over the
         ranks (a collective: every rank calls it): ``diagnose``'s keys, with
         ``walk_deferred`` summed over those steps."""
-        h = self._health
-        self._health = None
-        if h is None:
-            h = torch.zeros(4, dtype=torch.int64, device=self.mesh.device)
+        h = self._health.clone()
+        self._health.zero_()
         return _reduce(h)
 
     def raise_on_health(self, diag: dict) -> None:
